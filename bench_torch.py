@@ -1,0 +1,194 @@
+"""Throughput of the PyTorch/CUDA port on bench.py's image64 workload.
+
+A random agent steps B env lanes of 6-sprite goal finding with 64x64 HSV
+image observations (bench.py's `image64`: 1 target + 5 distractors,
+SelectMove(scale=0.25), FindGoalPosition, max_episode_length=20). Every
+observation leaf and the reward feed an on-device sum (a stand-in learner).
+Each timed chunk ends in torch.cuda.synchronize(); "value" is the best
+chunk's rate (bench.py's rule), "median_steps_per_sec" the median chunk's.
+
+Prints ONE JSON line in bench.py's shape, with "backend": "cuda", the card's
+name and its power limit. Needs a CUDA device.
+
+With --profile N it then runs N more steps under torch.profiler and prints
+a second JSON line: wall and device-busy time per step, the device's idle
+share, kernel launches per step and the kernels that take the most device
+time. The profiler's own overhead lengthens those steps.
+
+Usage: python bench_torch.py [--aa 5] [--num_envs 2048] [--steps 50]
+                             [--chunks 3] [--profile N]
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from spriteworld_torch.core import actions as action_lib
+from spriteworld_torch.core import distributions as distribs
+from spriteworld_torch.core import environment as env_lib
+from spriteworld_torch.core import generators as sprite_generators
+from spriteworld_torch.core import renderers
+from spriteworld_torch.core import tasks
+
+
+def goal_finding_parts():
+    """6-sprite goal-finding scene: 1 hue target + 5 distractors."""
+    common = distribs.Product([
+        distribs.Continuous("x", 0.1, 0.9),
+        distribs.Continuous("y", 0.1, 0.9),
+        distribs.Discrete("shape", ["square", "triangle", "circle",
+                                    "pentagon", "star_5", "spoke_4"]),
+        distribs.Continuous("angle", 0, 360),
+        distribs.Continuous("scale", 0.1, 0.2),
+        distribs.Continuous("c1", 0.3, 1.0),
+        distribs.Continuous("c2", 0.9, 1.0),
+    ])
+    target_hue = distribs.Continuous("c0", 0.0, 0.15)
+    distractor_hue = distribs.Continuous("c0", 0.2, 0.9)
+    init_sprites = sprite_generators.chain_generators(
+        sprite_generators.generate_sprites(
+            distribs.Product([common, target_hue]), num_sprites=1),
+        sprite_generators.generate_sprites(
+            distribs.Product([common, distractor_hue]), num_sprites=5))
+    task = tasks.FindGoalPosition(
+        filter_distrib=target_hue, goal_position=(0.5, 0.5),
+        terminate_distance=0.05)
+    return task, init_sprites
+
+
+def build_env(anti_aliasing: int = 1, image_size=(64, 64),
+              pil_exact: bool = True, device="cuda", seed: int = 0):
+    """bench.py's image64 workload on the port."""
+    task, init_sprites = goal_finding_parts()
+    return env_lib.Environment(
+        task=task,
+        action_space=action_lib.SelectMove(scale=0.25),
+        renderers={
+            "image": renderers.ImageRenderer(
+                image_size=tuple(image_size), anti_aliasing=anti_aliasing,
+                color_to_rgb="hsv", pil_exact=pil_exact),
+            "success": renderers.Success(),
+        },
+        init_sprites=init_sprites,
+        max_episode_length=20,
+        metadata={"name": "bench_goal_finding_6sprites"},
+        device=device, seed=seed)
+
+
+def card_name_and_power_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def consume(ts) -> torch.Tensor:
+    """Sum of every observation leaf and the reward, on the device."""
+    total = torch.nan_to_num(ts.reward).sum()
+    for leaf in ts.observation.values():
+        total = total + leaf.to(torch.float32).sum()
+    return total
+
+
+def run(benv, steps: int, chunks: int):
+    """(seconds of each of `chunks` timed runs of `steps` steps after one
+    warm-up chunk, final state)."""
+    state, ts = benv.reset()
+    acc = consume(ts)
+    times = []
+    for c in range(chunks + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, ts = benv.step(state, benv.sample_actions())
+            acc = acc + consume(ts)
+        torch.cuda.synchronize()
+        if c > 0:
+            times.append(time.perf_counter() - t0)
+    return times, state
+
+
+def profile(benv, state, steps: int) -> dict:
+    """Device time by kernel over `steps` steps, from torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = benv.step(state, benv.sample_actions())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only: operator events carry their kernels' time
+    # too, and would count it twice.
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "profile_steps": steps,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "top_kernels": [
+            {"name": e.key[:80],
+             "ms_per_step": e.self_device_time_total / 1e3 / steps,
+             "launches_per_step": e.count / steps} for e in top],
+    }
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--aa", type=int, default=1,
+                   help="anti_aliasing of the image renderer")
+    p.add_argument("--num_envs", type=int, default=2048)
+    p.add_argument("--steps", type=int, default=50,
+                   help="steps per timed chunk")
+    p.add_argument("--chunks", type=int, default=3,
+                   help="timed chunks (best taken) after one warm-up chunk")
+    p.add_argument("--profile", type=int, default=0,
+                   help="steps to run under torch.profiler afterwards")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_torch.py needs a CUDA device", file=sys.stderr)
+        return 1
+
+    env = build_env(anti_aliasing=args.aa)
+    benv = env_lib.BatchedEnvironment(env, args.num_envs)
+    times, state = run(benv, args.steps, args.chunks)
+    steps_per_sec = args.num_envs * args.steps / min(times)
+    suffix = ("64x64render_6sprites" if args.aa == 1
+              else f"64x64render_aa{args.aa}_6sprites")
+    print(json.dumps({
+        "metric": f"env_steps_per_sec_per_chip_{suffix}",
+        "value": steps_per_sec,
+        "unit": "env-steps/s/chip",
+        "vs_baseline": None,
+        "workload": "image64",
+        "num_envs": args.num_envs,
+        "chip_count": 1,
+        "total_steps_per_sec": steps_per_sec,
+        "median_steps_per_sec":
+            args.num_envs * args.steps / statistics.median(times),
+        "chunk_seconds": times,
+        "backend": "cuda",
+        "anti_aliasing": args.aa,
+        "pil_exact": True,
+        "device": torch.cuda.get_device_name(0),
+        "card": card_name_and_power_limit(),
+    }))
+    if args.profile:
+        print(json.dumps(profile(benv, state, args.profile)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

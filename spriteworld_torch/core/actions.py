@@ -1,0 +1,69 @@
+"""Action spaces as batched state-update functions.
+
+Counterpart of `spriteworld_tpu/core/actions.py`, for `SelectMove`:
+motion = (click2 - 0.5) * scale; optional Gaussian action noise; the
+topmost (foreground-most) live sprite containing click1 moves, clipped to
+the frame when `keep_in_frame`; cost = -motion_cost * ||motion||.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from spriteworld_torch.ops import geometry
+
+
+def _move_sprite(factors, idx, motion, do_move, keep_in_frame: bool):
+    """Move sprite idx[b] of each lane b by motion[b] where do_move[b]."""
+    k = factors.shape[-2]
+    sel = (torch.arange(k, device=factors.device) == idx[:, None]) \
+        & do_move[:, None]  # [B, K]
+    pos = factors[..., 0:2]
+    new_pos = pos + motion[:, None, :]
+    if keep_in_frame:
+        new_pos = new_pos.clamp(0.0, 1.0)
+    out = factors.clone()
+    out[..., 0:2] = torch.where(sel[..., None], new_pos, pos)
+    return out
+
+
+class SelectMove:
+    """Two-click select-and-move: [click_x, click_y, motion_x, motion_y]."""
+
+    ACTION_SIZE = 4
+
+    def __init__(self, scale: float = 1.0, motion_cost: float = 0.0,
+                 noise_scale: Optional[float] = None):
+        self._scale = scale
+        self._motion_cost = motion_cost
+        self._noise_scale = noise_scale
+
+    def get_motion(self, action):
+        return (action[..., 2:] - 0.5) * self._scale
+
+    def apply_noise_to_action(self, action, generator):
+        if not self._noise_scale:
+            return action
+        noise = torch.randn(action.shape, generator=generator,
+                            device=action.device, dtype=action.dtype)
+        return action + self._noise_scale * noise
+
+    def step(self, action, factors, num_sprites, keep_in_frame: bool,
+             generator: torch.Generator):
+        """action f32[B, 4], factors f32[B, K, 10], num_sprites i32[B] ->
+        (factors', cost f32[B])."""
+        action = self.apply_noise_to_action(action, generator)
+        position = action[..., :2]
+        motion = self.get_motion(action)
+        hits = geometry.sprites_containing_point(factors, position)
+        idx, any_hit = geometry.topmost_hit(hits, num_sprites)
+        factors = _move_sprite(factors, idx, motion, any_hit, keep_in_frame)
+        cost = -self._motion_cost * torch.linalg.vector_norm(motion, dim=-1)
+        return factors, cost
+
+    def sample(self, generator: torch.Generator, batch: int):
+        """Uniform random actions f32[B, 4]."""
+        return torch.rand((batch, 4), generator=generator,
+                          device=generator.device)

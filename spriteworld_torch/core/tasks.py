@@ -1,0 +1,104 @@
+"""Tasks as batched reward/success functions over the factor state.
+
+Counterpart of `spriteworld_tpu/core/tasks.py`, for the goal-finding path:
+`NoReward`, `FindGoalPosition` and `task_valid`. Each task maps
+``(factors f32[B, K, 10], num_sprites i32[B])`` to a per-lane reward
+f32[B] and success bool[B].
+
+Contract quirks kept: FindGoalPosition returns NaN when no sprite passes
+the filter, and its success is then vacuously True (``all([])``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spriteworld_torch.core import state as state_lib
+from spriteworld_torch.utils import device as device_lib
+
+
+class NoReward:
+    """Zero reward, never succeeds."""
+
+    def reward(self, factors, num_sprites):
+        return torch.zeros(factors.shape[0], device=factors.device)
+
+    def success(self, factors, num_sprites):
+        return torch.zeros(factors.shape[0], dtype=torch.bool,
+                           device=factors.device)
+
+
+class FindGoalPosition:
+    """Bring all (filtered) sprites within a distance of a goal position."""
+
+    def __init__(self,
+                 filter_distrib=None,
+                 goal_position=(0.5, 0.5),
+                 terminate_distance: float = 0.05,
+                 terminate_bonus: float = 0.0,
+                 weights_dimensions=(1, 1),
+                 sparse_reward: bool = False,
+                 raw_reward_multiplier: float = 50):
+        self._filter_distrib = filter_distrib
+        self._goal_position = np.asarray(goal_position, dtype=np.float32)
+        self._terminate_bonus = terminate_bonus
+        self._terminate_distance = terminate_distance
+        self._sparse_reward = sparse_reward
+        self._weights_dimensions = np.asarray(
+            weights_dimensions, dtype=np.float32)
+        self._raw_reward_multiplier = raw_reward_multiplier
+
+    def _per_sprite_rewards(self, factors):
+        """f32[B, K]: mult * (terminate_distance - weighted goal distance)."""
+        dev = factors.device
+        delta = factors[..., 0:2] - device_lib.constant(
+            self._goal_position, dev)
+        weights = device_lib.constant(self._weights_dimensions, dev)
+        # float64 sqrt rounds to the correctly rounded float32 value, which
+        # torch's vectorized float32 sqrt on the CPU does not always give.
+        dist = torch.sqrt((weights * delta ** 2).sum(-1).double()).float()
+        return self._raw_reward_multiplier * (self._terminate_distance - dist)
+
+    def filter_mask(self, factors, num_sprites):
+        """bool[B, K]: live sprites that pass the filter."""
+        k = factors.shape[-2]
+        alive = torch.arange(k, device=factors.device) < num_sprites[:, None]
+        if self._filter_distrib is None:
+            return alive
+        return alive & self._filter_distrib.contains(
+            state_lib.factors_to_dict(factors))
+
+    def reward(self, factors, num_sprites):
+        rewards = self._per_sprite_rewards(factors)
+        mask = self.filter_mask(factors, num_sprites)
+        zero = torch.zeros_like(rewards)
+        dense = torch.where(mask, rewards, zero).sum(-1)
+        succeeded = torch.where(mask, rewards, zero + torch.inf).ge(0).all(-1)
+        bonus = torch.where(succeeded, self._terminate_bonus + dense,
+                            torch.zeros_like(dense))
+        shaped = torch.where(
+            succeeded, bonus,
+            torch.zeros_like(dense) if self._sparse_reward else dense)
+        return torch.where(mask.any(-1), shaped,
+                           torch.full_like(shaped, torch.nan))
+
+    def success(self, factors, num_sprites):
+        rewards = self._per_sprite_rewards(factors)
+        mask = self.filter_mask(factors, num_sprites)
+        # Vacuously True on an empty filter, like `all([])`.
+        return torch.where(mask, rewards,
+                           torch.full_like(rewards, torch.inf)).ge(0).all(-1)
+
+
+def task_valid(task, factors, num_sprites) -> torch.Tensor:
+    """bool[B]: whether the task's reward/success are defined on each lane.
+
+    Tasks without a `valid` method (NoReward, FindGoalPosition, whose NaN
+    rewards are contractual) are always valid.
+    """
+    fn = getattr(task, "valid", None)
+    if fn is None:
+        return torch.ones(factors.shape[0], dtype=torch.bool,
+                          device=factors.device)
+    return fn(factors, num_sprites)

@@ -1,0 +1,264 @@
+// Scene rasterizer for Hopper (sm_90a): one thread block renders one scene.
+//
+// Replaces the TPU kernel `_fill_kernel_scene` of
+// spriteworld_tpu/ops/rasterize_pallas.py (its pallas_call at the scene
+// branch of render_rgb_batch). It computes the same function: Pillow's exact
+// scanline fill of every sprite polygon, painted back to front on the
+// anti_aliasing-supersampled canvas, then Pillow's Lanczos downsample (or
+// none at anti_aliasing=1) and the vertical flip to math coordinates.
+// Inputs are the per-sprite tables of spriteworld_torch/ops/rasterize_cuda.py
+// (`prepare`); the plain torch version there computes the same values.
+//
+// What bounds it. The output is 64*64*3 bytes a scene and the tables ~8 KB,
+// so at 2048 scenes the kernel moves ~40 MB: ~12 us at 3.35 TB/s. The work
+// is scalar arithmetic: per filled-region pixel a test of each of the
+// sprite's <= 30 scanline crossings, and per h-pass output ~31 integer
+// multiply-adds per channel. The kernel is bound by operations.
+//
+// Design.
+// * The TPU kernel keeps an f32 packed-RGB canvas (400 KiB at 320x320) and
+//   f32 crossing and weight tables (288 KiB each) in VMEM. None fits the
+//   227 KiB of shared memory a block may use. Here the canvas holds the
+//   index of the topmost sprite of each pixel, one byte (0 = background,
+//   k + 1 = sprite k): 100 KiB at 320x320. Later sprites overwrite earlier
+//   ones (painter's order); colours stay in a K + 1 entry table.
+// * Crossings are recomputed per (row, edge) instead of stored: canvas row r
+//   belongs to warp r % 16 for every sprite, and lane e holds edge e of the
+//   current sprite. xi = x0 + (r - y0) * m with __fmul_rn/__fadd_rn, as two
+//   roundings (nvcc would otherwise contract to an FMA). Warp reductions give
+//   the row's total Pillow weight and its first maximum crossing: the
+//   odd-total trim drops one instance of it. Each lane then fills columns of
+//   the sprite's bounds: odd(sum of weights with xi <= c - 0.5) or some
+//   weight with c - 0.5 < xi < c + 0.5, or a horizontal-edge/wedge feature
+//   interval on this row. A row is only ever written by its own warp, so
+//   the painter's order needs no block barrier between sprites.
+// * The Lanczos filter runs in Pillow's own int32 fixed point with the
+//   integer taps q (tap = q / 2^22): acc = 2^21 + sum(q * p), out =
+//   clip(acc >> 22, 0, 255). Integer sums are exact in any order, so the
+//   result equals Pillow's and the plain version's on every value. The
+//   h-pass reads the index canvas through the colour table into a
+//   u8[hc][w][3] buffer (60 KiB at 320x64); the v-pass writes the output
+//   already flipped.
+// * Shared memory at 64x64, anti_aliasing=5: ~190 KiB (opted in with
+//   cudaFuncSetAttribute), so one block per SM.
+// * Left out: the TPU kernel's single-interval fast path for convex sprites
+//   (`_scene_fastok`), a speed trick with the same output.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kBig = 1e9f;
+
+// Table layout (rasterize_cuda.py): 8 scalars, 5 edge fields of V values,
+// then 2V features (row, lo, hi).
+constexpr int kNumScalars = 8;
+enum { T_COUNT, T_NF, T_COLOR, T_GYMAX, T_ROW0, T_ROW1, T_COL0, T_COL1 };
+enum { E_Y0, E_M, E_X0, E_YMIN, E_YMAX };
+
+struct Layout {
+  // Word offsets (4 bytes) of the small tables, byte offsets of the u8 ones.
+  int tab, ctab, xi, wgt, hx0, hq, vy0, vq;
+  size_t canvas, hpass, bytes;
+};
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~size_t(15); }
+
+__host__ __device__ inline Layout layout(int K, int NT, int hc, int wc, int h,
+                                         int w, int ht, int vt) {
+  Layout L;
+  L.tab = 0;
+  L.ctab = L.tab + K * NT;
+  L.xi = L.ctab + K + 1;
+  L.wgt = L.xi + kWarps * 32;
+  L.hx0 = L.wgt + kWarps * 32;
+  L.hq = L.hx0 + (ht ? w : 0);
+  L.vy0 = L.hq + w * ht;
+  L.vq = L.vy0 + (vt ? h : 0);
+  L.canvas = round16(size_t(L.vq + h * vt) * 4);
+  L.hpass = L.canvas + round16(size_t(hc) * wc);
+  L.bytes = L.hpass + (ht ? round16(size_t(hc) * w * 3) : 0);
+  return L;
+}
+
+__device__ __forceinline__ uint8_t clip8(int acc) {
+  const int v = acc >> 22;  // arithmetic shift: floor division by 2^22
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+__global__ void __launch_bounds__(kThreads)
+scene_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
+                    int hc, int wc, int h, int w,
+                    const int* __restrict__ hx0, const int* __restrict__ hq,
+                    int ht, const int* __restrict__ vy0,
+                    const int* __restrict__ vq, int vt, int bg_packed,
+                    uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(K, NT, hc, wc, h, w, ht, vt);
+  float* s_tab = reinterpret_cast<float*>(smem) + L.tab;
+  int* s_ctab = reinterpret_cast<int*>(smem) + L.ctab;
+  float* s_xi = reinterpret_cast<float*>(smem) + L.xi;
+  int* s_wgt = reinterpret_cast<int*>(smem) + L.wgt;
+  int* s_hx0 = reinterpret_cast<int*>(smem) + L.hx0;
+  int* s_hq = reinterpret_cast<int*>(smem) + L.hq;
+  int* s_vy0 = reinterpret_cast<int*>(smem) + L.vy0;
+  int* s_vq = reinterpret_cast<int*>(smem) + L.vq;
+  uint8_t* canvas = smem + L.canvas;
+  uint8_t* hpass = smem + L.hpass;
+
+  const int tid = threadIdx.x;
+  const float* scene = tab + size_t(blockIdx.x) * K * NT;
+  for (int i = tid; i < K * NT; i += kThreads) s_tab[i] = scene[i];
+  for (int i = tid; i <= K; i += kThreads)
+    s_ctab[i] = i == 0 ? bg_packed : static_cast<int>(scene[(i - 1) * NT + T_COLOR]);
+  for (int i = tid; i < w * ht; i += kThreads) s_hq[i] = hq[i];
+  for (int i = tid; i < h * vt; i += kThreads) s_vq[i] = vq[i];
+  if (ht)
+    for (int i = tid; i < w; i += kThreads) s_hx0[i] = hx0[i];
+  if (vt)
+    for (int i = tid; i < h; i += kThreads) s_vy0[i] = vy0[i];
+  uint32_t* canvas32 = reinterpret_cast<uint32_t*>(canvas);
+  for (int i = tid; i < (hc * wc + 3) / 4; i += kThreads) canvas32[i] = 0u;
+  __syncthreads();
+
+  // ---- exact fill, sprite by sprite, one warp per canvas row ----------- //
+  const int warp = tid >> 5, lane = tid & 31;
+  float* wx = s_xi + warp * 32;
+  int* ww = s_wgt + warp * 32;
+  for (int k = 0; k < K; ++k) {
+    const float* st = s_tab + k * NT;
+    const int count = static_cast<int>(st[T_COUNT]);
+    if (count <= 0) continue;
+    const int r0 = max(static_cast<int>(st[T_ROW0]), 0);
+    const int r1 = min(static_cast<int>(st[T_ROW1]), hc - 1);
+    const int c0 = max(static_cast<int>(st[T_COL0]), 0);
+    const int c1 = min(static_cast<int>(st[T_COL1]), wc - 1);
+    const int nf = static_cast<int>(st[T_NF]);
+    const float gymax = st[T_GYMAX];
+    const float* feat = st + kNumScalars + 5 * V;
+    const bool has_edge = lane < count;
+    const float y0 = has_edge ? st[kNumScalars + E_Y0 * V + lane] : 0.f;
+    const float m = has_edge ? st[kNumScalars + E_M * V + lane] : 0.f;
+    const float x0 = has_edge ? st[kNumScalars + E_X0 * V + lane] : 0.f;
+    const float ymn = has_edge ? st[kNumScalars + E_YMIN * V + lane] : kBig;
+    const float ymx = has_edge ? st[kNumScalars + E_YMAX * V + lane] : -kBig;
+
+    const int first_row = r0 + ((warp - r0) % kWarps + kWarps) % kWarps;
+    for (int r = first_row; r <= r1; r += kWarps) {
+      const float rf = static_cast<float>(r);
+      const float xi = __fadd_rn(x0, __fmul_rn(__fsub_rn(rf, y0), m));
+      const bool inr = rf >= ymn && rf <= ymx;
+      const bool dup = inr && rf == ymx && ymx < gymax;
+      int wgt = static_cast<int>(inr) + static_cast<int>(dup);
+      // Odd-total trim: drop one instance of the first row maximum.
+      const int total = __reduce_add_sync(kFull, wgt);
+      float rmax = wgt > 0 ? xi : -kBig;
+      for (int o = 16; o > 0; o >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, o));
+      const unsigned ismax = __ballot_sync(kFull, wgt > 0 && xi == rmax);
+      if ((total & 1) && lane == __ffs(ismax) - 1) wgt -= 1;
+      __syncwarp();
+      wx[lane] = xi;
+      ww[lane] = wgt;
+      __syncwarp();
+
+      uint8_t* crow = canvas + size_t(r) * wc;
+      for (int c = c0 + lane; c <= c1; c += 32) {
+        const float cf = static_cast<float>(c);
+        const float cm = cf - 0.5f, cp = cf + 0.5f;
+        int le = 0, win = 0;
+        for (int e = 0; e < count; ++e) {
+          const float x = wx[e];
+          if (x <= cm) le += ww[e];
+          else if (x < cp) win += ww[e];
+        }
+        bool fill = (le & 1) || win > 0;
+        for (int j = 0; j < nf && !fill; ++j) {
+          const float* f = feat + 3 * j;
+          fill = f[0] == rf && f[1] <= cf && cf <= f[2];
+        }
+        if (fill) crow[c] = static_cast<uint8_t>(k + 1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- downsample and flip --------------------------------------------- //
+  uint8_t* img = out + size_t(blockIdx.x) * h * w * 3;
+  if (ht == 0) {  // anti_aliasing=1: identity
+    for (int i = tid; i < h * w; i += kThreads) {
+      const int y = i / w, x = i - y * w;
+      const int c = s_ctab[canvas[y * wc + x]];
+      uint8_t* o = img + ((h - 1 - y) * w + x) * 3;
+      o[0] = static_cast<uint8_t>(c >> 16);
+      o[1] = static_cast<uint8_t>((c >> 8) & 255);
+      o[2] = static_cast<uint8_t>(c & 255);
+    }
+    return;
+  }
+  // Horizontal pass: canvas row y, output column ox.
+  for (int i = tid; i < hc * w; i += kThreads) {
+    const int y = i / w, ox = i - y * w;
+    const uint8_t* src = canvas + y * wc + s_hx0[ox];
+    const int* q = s_hq + ox * ht;
+    int ar = 1 << 21, ag = 1 << 21, ab = 1 << 21;
+    for (int t = 0; t < ht; ++t) {
+      const int c = s_ctab[src[t]];
+      const int qt = q[t];
+      ar += qt * (c >> 16);
+      ag += qt * ((c >> 8) & 255);
+      ab += qt * (c & 255);
+    }
+    uint8_t* o = hpass + i * 3;
+    o[0] = clip8(ar);
+    o[1] = clip8(ag);
+    o[2] = clip8(ab);
+  }
+  __syncthreads();
+  // Vertical pass: output row oy, written flipped.
+  for (int i = tid; i < h * w; i += kThreads) {
+    const int oy = i / w, ox = i - oy * w;
+    const uint8_t* src = hpass + (s_vy0[oy] * w + ox) * 3;
+    const int* q = s_vq + oy * vt;
+    int ar = 1 << 21, ag = 1 << 21, ab = 1 << 21;
+    for (int t = 0; t < vt; ++t) {
+      const uint8_t* p = src + t * w * 3;
+      const int qt = q[t];
+      ar += qt * p[0];
+      ag += qt * p[1];
+      ab += qt * p[2];
+    }
+    uint8_t* o = img + ((h - 1 - oy) * w + ox) * 3;
+    o[0] = clip8(ar);
+    o[1] = clip8(ag);
+    o[2] = clip8(ab);
+  }
+}
+
+}  // namespace
+
+// Launches on `stream`; returns the CUDA error code (0 on success). With
+// ht == 0 (anti_aliasing=1) the tap pointers may be null.
+extern "C" int scene_raster_launch(const float* tab, int B, int K, int V,
+                                   int NT, int hc, int wc, int h, int w,
+                                   const int* hx0, const int* hq, int ht,
+                                   const int* vy0, const int* vq, int vt,
+                                   int bg_packed, uint8_t* out, void* stream) {
+  const Layout L = layout(K, NT, hc, wc, h, w, ht, vt);
+  cudaError_t err = cudaFuncSetAttribute(
+      scene_raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scene_raster_kernel<<<B, kThreads, L.bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      tab, K, V, NT, hc, wc, h, w, hx0, hq, ht, vy0, vq, vt, bg_packed, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* sw_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
