@@ -1,11 +1,20 @@
-"""Throughput of the PyTorch/CUDA port on bench.py's image64 workload.
+"""Throughput of the PyTorch/CUDA port on its workloads.
 
-A random agent steps B env lanes of 6-sprite goal finding with 64x64 HSV
-image observations (bench.py's `image64`: 1 target + 5 distractors,
-SelectMove(scale=0.25), FindGoalPosition, max_episode_length=20). Every
-observation leaf and the reward feed an on-device sum (a stand-in learner).
-Each timed chunk ends in torch.cuda.synchronize(); "value" is the best
-chunk's rate (bench.py's rule), "median_steps_per_sec" the median chunk's.
+--workload image64 (default): a random agent steps B env lanes of 6-sprite
+goal finding with 64x64 HSV image observations (bench.py's `image64`: 1
+target + 5 distractors, SelectMove(scale=0.25), FindGoalPosition,
+max_episode_length=20), 2048 lanes by default.
+
+--workload demo256: the interactive demo's scene (run_demo.py's defaults):
+the cobra clustering config (train mode) with demo_ui.setup_run_ui's
+overrides, DragAndDrop(scale=0.5), a 256x256 HSV ImageRenderer at
+anti_aliasing=10 and Success, 256 lanes by default. Its 2560x2560 canvas
+renders through the row-strip kernels.
+
+Every observation leaf and the reward feed an on-device sum (a stand-in
+learner). Each timed chunk ends in torch.cuda.synchronize(); "value" is the
+best chunk's rate (bench.py's rule), "median_steps_per_sec" the median
+chunk's.
 
 Prints ONE JSON line in bench.py's shape, with "backend": "cuda", the card's
 name and its power limit. Needs a CUDA device.
@@ -15,8 +24,9 @@ a second JSON line: wall and device-busy time per step, the device's idle
 share, kernel launches per step and the kernels that take the most device
 time. The profiler's own overhead lengthens those steps.
 
-Usage: python bench_torch.py [--aa 5] [--num_envs 2048] [--steps 50]
-                             [--chunks 3] [--profile N]
+Usage: python bench_torch.py [--workload image64|demo256] [--aa N]
+                             [--num_envs B] [--steps 50] [--chunks 3]
+                             [--profile N]
 """
 
 import argparse
@@ -28,6 +38,7 @@ import time
 
 import torch
 
+from spriteworld_torch.configs.cobra import clustering
 from spriteworld_torch.core import actions as action_lib
 from spriteworld_torch.core import distributions as distribs
 from spriteworld_torch.core import environment as env_lib
@@ -78,6 +89,31 @@ def build_env(anti_aliasing: int = 1, image_size=(64, 64),
         max_episode_length=20,
         metadata={"name": "bench_goal_finding_6sprites"},
         device=device, seed=seed)
+
+
+def demo_config(mode: str = "train", render_size: int = 256,
+                anti_aliasing: int = 10):
+    """The cobra clustering config with the interactive demo's overrides
+    (demo_ui.setup_run_ui, at run_demo.py's defaults): DragAndDrop(scale=0.5)
+    in place of SelectMove, an HSV image of render_size x render_size at
+    `anti_aliasing`, and the Success observation."""
+    config = clustering.get_config(mode)
+    config["action_space"] = action_lib.DragAndDrop(scale=0.5)
+    config["renderers"] = {
+        "image": renderers.ImageRenderer(
+            image_size=(render_size, render_size),
+            anti_aliasing=anti_aliasing, color_to_rgb="hsv"),
+        "success": renderers.Success(),
+    }
+    return config
+
+
+def build_demo_env(anti_aliasing: int = 10, render_size: int = 256,
+                   device="cuda", seed: int = 0):
+    """The demo256 workload on the port."""
+    return env_lib.Environment(
+        **demo_config("train", render_size, anti_aliasing), device=device,
+        seed=seed)
 
 
 def card_name_and_power_limit() -> str:
@@ -145,11 +181,22 @@ def profile(benv, state, steps: int) -> dict:
     }
 
 
+_DEFAULTS = {  # workload: (anti_aliasing, lanes)
+    "image64": (1, 2048),
+    "demo256": (10, 256),
+}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--aa", type=int, default=1,
-                   help="anti_aliasing of the image renderer")
-    p.add_argument("--num_envs", type=int, default=2048)
+    p.add_argument("--workload", choices=sorted(_DEFAULTS),
+                   default="image64")
+    p.add_argument("--aa", type=int, default=None,
+                   help="anti_aliasing of the image renderer (default: 1 "
+                        "for image64, 10 for demo256)")
+    p.add_argument("--num_envs", type=int, default=None,
+                   help="lanes (default: 2048 for image64, 256 for "
+                        "demo256)")
     p.add_argument("--steps", type=int, default=50,
                    help="steps per timed chunk")
     p.add_argument("--chunks", type=int, default=3,
@@ -160,27 +207,34 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("bench_torch.py needs a CUDA device", file=sys.stderr)
         return 1
+    aa, num_envs = _DEFAULTS[args.workload]
+    aa = aa if args.aa is None else args.aa
+    num_envs = num_envs if args.num_envs is None else args.num_envs
 
-    env = build_env(anti_aliasing=args.aa)
-    benv = env_lib.BatchedEnvironment(env, args.num_envs)
+    if args.workload == "image64":
+        env = build_env(anti_aliasing=aa)
+        suffix = ("64x64render_6sprites" if aa == 1
+                  else f"64x64render_aa{aa}_6sprites")
+    else:
+        env = build_demo_env(anti_aliasing=aa)
+        suffix = f"256x256render_aa{aa}_clustering"
+    benv = env_lib.BatchedEnvironment(env, num_envs)
     times, state = run(benv, args.steps, args.chunks)
-    steps_per_sec = args.num_envs * args.steps / min(times)
-    suffix = ("64x64render_6sprites" if args.aa == 1
-              else f"64x64render_aa{args.aa}_6sprites")
+    steps_per_sec = num_envs * args.steps / min(times)
     print(json.dumps({
         "metric": f"env_steps_per_sec_per_chip_{suffix}",
         "value": steps_per_sec,
         "unit": "env-steps/s/chip",
         "vs_baseline": None,
-        "workload": "image64",
-        "num_envs": args.num_envs,
+        "workload": args.workload,
+        "num_envs": num_envs,
         "chip_count": 1,
         "total_steps_per_sec": steps_per_sec,
         "median_steps_per_sec":
-            args.num_envs * args.steps / statistics.median(times),
+            num_envs * args.steps / statistics.median(times),
         "chunk_seconds": times,
         "backend": "cuda",
-        "anti_aliasing": args.aa,
+        "anti_aliasing": aa,
         "pil_exact": True,
         "device": torch.cuda.get_device_name(0),
         "card": card_name_and_power_limit(),

@@ -4,20 +4,33 @@ any failure.
 Phases:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every kernel from spriteworld_torch/csrc (one nvcc per source,
-     all started together);
+     all started together), and hold the renderer's Python mirrors of the
+     kernels' shared-memory layouts equal to the kernels' own;
   3. each kernel against its plain PyTorch version on the card, bit-exact,
-     over seeded batches (all 12 shapes, random angles, 1-8 live sprites,
-     the degenerate tiny/axis-aligned generator) at 64x64/AA=5, 64x64/AA=1
-     and 32x32/AA=2, with a bg_color case and an HSV case; then the whole
-     render on the card against the CPU on angle-0 scenes (trig exact);
+     over seeded batches. The scene kernel: all 12 shapes, random angles,
+     1-8 live sprites, the degenerate tiny/axis-aligned generator, at
+     64x64/AA=5, 64x64/AA=1 and 32x32/AA=2, with a bg_color case and an HSV
+     case; then the whole render on the card against the CPU on angle-0
+     scenes (trig exact). The row-strip kernels: 256x256/AA=10, 128x128/AA=5,
+     a degenerate batch, a non-square canvas and 1024x1024/AA=1, each whole
+     render and the h-pass and v-pass on their own; ImageRenderer at
+     128x128/AA=5 and 256x256/AA=10 taking the strips; then strips forced
+     at 64x64/AA=5 against the scene kernel (two independent kernels);
   4. the main path: bench.py's image64 workload at anti_aliasing=5 over
      2048 lanes — reset, warm-up, 3 timed chunks of 50 steps, each step
      followed by torch.cuda.synchronize() — checking that every render went
-     through the kernel, images are not blank, rewards are finite (NaN only
-     where the goal filter is empty) and step types follow FIRST/MID/LAST;
-  5. each kernel's time at the main path's shapes beside its plain version
-     and its bound, as one JSON `kernels` line;
-  6. the last line: {"ok": true, "device": {...}}.
+     through the scene kernel, images are not blank, rewards are finite
+     (NaN only where the goal filter is empty) and step types follow
+     FIRST/MID/LAST;
+  5. the demo path: the cobra clustering config with the interactive
+     demo's overrides (DragAndDrop(scale=0.5), 256x256 HSV images at
+     anti_aliasing=10, Success) over 256 lanes — reset, warm-up, 3 chunks of
+     20 steps — checking that every render went through the strip kernels,
+     images are not blank, rewards are finite wherever the task is valid
+     and step types follow FIRST/MID/LAST;
+  6. each kernel's time at its path's shapes beside its plain version and
+     its bound, as one JSON `kernels` line;
+  7. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
 """
@@ -34,6 +47,10 @@ BATCH = 2048
 STEPS = 50
 CHUNKS = 3
 WARMUP_STEPS = 5
+DEMO_BATCH = 256
+DEMO_STEPS = 20
+DEMO_WARMUP_STEPS = 3
+DEMO_SIZE, DEMO_AA = 256, 10
 
 
 class SmokeFailure(RuntimeError):
@@ -127,17 +144,124 @@ def kernel_vs_plain(torch, rasterize_cuda, colors):
     return worst
 
 
-def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda, StepType):
-    """Phase 4: image64 at AA=5 over 2048 lanes. Returns (steps/s, state)."""
-    env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
-    benv = env_lib.BatchedEnvironment(env, BATCH)
-    task = env.task
-    dev = env.device
+def check_layouts(rasterize_cuda):
+    """Phase 2: the dispatch's Python mirrors of the kernels' shared-memory
+    layouts equal the kernels' own, over the shapes the phases use."""
+    scene_lib = rasterize_cuda._scene_launcher()[0]
+    strip_lib = rasterize_cuda._strip_launchers()[0]
+    v = 30
+    for (h, w, aa, k) in [(64, 64, 5, 6), (64, 64, 1, 8), (32, 32, 2, 8),
+                          (256, 256, 10, 4), (128, 128, 5, 8),
+                          (96, 160, 3, 8), (1024, 1024, 1, 8)]:
+        hc, wc = h * aa, w * aa
+        ht, vt = rasterize_cuda._tap_widths(hc, wc, h, w)
+        want = scene_lib.scene_raster_smem_bytes(
+            k, rasterize_cuda.table_width(v), hc, wc, h, w, ht, vt)
+        got = rasterize_cuda.scene_smem_bytes(k, v, hc, wc, h, w)
+        check(got == want, f"scene layout mirror {got} != {want} at "
+                           f"{h}x{w}/AA={aa}")
+        rows = rasterize_cuda.default_strip_rows(hc, wc)
+        want = strip_lib.strip_raster_smem_bytes(k, rows, wc)
+        got = rasterize_cuda.strip_smem_bytes(k, rows, wc)
+        check(got == want, f"strip layout mirror {got} != {want}")
+    print("shared-memory layout mirrors equal the kernels' own")
 
-    rasterize_cuda.scene_raster.launches = 0
-    renders = 0
+
+def strips_vs_plain(torch, rasterize_cuda, colors):
+    """Phase 3, strips: every case bit-exact; returns the largest
+    difference of (strip_raster, strip_vpass)."""
+    rc = rasterize_cuda
+    cases = [
+        # (name, seed, b, image_size, aa, strip_rows, batch kw, render kw)
+        ("256x256/AA=10 hsv", 11, 8, (256, 256), 10, None, {"hsv": True},
+         {"color_to_rgb": colors.hsv_to_rgb}),
+        ("128x128/AA=5", 12, 32, (128, 128), 5, None, {}, {}),
+        ("64x64/AA=5 degenerate, 7-row strips", 13, 64, (64, 64), 5, 7,
+         {"degenerate": True}, {}),
+        ("96x160/AA=3 bg_color", 14, 16, (96, 160), 3, None, {},
+         {"bg_color": (10, 20, 30)}),
+        ("1024x1024/AA=1", 15, 4, (1024, 1024), 1, None, {}, {}),
+    ]
+    worst_fill = worst_v = 0
+    for name, seed, b, size, aa, rows, bkw, rkw in cases:
+        f, n = scene_batch(seed, b, **bkw)
+        tables = rc.prepare(
+            torch.from_numpy(f).cuda(), torch.from_numpy(n).cuda(),
+            size[0] * aa, size[1] * aa, rkw.get("color_to_rgb"))
+        bg = rkw.get("bg_color")
+        got = rc.render_strips(tables, size, bg, rows)
+        want = rc.render_rgb_batch_plain(tables, size, bg)
+        torch.cuda.synchronize()
+        err, count = compare(got, want)
+        print(f"strip kernels vs plain, {name}, B={b}: max |diff| {err}, "
+              f"{count} differing values")
+        check(count == 0, f"strip kernels differ from the plain version "
+                          f"({name})")
+        if aa == 1:
+            worst_fill = max(worst_fill, err)
+            continue
+        # Each kernel on its own: the h-pass, then the v-pass on the plain
+        # h-pass.
+        hp = rc.strip_raster(tables, size, bg, rows)
+        hp_plain = rc.hpass_plain(tables, size[1], bg)
+        err_h, count_h = compare(hp, hp_plain)
+        err_v, count_v = compare(rc.strip_vpass(hp_plain, size[0]),
+                                 rc.vpass_plain(hp_plain, size[0]))
+        print(f"  h-pass vs plain: max |diff| {err_h}, {count_h} differing; "
+              f"v-pass vs plain: max |diff| {err_v}, {count_v} differing")
+        check(count_h == 0, f"strip h-pass differs ({name})")
+        check(count_v == 0, f"strip v-pass differs ({name})")
+        worst_fill = max(worst_fill, err, err_h)
+        worst_v = max(worst_v, err_v)
+
+    # The renderer's "auto" dispatch sends these canvases to the strips.
+    from spriteworld_torch.core import renderers
+
+    for size, aa in ((128, 5), (256, 10)):
+        f, n = scene_batch(17, 4, hsv=True)
+        f, n = torch.from_numpy(f).cuda(), torch.from_numpy(n).cuda()
+        before = (rc.scene_raster.launches, rc.strip_raster.launches)
+        got = renderers.ImageRenderer((size, size), anti_aliasing=aa,
+                                      color_to_rgb="hsv").render(f, n, None)
+        after = (rc.scene_raster.launches, rc.strip_raster.launches)
+        want = rc.render_rgb_batch_plain(
+            rc.prepare(f, n, size * aa, size * aa, colors.hsv_to_rgb),
+            (size, size))
+        err, count = compare(got, want)
+        print(f"ImageRenderer({size}x{size}, anti_aliasing={aa}) on the "
+              f"card: scene/strip launches {before} -> {after}, max |diff| "
+              f"{err} against plain")
+        check(after == (before[0], before[1] + 1),
+              f"ImageRenderer at {size}x{size}/AA={aa} did not take the "
+              "strip kernel")
+        check(count == 0, f"ImageRenderer at {size}x{size}/AA={aa} differs "
+                          "from the plain version")
+        worst_fill = max(worst_fill, err)
+
+    # Two independent kernels: strips forced at the main path's size against
+    # the scene kernel.
+    f, n = scene_batch(16, 256)
+    tables = rc.prepare(torch.from_numpy(f).cuda(),
+                        torch.from_numpy(n).cuda(), 320, 320, None)
+    err, count = compare(rc.render_strips(tables, (64, 64), None, 48),
+                         rc.scene_raster(tables, (64, 64)))
+    print(f"strip kernels (48-row strips) vs scene kernel, 64x64/AA=5, "
+          f"B=256: max |diff| {err}, {count} differing values")
+    check(count == 0, "strip kernels differ from the scene kernel")
+    return worst_fill, worst_v
+
+
+def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
+          label):
+    """Reset, `warmup` steps, then `chunks` timed chunks of `steps` steps,
+    each step synchronised and checked: step types follow FIRST/MID/LAST,
+    no image is blank, `bad_rewards_of(state, ts, first)` flags no lane.
+    Returns (best steps/s, final state, renders)."""
+    from spriteworld_torch.core.state import StepType
+
+    dev = benv.env.device
     state, ts = benv.reset()
-    renders += 1
+    renders = 1
     prev_type = ts.step_type
     bad_types = torch.zeros((), dtype=torch.int64, device=dev)
     bad_rewards = torch.zeros((), dtype=torch.int64, device=dev)
@@ -152,41 +276,195 @@ def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda, StepType):
         first = cur == StepType.FIRST
         after_last = prev_type == StepType.LAST
         bad_types = bad_types + (first != after_last).sum()
-        empty = ~task.filter_mask(state.factors, state.num_sprites).any(-1)
-        nan = torch.isnan(ts.reward)
-        bad_rewards = bad_rewards + (nan != (~first & empty)).sum() \
-            + torch.isinf(ts.reward).sum()
+        bad_rewards = bad_rewards + bad_rewards_of(state, ts, first).sum()
         blank = blank + (ts.observation["image"].amax(dim=(1, 2, 3))
                          == 0).sum()
         seen = seen + torch.bincount(cur.long(), minlength=3)
         prev_type = cur
 
-    for _ in range(WARMUP_STEPS):
+    for _ in range(warmup):
         step()
-    renders += WARMUP_STEPS
+    renders += warmup
     best = float("inf")
-    for c in range(CHUNKS):
+    for c in range(chunks):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(STEPS):
+        for _ in range(steps):
             step()
         dt = time.perf_counter() - t0
         best = min(best, dt)
-        renders += STEPS
-        print(f"main path chunk {c}: {STEPS} steps x {BATCH} lanes in "
+        renders += steps
+        print(f"{label} chunk {c}: {steps} steps x {benv.num_envs} lanes in "
               f"{dt:.4f} s")
     image = ts.observation["image"]
-    check(tuple(image.shape) == (BATCH, 64, 64, 3)
+    check(tuple(image.shape) == (benv.num_envs,) + image_shape
           and image.dtype == torch.uint8, f"image {tuple(image.shape)}")
-    launches = rasterize_cuda.scene_raster.launches
-    print(f"scene_raster launches {launches} for {renders} renders; "
-          f"step types seen (FIRST, MID, LAST) {seen.tolist()}")
-    check(launches == renders, "a render did not go through the kernel")
+    print(f"{label}: step types seen (FIRST, MID, LAST) {seen.tolist()}")
     check(int(bad_types) == 0, f"{int(bad_types)} bad step-type transitions")
     check(int(bad_rewards) == 0, f"{int(bad_rewards)} bad rewards")
     check(int(blank) == 0, f"{int(blank)} blank images")
     check(int(seen[2]) > 0 and int(seen[0]) > 0, "no episode ended")
-    return BATCH * STEPS / best, state
+    return benv.num_envs * steps / best, state, renders
+
+
+def reset_counts(rasterize_cuda):
+    for fn in (rasterize_cuda.scene_raster, rasterize_cuda.strip_raster,
+               rasterize_cuda.strip_vpass):
+        fn.launches = 0
+
+
+def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
+    """Phase 4: image64 at AA=5 over 2048 lanes. Returns (steps/s, state,
+    scene_raster launches)."""
+    env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
+    benv = env_lib.BatchedEnvironment(env, BATCH)
+    task = env.task
+
+    def bad_rewards(state, ts, first):
+        empty = ~task.filter_mask(state.factors, state.num_sprites).any(-1)
+        return (torch.isnan(ts.reward) != (~first & empty)) \
+            | torch.isinf(ts.reward)
+
+    reset_counts(rasterize_cuda)
+    rate, state, renders = drive(torch, benv, STEPS, CHUNKS, WARMUP_STEPS,
+                                 (64, 64, 3), bad_rewards, "main path")
+    launches = rasterize_cuda.scene_raster.launches
+    print(f"scene_raster launches {launches} for {renders} renders")
+    check(launches == renders, "a render did not go through the kernel")
+    return rate, state, launches
+
+
+def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
+    """Phase 5: the demo's clustering scene at 256x256/AA=10 over 256 lanes.
+    Returns (steps/s, state, {kernel: launches})."""
+    env = bench_torch.build_demo_env(anti_aliasing=DEMO_AA,
+                                     render_size=DEMO_SIZE, device="cuda",
+                                     seed=0)
+    benv = env_lib.BatchedEnvironment(env, DEMO_BATCH)
+
+    def bad_rewards(state, ts, first):
+        return ~torch.isfinite(ts.reward) & state.task_valid
+
+    reset_counts(rasterize_cuda)
+    rate, state, renders = drive(
+        torch, benv, DEMO_STEPS, CHUNKS, DEMO_WARMUP_STEPS,
+        (DEMO_SIZE, DEMO_SIZE, 3), bad_rewards, "demo path")
+    launches = {fn.__name__: fn.launches for fn in (
+        rasterize_cuda.strip_raster, rasterize_cuda.strip_vpass,
+        rasterize_cuda.scene_raster)}
+    print(f"demo path launches {launches} for {renders} renders; "
+          f"task valid on {int(state.task_valid.sum())} of {DEMO_BATCH} "
+          "lanes")
+    check(launches["strip_raster"] == renders
+          and launches["strip_vpass"] == renders,
+          "a demo render did not go through the strip kernels")
+    check(launches["scene_raster"] == 0, "a demo render took the scene "
+                                         "kernel")
+    return rate, state, launches
+
+
+def event_ms(torch, fn, reps):
+    """Mean device time of one call of `fn` over `reps` calls, after one."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fill_ops(tables):
+    """A compare and an add per edge for every pixel of each live sprite's
+    bounds (clipped to the canvas): the exact fill's operations."""
+    from spriteworld_torch.ops import rasterize_cuda as s
+
+    tab = tables.tab
+    rows = (tab[..., s.T_ROW1].clamp(max=tables.hc - 1)
+            - tab[..., s.T_ROW0].clamp(min=0) + 1).clamp(min=0)
+    cols = (tab[..., s.T_COL1].clamp(max=tables.wc - 1)
+            - tab[..., s.T_COL0].clamp(min=0) + 1).clamp(min=0)
+    return float((rows * cols * tab[..., s.T_COUNT] * 2).sum())
+
+
+def lanczos_ops(resample, in_size, out_size, scenes, lines):
+    """A multiply and an add per tap and channel of each output of one
+    Lanczos pass over `lines` lines of `scenes` scenes."""
+    taps = sum(len(q) for q in resample.pil_lanczos_fixed(in_size,
+                                                          out_size)[1])
+    return scenes * lines * taps * 3 * 2
+
+
+def bound(in_bytes, out_bytes, ops):
+    """(bound ms, "bytes" or "operations")."""
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
+                                   else "operations")
+
+
+def time_strips(torch, rasterize_cuda, colors, state):
+    """Phase 6, strips: strip_raster and strip_vpass at the demo path's
+    inputs. Returns their `kernels` entries."""
+    rc = rasterize_cuda
+    size = (DEMO_SIZE, DEMO_SIZE)
+    hc = DEMO_SIZE * DEMO_AA
+    b = state.factors.shape[0]
+    tables = rc.prepare(state.factors, state.num_sprites, hc, hc,
+                        colors.hsv_to_rgb)
+    hp = rc.strip_raster(tables, size)
+    hp_plain = rc.hpass_plain(tables, DEMO_SIZE)
+    err_h, count_h = compare(hp, hp_plain)
+    img = rc.strip_vpass(hp, DEMO_SIZE)
+    img_plain = rc.vpass_plain(hp_plain, DEMO_SIZE)
+    err_v, count_v = compare(img, img_plain)
+    print(f"strip kernels vs plain at the demo path's inputs, B={b}: "
+          f"h-pass max |diff| {err_h} ({count_h} differing), v-pass max "
+          f"|diff| {err_v} ({count_v} differing)")
+    check(count_h == 0 and count_v == 0,
+          "strip kernels differ from the plain version at the demo inputs")
+
+    ms_h = event_ms(torch, lambda: rc.strip_raster(tables, size), 10)
+    plain_h = event_ms(torch, lambda: rc.hpass_plain(tables, DEMO_SIZE), 1)
+    ms_v = event_ms(torch, lambda: rc.strip_vpass(hp, DEMO_SIZE), 20)
+    plain_v = event_ms(torch, lambda: rc.vpass_plain(hp, DEMO_SIZE), 2)
+
+    from spriteworld_torch.ops import resample
+
+    hx0, hqt = rc.lanczos_taps_t(hc, DEMO_SIZE, tables.tab.device)
+    vy0, vq = rc.lanczos_taps(hc, DEMO_SIZE, tables.tab.device)
+    hp_bytes = hp.numel()
+    f_ops = fill_ops(tables)
+    h_ops = lanczos_ops(resample, hc, DEMO_SIZE, b, hc)
+    v_ops = lanczos_ops(resample, hc, DEMO_SIZE, b, DEMO_SIZE)
+    bound_h, by_h = bound(tables.tab.numel() * 4
+                          + (hx0.numel() + hqt.numel()) * 4, hp_bytes,
+                          f_ops + h_ops)
+    bound_v, by_v = bound(hp_bytes + (vy0.numel() + vq.numel()) * 4,
+                          img.numel(), v_ops)
+    print(f"strip_raster bound: {f_ops:.0f} fill + {h_ops} h-pass "
+          f"operations, {hp_bytes} bytes out -> {bound_h:.6f} ms "
+          f"({by_h}); strip_vpass bound: {v_ops} operations, "
+          f"{hp_bytes + img.numel()} bytes -> {bound_v:.6f} ms ({by_v})")
+    source = "spriteworld_torch/csrc/strip_raster.cu"
+    return [{
+        "name": "strip_raster", "route": "cuda", "source": source,
+        "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:761",
+        "launches": None, "max_abs_err": err_h, "ms": ms_h,
+        "plain_ms": plain_h, "bound_ms": bound_h, "bound_by": by_h,
+        # No single PyTorch call computes Pillow's fill and Lanczos.
+        "library_ms": None,
+    }, {
+        "name": "strip_vpass", "route": "cuda", "source": source,
+        "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:1484",
+        "launches": None, "max_abs_err": err_v, "ms": ms_v,
+        "plain_ms": plain_v, "bound_ms": bound_v, "bound_by": by_v,
+        # No single PyTorch call gives Pillow's fixed-point rounding.
+        "library_ms": None,
+    }]
 
 
 def time_kernel(torch, rasterize_cuda, colors, state):
@@ -201,45 +479,27 @@ def time_kernel(torch, rasterize_cuda, colors, state):
           f"max |diff| {err}, {count} differing values")
     check(count == 0, "scene kernel differs from its plain version")
 
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    ms = event_ms(lambda: rasterize_cuda.scene_raster(tables, image_size), 20)
+    ms = event_ms(
+        torch, lambda: rasterize_cuda.scene_raster(tables, image_size), 20)
     plain_ms = event_ms(
+        torch,
         lambda: rasterize_cuda.render_rgb_batch_plain(tables, image_size), 2)
 
     # Least time: each input read once, each output written once, over the
     # memory rate; or the operations these inputs need over the float32
     # rate, whichever is larger.
-    tab = tables.tab
-    hx0, hq = rasterize_cuda.lanczos_taps(64 * aa, 64, "cuda")
-    in_bytes = tab.numel() * 4 + 2 * (hx0.numel() + hq.numel()) * 4
+    from spriteworld_torch.ops import resample
+
+    hx0, hq = rasterize_cuda.lanczos_taps(64 * aa, 64, tables.tab.device)
+    in_bytes = tables.tab.numel() * 4 + 2 * (hx0.numel() + hq.numel()) * 4
     out_bytes = BATCH * 64 * 64 * 3
-    s = rasterize_cuda
-    count_v = tab[..., s.T_COUNT]
-    rows = (tab[..., s.T_ROW1].clamp(max=64 * aa - 1)
-            - tab[..., s.T_ROW0].clamp(min=0) + 1).clamp(min=0)
-    cols = (tab[..., s.T_COL1].clamp(max=64 * aa - 1)
-            - tab[..., s.T_COL0].clamp(min=0) + 1).clamp(min=0)
-    # Per pixel of a sprite's bounds, a compare and an add per edge.
-    fill_ops = float((rows * cols * count_v * 2).sum())
-    taps = sum(len(q) for q in s.resample.pil_lanczos_fixed(64 * aa, 64)[1])
-    # Per output of each pass, a multiply and an add per tap and channel.
-    lanczos_ops = BATCH * 2 * 3 * taps * (64 * aa + 64)
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (fill_ops + lanczos_ops) / FP32_OPS_PER_S * 1e3
-    print(f"scene_raster bound: {in_bytes + out_bytes} bytes -> "
-          f"{bytes_ms:.6f} ms; {fill_ops:.0f} fill + {lanczos_ops} Lanczos "
-          f"operations -> {ops_ms:.6f} ms")
+    f_ops = fill_ops(tables)
+    l_ops = (lanczos_ops(resample, 64 * aa, 64, BATCH, 64 * aa)
+             + lanczos_ops(resample, 64 * aa, 64, BATCH, 64))
+    bound_ms, bound_by = bound(in_bytes, out_bytes, f_ops + l_ops)
+    print(f"scene_raster bound: {in_bytes + out_bytes} bytes, {f_ops:.0f} "
+          f"fill + {l_ops} Lanczos operations -> {bound_ms:.6f} ms "
+          f"({bound_by})")
     return {
         "name": "scene_raster",
         "route": "cuda",
@@ -249,8 +509,8 @@ def time_kernel(torch, rasterize_cuda, colors, state):
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call rasterizes a scene
     }
 
@@ -263,7 +523,6 @@ def main():
         return 1
     import bench_torch
     from spriteworld_torch.core import environment as env_lib
-    from spriteworld_torch.core.state import StepType
     from spriteworld_torch.ops import _build
     from spriteworld_torch.ops import rasterize_cuda
     from spriteworld_torch.utils import colors
@@ -280,20 +539,34 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    check_layouts(rasterize_cuda)
 
     worst = kernel_vs_plain(torch, rasterize_cuda, colors)
-    steps_per_sec, state = drive_main_path(
-        torch, bench_torch, env_lib, rasterize_cuda, StepType)
-    launches = rasterize_cuda.scene_raster.launches
+    worst_strip, worst_v = strips_vs_plain(torch, rasterize_cuda, colors)
+
+    steps_per_sec, state, scene_launches = drive_main_path(
+        torch, bench_torch, env_lib, rasterize_cuda)
     print(f"env_steps_per_sec {steps_per_sec:.1f} (image64, AA=5, "
           f"{BATCH} lanes) on {card}")
+    demo_rate, demo_state, demo_launches = drive_demo_path(
+        torch, bench_torch, env_lib, rasterize_cuda)
+    print(f"env_steps_per_sec {demo_rate:.1f} (demo256 clustering, "
+          f"AA={DEMO_AA}, {DEMO_BATCH} lanes) on {card}")
+
     entry = time_kernel(torch, rasterize_cuda, colors, state)
-    entry["launches"] = launches
+    entry["launches"] = scene_launches
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
-    print(f"scene_raster at B={BATCH}: kernel {entry['ms']:.4f} ms, plain "
-          f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.6f} ms "
-          f"({entry['bound_by']}) on {card}")
-    print(json.dumps({"kernels": [entry]}))
+    strip_entries = time_strips(torch, rasterize_cuda, colors, demo_state)
+    for e, err in zip(strip_entries, (worst_strip, worst_v)):
+        e["launches"] = demo_launches[e["name"]]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    entries = [entry] + strip_entries
+    for e in entries:
+        print(f"{e['name']}: kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms "
+              f"({e['bound_by']}), {e['launches']} launches on its path, "
+              f"on {card}")
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

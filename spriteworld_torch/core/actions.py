@@ -1,9 +1,10 @@
 """Action spaces as batched state-update functions.
 
-Counterpart of `spriteworld_tpu/core/actions.py`, for `SelectMove`:
-motion = (click2 - 0.5) * scale; optional Gaussian action noise; the
-topmost (foreground-most) live sprite containing click1 moves, clipped to
-the frame when `keep_in_frame`; cost = -motion_cost * ||motion||.
+Counterpart of `spriteworld_tpu/core/actions.py`, for `SelectMove` and
+`DragAndDrop`: motion = (click2 - 0.5) * scale (SelectMove) or
+(click2 - click1) * scale (DragAndDrop); optional Gaussian action noise;
+the topmost (foreground-most) live sprite containing click1 moves, clipped
+to the frame when `keep_in_frame`; cost = -motion_cost * ||motion||.
 """
 
 from __future__ import annotations
@@ -67,3 +68,10 @@ class SelectMove:
         """Uniform random actions f32[B, 4]."""
         return torch.rand((batch, 4), generator=generator,
                           device=generator.device)
+
+
+class DragAndDrop(SelectMove):
+    """Like SelectMove, but the motion is relative to the first click."""
+
+    def get_motion(self, action):
+        return (action[..., 2:] - action[..., :2]) * self._scale

@@ -1,9 +1,10 @@
 """Scene generators: distributions -> packed batched sprite factor tensors.
 
 Counterpart of `spriteworld_tpu/core/generators.py`, for the generators the
-goal-finding path uses. A generator has a static capacity ``max_sprites``
-and ``sample_with_status(generator, batch) -> (factors f32[B, max_sprites,
-10], num i32[B], ok bool[B])``, drawing from an explicit `torch.Generator`.
+goal-finding and clustering paths use. A generator has a static capacity
+``max_sprites`` and ``sample_with_status(generator, batch) -> (factors
+f32[B, max_sprites, 10], num i32[B], ok bool[B])``, drawing from an
+explicit `torch.Generator`.
 
 Packing invariant: live sprites occupy slots [0, num); slot order is z-order
 (higher slot = foreground). Dead slots hold the default factor row so
@@ -97,6 +98,27 @@ class ChainGenerators(SpriteGenerator):
         return factors, num, ok
 
 
+class Shuffle(SpriteGenerator):
+    """Randomize the z-order of the generated sprites."""
+
+    def __init__(self, gen: SpriteGenerator):
+        self.gen = gen
+        self.max_sprites = gen.max_sprites
+
+    def sample_with_status(self, generator, batch: int):
+        factors, num, ok = self.gen.sample_with_status(generator, batch)
+        k = self.max_sprites
+        # Uniform keys for live rows, +inf for dead rows: sorting yields a
+        # uniform permutation of the live prefix, dead rows stay at the back.
+        r = torch.rand((batch, k), generator=generator,
+                       device=generator.device)
+        live = torch.arange(k, device=r.device) < num[:, None]
+        r = torch.where(live, r, torch.full_like(r, torch.inf))
+        order = torch.sort(r, dim=-1, stable=True).indices
+        return (factors.gather(
+            -2, order[..., None].expand(-1, -1, factors.shape[-1])), num, ok)
+
+
 # Functional aliases mirroring the reference module-level API.
 def generate_sprites(factor_dist, num_sprites: int = 1):
     return GenerateSprites(factor_dist, num_sprites)
@@ -104,3 +126,7 @@ def generate_sprites(factor_dist, num_sprites: int = 1):
 
 def chain_generators(*gens):
     return ChainGenerators(*gens)
+
+
+def shuffle(gen):
+    return Shuffle(gen)

@@ -6,8 +6,9 @@ Counterpart of `spriteworld_tpu/core/renderers.py`. Each renderer offers
   * SpriteFactors — selected factor columns [B, K, F] + live mask [B, K].
   * Success — the task success flag [B].
   * ImageRenderer — RGB pixels u8[B, H, W, 3]. With the Pillow-exact fill
-    (the default) a CUDA batch goes to the scene kernel at every
-    anti_aliasing and a CPU batch to its plain version
+    (the default) a CUDA batch goes to the scene kernel when its canvas fits
+    one block's shared memory and to the row-strip kernels otherwise
+    (`kernel_mode`), and a CPU batch to their plain version
     (`ops/rasterize_cuda.py`). The centroid fill and the box filter run on
     the CPU only (`ops/rasterize.py`).
 """
@@ -100,7 +101,10 @@ class ImageRenderer(AbstractRenderer):
     default (pil_exact=True, downsample="auto") observations equal the
     reference's at every anti_aliasing: Pillow's scanline fill and Pillow's
     Lanczos filter. pil_exact=False selects centroid sampling + box average;
-    downsample="box"/"lanczos" forces a filter.
+    downsample="box"/"lanczos" forces a filter. kernel_mode picks the card's
+    kernel: "scene" (one block a scene), "strips" (one block a strip of
+    canvas rows) or "auto" (the scene kernel where its layout fits the
+    card's shared memory per block; `rasterize_cuda.resolve_kernel_mode`).
     """
 
     def __init__(self,
@@ -109,7 +113,8 @@ class ImageRenderer(AbstractRenderer):
                  bg_color: Optional[Tuple[int, int, int]] = None,
                  color_to_rgb: Union[None, str, Callable] = None,
                  pil_exact: Union[bool, str] = "auto",
-                 downsample: str = "auto"):
+                 downsample: str = "auto",
+                 kernel_mode: str = "auto"):
         self._image_size = tuple(image_size)
         self._anti_aliasing = int(anti_aliasing)
         if self._anti_aliasing < 1 or min(self._image_size) < 1:
@@ -122,6 +127,9 @@ class ImageRenderer(AbstractRenderer):
             pil_exact = True
         self._pil_exact = bool(pil_exact)
         self._downsample = downsample
+        if kernel_mode not in rasterize_cuda.KERNEL_MODES:
+            raise ValueError(f"Unknown kernel_mode: {kernel_mode!r}")
+        self._kernel_mode = kernel_mode
 
     @property
     def image_size(self):
@@ -138,10 +146,11 @@ class ImageRenderer(AbstractRenderer):
             downsample=self._downsample)
         if factors.is_cuda or rasterize_cuda.kernel_covers(
                 self._anti_aliasing, self._pil_exact, self._downsample):
-            # The scene kernel, or its plain version for CPU tensors; it
-            # raises NotImplementedError for the modes it does not cover.
+            # The kernels, or their plain version for CPU tensors; it raises
+            # NotImplementedError for the modes they do not cover.
             return rasterize_cuda.render_rgb_batch(
-                factors, num_sprites, **kwargs)
+                factors, num_sprites, kernel_mode=self._kernel_mode,
+                **kwargs)
         return rasterize.render_rgb(factors, num_sprites, **kwargs)
 
     def observation_spec(self):

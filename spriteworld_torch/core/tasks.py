@@ -1,20 +1,25 @@
 """Tasks as batched reward/success functions over the factor state.
 
-Counterpart of `spriteworld_tpu/core/tasks.py`, for the goal-finding path:
-`NoReward`, `FindGoalPosition` and `task_valid`. Each task maps
-``(factors f32[B, K, 10], num_sprites i32[B])`` to a per-lane reward
-f32[B] and success bool[B].
+Counterpart of `spriteworld_tpu/core/tasks.py`, for the goal-finding and
+clustering paths: `NoReward`, `FindGoalPosition`, `Clustering` and
+`task_valid`. Each task maps ``(factors f32[B, K, 10], num_sprites i32[B])``
+to a per-lane reward f32[B] and success bool[B].
 
 Contract quirks kept: FindGoalPosition returns NaN when no sprite passes
 the filter, and its success is then vacuously True (``all([])``).
+Clustering scores 1/davies_bouldin and assigns each sprite to the FIRST
+cluster distribution containing it.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from spriteworld_torch.core import state as state_lib
+from spriteworld_torch.ops import clustering as clustering_ops
 from spriteworld_torch.utils import device as device_lib
 
 
@@ -91,11 +96,72 @@ class FindGoalPosition:
                            torch.full_like(rewards, torch.inf)).ge(0).all(-1)
 
 
+class Clustering:
+    """Cluster sprites; reward from the inverse Davies-Bouldin index."""
+
+    def __init__(self,
+                 cluster_distribs: Sequence,
+                 termination_threshold: float = 2.5,
+                 terminate_bonus: float = 0.0,
+                 sparse_reward: bool = False,
+                 reward_range: float = 10):
+        self._cluster_distribs = list(cluster_distribs)
+        self._num_clusters = len(self._cluster_distribs)
+        self._termination_threshold = termination_threshold
+        self._terminate_bonus = terminate_bonus
+        self._sparse_reward = sparse_reward
+        self._reward_range = reward_range
+
+    def membership(self, factors, num_sprites):
+        """bool[B, K, C]: live sprite k belongs to the FIRST cluster whose
+        distribution contains it."""
+        spec = state_lib.factors_to_dict(factors)
+        contains = torch.stack(
+            [d.contains(spec) for d in self._cluster_distribs], -1)
+        first = contains.to(torch.uint8).argmax(-1)  # first True wins
+        k = factors.shape[-2]
+        alive = torch.arange(k, device=factors.device) < num_sprites[:, None]
+        one_hot = torch.arange(self._num_clusters,
+                               device=factors.device) == first[..., None]
+        return one_hot & (contains.any(-1) & alive)[..., None]
+
+    def _metric(self, factors, num_sprites):
+        member = self.membership(factors, num_sprites)
+        return 1.0 / clustering_ops.davies_bouldin_index(factors[..., 0:2],
+                                                         member)
+
+    def reward(self, factors, num_sprites):
+        metric = self._metric(factors, num_sprites)
+        dense = (metric - self._termination_threshold) \
+            * self._reward_range / 2.0
+        succeeded = metric >= self._termination_threshold
+        zero = torch.zeros_like(dense)
+        bonus = torch.where(succeeded, self._terminate_bonus + dense, zero)
+        return torch.where(succeeded, bonus,
+                           zero if self._sparse_reward else dense)
+
+    def success(self, factors, num_sprites):
+        return self._metric(factors, num_sprites) \
+            >= self._termination_threshold
+
+    def valid(self, factors, num_sprites):
+        """True exactly on sklearn davies_bouldin_score's domain,
+        ``1 < n_labels < n_samples``: n_samples counts the sprites assigned
+        to any cluster, n_labels the populated clusters. With all-singleton
+        clusters the metric is 1/0 = inf and sklearn raises, so that state
+        is invalid too."""
+        member = self.membership(factors, num_sprites)
+        n_labels = member.any(-2).sum(-1)
+        n_samples = member.sum((-2, -1))
+        return (n_labels >= 2) & (n_labels < n_samples)
+
+
 def task_valid(task, factors, num_sprites) -> torch.Tensor:
     """bool[B]: whether the task's reward/success are defined on each lane.
 
     Tasks without a `valid` method (NoReward, FindGoalPosition, whose NaN
-    rewards are contractual) are always valid.
+    rewards are contractual) are always valid; Clustering is valid on
+    sklearn's domain.
     """
     fn = getattr(task, "valid", None)
     if fn is None:

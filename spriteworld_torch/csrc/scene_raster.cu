@@ -22,16 +22,9 @@
 //   index of the topmost sprite of each pixel, one byte (0 = background,
 //   k + 1 = sprite k): 100 KiB at 320x320. Later sprites overwrite earlier
 //   ones (painter's order); colours stay in a K + 1 entry table.
-// * Crossings are recomputed per (row, edge) instead of stored: canvas row r
-//   belongs to warp r % 16 for every sprite, and lane e holds edge e of the
-//   current sprite. xi = x0 + (r - y0) * m with __fmul_rn/__fadd_rn, as two
-//   roundings (nvcc would otherwise contract to an FMA). Warp reductions give
-//   the row's total Pillow weight and its first maximum crossing: the
-//   odd-total trim drops one instance of it. Each lane then fills columns of
-//   the sprite's bounds: odd(sum of weights with xi <= c - 0.5) or some
-//   weight with c - 0.5 < xi < c + 0.5, or a horizontal-edge/wedge feature
-//   interval on this row. A row is only ever written by its own warp, so
-//   the painter's order needs no block barrier between sprites.
+// * Crossings are recomputed per (row, edge) instead of stored, one warp per
+//   canvas row and one lane per edge: the fill is `sw::fill_sprite` of
+//   raster_fill.cuh, which the row-strip kernel (strip_raster.cu) shares.
 // * The Lanczos filter runs in Pillow's own int32 fixed point with the
 //   integer taps q (tap = q / 2^22): acc = 2^21 + sum(q * p), out =
 //   clip(acc >> 22, 0, 255). Integer sums are exact in any order, so the
@@ -40,33 +33,28 @@
 //   u8[hc][w][3] buffer (60 KiB at 320x64); the v-pass writes the output
 //   already flipped.
 // * Shared memory at 64x64, anti_aliasing=5: ~190 KiB (opted in with
-//   cudaFuncSetAttribute), so one block per SM.
+//   cudaFuncSetAttribute), so one block per SM. A canvas whose layout does
+//   not fit one block's shared memory goes to the row-strip kernel instead.
 // * Left out: the TPU kernel's single-interval fast path for convex sprites
 //   (`_scene_fastok`), a speed trick with the same output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "raster_fill.cuh"
+
 namespace {
+
+using namespace sw;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kBig = 1e9f;
-
-// Table layout (rasterize_cuda.py): 8 scalars, 5 edge fields of V values,
-// then 2V features (row, lo, hi).
-constexpr int kNumScalars = 8;
-enum { T_COUNT, T_NF, T_COLOR, T_GYMAX, T_ROW0, T_ROW1, T_COL0, T_COL1 };
-enum { E_Y0, E_M, E_X0, E_YMIN, E_YMAX };
 
 struct Layout {
   // Word offsets (4 bytes) of the small tables, byte offsets of the u8 ones.
   int tab, ctab, xi, wgt, hx0, hq, vy0, vq;
   size_t canvas, hpass, bytes;
 };
-
-__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~size_t(15); }
 
 __host__ __device__ inline Layout layout(int K, int NT, int hc, int wc, int h,
                                          int w, int ht, int vt) {
@@ -83,11 +71,6 @@ __host__ __device__ inline Layout layout(int K, int NT, int hc, int wc, int h,
   L.hpass = L.canvas + round16(size_t(hc) * wc);
   L.bytes = L.hpass + (ht ? round16(size_t(hc) * w * 3) : 0);
   return L;
-}
-
-__device__ __forceinline__ uint8_t clip8(int acc) {
-  const int v = acc >> 22;  // arithmetic shift: floor division by 2^22
-  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -131,59 +114,13 @@ scene_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
   int* ww = s_wgt + warp * 32;
   for (int k = 0; k < K; ++k) {
     const float* st = s_tab + k * NT;
-    const int count = static_cast<int>(st[T_COUNT]);
-    if (count <= 0) continue;
-    const int r0 = max(static_cast<int>(st[T_ROW0]), 0);
-    const int r1 = min(static_cast<int>(st[T_ROW1]), hc - 1);
-    const int c0 = max(static_cast<int>(st[T_COL0]), 0);
-    const int c1 = min(static_cast<int>(st[T_COL1]), wc - 1);
-    const int nf = static_cast<int>(st[T_NF]);
-    const float gymax = st[T_GYMAX];
-    const float* feat = st + kNumScalars + 5 * V;
-    const bool has_edge = lane < count;
-    const float y0 = has_edge ? st[kNumScalars + E_Y0 * V + lane] : 0.f;
-    const float m = has_edge ? st[kNumScalars + E_M * V + lane] : 0.f;
-    const float x0 = has_edge ? st[kNumScalars + E_X0 * V + lane] : 0.f;
-    const float ymn = has_edge ? st[kNumScalars + E_YMIN * V + lane] : kBig;
-    const float ymx = has_edge ? st[kNumScalars + E_YMAX * V + lane] : -kBig;
-
-    const int first_row = r0 + ((warp - r0) % kWarps + kWarps) % kWarps;
-    for (int r = first_row; r <= r1; r += kWarps) {
-      const float rf = static_cast<float>(r);
-      const float xi = __fadd_rn(x0, __fmul_rn(__fsub_rn(rf, y0), m));
-      const bool inr = rf >= ymn && rf <= ymx;
-      const bool dup = inr && rf == ymx && ymx < gymax;
-      int wgt = static_cast<int>(inr) + static_cast<int>(dup);
-      // Odd-total trim: drop one instance of the first row maximum.
-      const int total = __reduce_add_sync(kFull, wgt);
-      float rmax = wgt > 0 ? xi : -kBig;
-      for (int o = 16; o > 0; o >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, o));
-      const unsigned ismax = __ballot_sync(kFull, wgt > 0 && xi == rmax);
-      if ((total & 1) && lane == __ffs(ismax) - 1) wgt -= 1;
-      __syncwarp();
-      wx[lane] = xi;
-      ww[lane] = wgt;
-      __syncwarp();
-
-      uint8_t* crow = canvas + size_t(r) * wc;
-      for (int c = c0 + lane; c <= c1; c += 32) {
-        const float cf = static_cast<float>(c);
-        const float cm = cf - 0.5f, cp = cf + 0.5f;
-        int le = 0, win = 0;
-        for (int e = 0; e < count; ++e) {
-          const float x = wx[e];
-          if (x <= cm) le += ww[e];
-          else if (x < cp) win += ww[e];
-        }
-        bool fill = (le & 1) || win > 0;
-        for (int j = 0; j < nf && !fill; ++j) {
-          const float* f = feat + 3 * j;
-          fill = f[0] == rf && f[1] <= cf && cf <= f[2];
-        }
-        if (fill) crow[c] = static_cast<uint8_t>(k + 1);
-      }
-    }
+    if (static_cast<int>(st[T_COUNT]) <= 0) continue;
+    fill_sprite(st, V, static_cast<uint8_t>(k + 1),
+                max(static_cast<int>(st[T_ROW0]), 0),
+                min(static_cast<int>(st[T_ROW1]), hc - 1),
+                max(static_cast<int>(st[T_COL0]), 0),
+                min(static_cast<int>(st[T_COL1]), wc - 1), 0, canvas, wc, wx,
+                ww, warp, kWarps, lane);
   }
   __syncthreads();
 
@@ -257,6 +194,14 @@ extern "C" int scene_raster_launch(const float* tab, int B, int K, int V,
                         static_cast<cudaStream_t>(stream)>>>(
       tab, K, V, NT, hc, wc, h, w, hx0, hq, ht, vy0, vq, vt, bg_packed, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory the kernel needs for these sizes; the renderer's
+// dispatch compares its Python mirror (rasterize_cuda.scene_smem_bytes) with
+// the card's per-block limit before launching.
+extern "C" long long scene_raster_smem_bytes(int K, int NT, int hc, int wc,
+                                             int h, int w, int ht, int vt) {
+  return static_cast<long long>(layout(K, NT, hc, wc, h, w, ht, vt).bytes);
 }
 
 extern "C" const char* sw_cuda_error_string(int err) {

@@ -2,8 +2,9 @@
 
 Each source `spriteworld_torch/csrc/<name>.cu` compiles, at first use, into
 a shared library with a plain C interface under `spriteworld_torch/build/`
-(listed in .gitignore). The file name carries a hash of the source and the
-flags, so an edited source builds anew and an unchanged one is reused.
+(listed in .gitignore). The file name carries a hash of the source, of every
+header `csrc/*.cuh` and of the flags, so an edited source or header builds
+anew and an unchanged one is reused.
 `build_all` starts one nvcc per source, all at once.
 """
 
@@ -21,7 +22,7 @@ from typing import Dict
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-KERNELS = ("scene_raster",)
+KERNELS = ("scene_raster", "strip_raster")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,10 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -93,6 +93,26 @@ def _clip8(acc: torch.Tensor) -> torch.Tensor:
     return torch.floor((acc + half) * inv).clamp(0.0, 255.0)
 
 
+def lanczos_h(canvas: torch.Tensor, out_w: int) -> torch.Tensor:
+    """Pillow's horizontal Lanczos pass of [..., H, W, C] integer values in
+    0..255, with its uint8 rounding -> u8[..., H, out_w, C]."""
+    kw = device_lib.constant(
+        pil_lanczos_matrix_q(canvas.shape[-2], out_w).astype(np.float64),
+        canvas.device)
+    return _clip8(torch.einsum("ow,...hwc->...hoc", kw,
+                               canvas.to(torch.float64))).to(torch.uint8)
+
+
+def lanczos_v(rows: torch.Tensor, out_h: int) -> torch.Tensor:
+    """Pillow's vertical Lanczos pass of [..., H, W, C] -> u8[..., out_h, W,
+    C] (rows stay in Pillow's order: top row first)."""
+    kh = device_lib.constant(
+        pil_lanczos_matrix_q(rows.shape[-3], out_h).astype(np.float64),
+        rows.device)
+    return _clip8(torch.einsum("oh,...hwc->...owc", kh,
+                               rows.to(torch.float64))).to(torch.uint8)
+
+
 def pil_resize_lanczos(canvas: torch.Tensor, out_h: int,
                        out_w: int) -> torch.Tensor:
     """Pillow ANTIALIAS resize of [..., H, W, C] integer values in 0..255.
@@ -100,13 +120,4 @@ def pil_resize_lanczos(canvas: torch.Tensor, out_h: int,
     Horizontal pass, uint8 rounding, then vertical pass — Pillow's order.
     Returns u8[..., out_h, out_w, C], equal to Pillow's result.
     """
-    hc, wc = canvas.shape[-3], canvas.shape[-2]
-    dev = canvas.device
-    kw = device_lib.constant(
-        pil_lanczos_matrix_q(wc, out_w).astype(np.float64), dev)
-    kh = device_lib.constant(
-        pil_lanczos_matrix_q(hc, out_h).astype(np.float64), dev)
-    x = canvas.to(torch.float64)
-    t = _clip8(torch.einsum("ow,...hwc->...hoc", kw, x))
-    out = _clip8(torch.einsum("oh,...hwc->...owc", kh, t))
-    return out.to(torch.uint8)
+    return lanczos_v(lanczos_h(canvas, out_w), out_h)
