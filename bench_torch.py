@@ -1,35 +1,49 @@
-"""Throughput of the PyTorch/CUDA port on its workloads.
+"""Throughput of the PyTorch/CUDA port on bench.py's workloads.
 
 --workload image64 (default): a random agent steps B env lanes of 6-sprite
 goal finding with 64x64 HSV image observations (bench.py's `image64`: 1
 target + 5 distractors, SelectMove(scale=0.25), FindGoalPosition,
-max_episode_length=20), 2048 lanes by default.
+max_episode_length=20), at --aa (default 1); --fast renders with
+pil_exact=False (the centroid fill and the box filter).
+
+--workload factors: the same scenes with SpriteFactors observations (no
+rendering). clustering, sorting, embodied: bench.py's config workloads, the
+train mode of configs/cobra/clustering.py, configs/cobra/sorting.py and
+configs/examples/goal_finding_embodied.py with a Success observation added,
+each rendering with its config's own renderer.
+
+--workload all: bench.py's list, one JSON line each: image64 exact at AA=1
+and AA=5, image64 fast at AA=5, then factors, clustering, sorting and
+embodied. 2048 lanes each by default.
 
 --workload demo256: the interactive demo's scene (run_demo.py's defaults):
 the cobra clustering config (train mode) with demo_ui.setup_run_ui's
 overrides, DragAndDrop(scale=0.5), a 256x256 HSV ImageRenderer at
 anti_aliasing=10 and Success, 256 lanes by default. Its 2560x2560 canvas
-renders through the row-strip kernels.
+renders through the row-strip kernels (with --fast, in their centroid and
+box mode). It stays outside `all`.
 
 Every observation leaf and the reward feed an on-device sum (a stand-in
 learner). Each timed chunk ends in torch.cuda.synchronize(); "value" is the
 best chunk's rate (bench.py's rule), "median_steps_per_sec" the median
 chunk's.
 
-Prints ONE JSON line in bench.py's shape, with "backend": "cuda", the card's
-name and its power limit. Needs a CUDA device.
+Prints ONE JSON line per workload in bench.py's shape, with "backend":
+"cuda", the card's name and its power limit. Needs a CUDA device.
 
 With --profile N it then runs N more steps under torch.profiler and prints
 a second JSON line: wall and device-busy time per step, the device's idle
 share, kernel launches per step and the kernels that take the most device
 time. The profiler's own overhead lengthens those steps.
 
-Usage: python bench_torch.py [--workload image64|demo256] [--aa N]
+Usage: python bench_torch.py [--workload image64|factors|clustering|sorting|
+                              embodied|demo256|all] [--aa N] [--fast]
                              [--num_envs B] [--steps 50] [--chunks 3]
                              [--profile N]
 """
 
 import argparse
+import importlib
 import json
 import statistics
 import subprocess
@@ -91,8 +105,45 @@ def build_env(anti_aliasing: int = 1, image_size=(64, 64),
         device=device, seed=seed)
 
 
+def build_factors_env(device="cuda", seed: int = 0):
+    """bench.py's factors workload: goal finding with SpriteFactors."""
+    task, init_sprites = goal_finding_parts()
+    return env_lib.Environment(
+        task=task,
+        action_space=action_lib.SelectMove(scale=0.25),
+        renderers={
+            "factors": renderers.SpriteFactors(),
+            "success": renderers.Success(),
+        },
+        init_sprites=init_sprites,
+        max_episode_length=20,
+        metadata={"name": "bench_goal_finding_factors"},
+        device=device, seed=seed)
+
+
+def config_env(module_name: str, device="cuda", seed: int = 0):
+    """bench.py's _config_env: a config's train mode plus Success."""
+    mod = importlib.import_module(f"spriteworld_torch.configs.{module_name}")
+    cfg = mod.get_config("train")
+    cfg["renderers"]["success"] = renderers.Success()
+    return env_lib.Environment(**cfg, device=device, seed=seed)
+
+
+# bench.py's WORKLOADS: name -> (metric suffix, builder(device, seed)).
+WORKLOADS = {
+    "factors": ("factors_6sprites", build_factors_env),
+    "clustering": ("cobra_clustering",
+                   lambda **kw: config_env("cobra.clustering", **kw)),
+    "sorting": ("cobra_sorting",
+                lambda **kw: config_env("cobra.sorting", **kw)),
+    "embodied": ("goal_finding_embodied",
+                 lambda **kw: config_env("examples.goal_finding_embodied",
+                                         **kw)),
+}
+
+
 def demo_config(mode: str = "train", render_size: int = 256,
-                anti_aliasing: int = 10):
+                anti_aliasing: int = 10, pil_exact: bool = True):
     """The cobra clustering config with the interactive demo's overrides
     (demo_ui.setup_run_ui, at run_demo.py's defaults): DragAndDrop(scale=0.5)
     in place of SelectMove, an HSV image of render_size x render_size at
@@ -102,18 +153,19 @@ def demo_config(mode: str = "train", render_size: int = 256,
     config["renderers"] = {
         "image": renderers.ImageRenderer(
             image_size=(render_size, render_size),
-            anti_aliasing=anti_aliasing, color_to_rgb="hsv"),
+            anti_aliasing=anti_aliasing, color_to_rgb="hsv",
+            pil_exact=pil_exact),
         "success": renderers.Success(),
     }
     return config
 
 
 def build_demo_env(anti_aliasing: int = 10, render_size: int = 256,
-                   device="cuda", seed: int = 0):
+                   pil_exact: bool = True, device="cuda", seed: int = 0):
     """The demo256 workload on the port."""
     return env_lib.Environment(
-        **demo_config("train", render_size, anti_aliasing), device=device,
-        seed=seed)
+        **demo_config("train", render_size, anti_aliasing, pil_exact),
+        device=device, seed=seed)
 
 
 def card_name_and_power_limit() -> str:
@@ -123,10 +175,17 @@ def card_name_and_power_limit() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def leaves(tree):
+    """The tensors of a nested dict of observations."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    return [tree]
+
+
 def consume(ts) -> torch.Tensor:
     """Sum of every observation leaf and the reward, on the device."""
     total = torch.nan_to_num(ts.reward).sum()
-    for leaf in ts.observation.values():
+    for leaf in leaves(ts.observation):
         total = total + leaf.to(torch.float32).sum()
     return total
 
@@ -181,66 +240,87 @@ def profile(benv, state, steps: int) -> dict:
     }
 
 
-_DEFAULTS = {  # workload: (anti_aliasing, lanes)
-    "image64": (1, 2048),
-    "demo256": (10, 256),
-}
+def todo_list(workload: str, aa, fast: bool):
+    """[(name, anti_aliasing or None, pil_exact)] to run, in bench.py's
+    order for "all"."""
+    if workload == "all":
+        return ([("image64", 1, True), ("image64", 5, True),
+                 ("image64", 5, False)]
+                + [(n, None, True) for n in WORKLOADS])
+    if workload in ("image64", "demo256"):
+        default_aa = 1 if workload == "image64" else 10
+        return [(workload, default_aa if aa is None else aa, not fast)]
+    return [(workload, None, True)]
+
+
+def build(name: str, aa, exact: bool, device="cuda", seed: int = 0):
+    """(env, metric suffix, extra JSON fields) of one workload."""
+    if name in WORKLOADS:
+        suffix, builder = WORKLOADS[name]
+        return builder(device=device, seed=seed), suffix, {}
+    if name == "image64":
+        env = build_env(anti_aliasing=aa, pil_exact=exact, device=device,
+                        seed=seed)
+        suffix = ("64x64render_6sprites" if aa == 1
+                  else f"64x64render_aa{aa}_6sprites")
+    else:
+        env = build_demo_env(anti_aliasing=aa, pil_exact=exact,
+                             device=device, seed=seed)
+        suffix = f"256x256render_aa{aa}_clustering"
+    if not exact:
+        suffix += "_fast"
+    return env, suffix, {"anti_aliasing": aa, "pil_exact": exact}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--workload", choices=sorted(_DEFAULTS),
-                   default="image64")
+    p.add_argument("--workload", default="image64",
+                   choices=["image64", *WORKLOADS, "demo256", "all"])
     p.add_argument("--aa", type=int, default=None,
-                   help="anti_aliasing of the image renderer (default: 1 "
-                        "for image64, 10 for demo256)")
+                   help="anti_aliasing of image64 (default 1) or demo256 "
+                        "(default 10)")
+    p.add_argument("--fast", action="store_true",
+                   help="image64 or demo256 with pil_exact=False (centroid "
+                        "fill + box filter)")
     p.add_argument("--num_envs", type=int, default=None,
-                   help="lanes (default: 2048 for image64, 256 for "
-                        "demo256)")
+                   help="lanes (default: 2048; 256 for demo256)")
     p.add_argument("--steps", type=int, default=50,
                    help="steps per timed chunk")
     p.add_argument("--chunks", type=int, default=3,
                    help="timed chunks (best taken) after one warm-up chunk")
     p.add_argument("--profile", type=int, default=0,
-                   help="steps to run under torch.profiler afterwards")
+                   help="steps to run under torch.profiler after each "
+                        "workload")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_torch.py needs a CUDA device", file=sys.stderr)
         return 1
-    aa, num_envs = _DEFAULTS[args.workload]
-    aa = aa if args.aa is None else args.aa
-    num_envs = num_envs if args.num_envs is None else args.num_envs
-
-    if args.workload == "image64":
-        env = build_env(anti_aliasing=aa)
-        suffix = ("64x64render_6sprites" if aa == 1
-                  else f"64x64render_aa{aa}_6sprites")
-    else:
-        env = build_demo_env(anti_aliasing=aa)
-        suffix = f"256x256render_aa{aa}_clustering"
-    benv = env_lib.BatchedEnvironment(env, num_envs)
-    times, state = run(benv, args.steps, args.chunks)
-    steps_per_sec = num_envs * args.steps / min(times)
-    print(json.dumps({
-        "metric": f"env_steps_per_sec_per_chip_{suffix}",
-        "value": steps_per_sec,
-        "unit": "env-steps/s/chip",
-        "vs_baseline": None,
-        "workload": args.workload,
-        "num_envs": num_envs,
-        "chip_count": 1,
-        "total_steps_per_sec": steps_per_sec,
-        "median_steps_per_sec":
-            num_envs * args.steps / statistics.median(times),
-        "chunk_seconds": times,
-        "backend": "cuda",
-        "anti_aliasing": aa,
-        "pil_exact": True,
-        "device": torch.cuda.get_device_name(0),
-        "card": card_name_and_power_limit(),
-    }))
-    if args.profile:
-        print(json.dumps(profile(benv, state, args.profile)))
+    card = card_name_and_power_limit()
+    for name, aa, exact in todo_list(args.workload, args.aa, args.fast):
+        num_envs = args.num_envs or (256 if name == "demo256" else 2048)
+        env, suffix, extra = build(name, aa, exact)
+        benv = env_lib.BatchedEnvironment(env, num_envs)
+        times, state = run(benv, args.steps, args.chunks)
+        steps_per_sec = num_envs * args.steps / min(times)
+        print(json.dumps({
+            "metric": f"env_steps_per_sec_per_chip_{suffix}",
+            "value": steps_per_sec,
+            "unit": "env-steps/s/chip",
+            "vs_baseline": None,
+            "workload": name,
+            "num_envs": num_envs,
+            "chip_count": 1,
+            "total_steps_per_sec": steps_per_sec,
+            "median_steps_per_sec":
+                num_envs * args.steps / statistics.median(times),
+            "chunk_seconds": times,
+            "backend": "cuda",
+            **extra,
+            "device": torch.cuda.get_device_name(0),
+            "card": card,
+        }), flush=True)
+        if args.profile:
+            print(json.dumps(profile(benv, state, args.profile)), flush=True)
     return 0
 
 

@@ -5,7 +5,8 @@ Phases:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every kernel from spriteworld_torch/csrc (one nvcc per source,
      all started together), and hold the renderer's Python mirrors of the
-     kernels' shared-memory layouts equal to the kernels' own;
+     kernels' shared-memory layouts equal to the kernels' own, with the
+     Lanczos and the box layouts of the scene kernel;
   3. each kernel against its plain PyTorch version on the card, bit-exact,
      over seeded batches. The scene kernel: all 12 shapes, random angles,
      1-8 live sprites, the degenerate tiny/axis-aligned generator, at
@@ -15,7 +16,15 @@ Phases:
      a degenerate batch, a non-square canvas and 1024x1024/AA=1, each whole
      render and the h-pass and v-pass on their own; ImageRenderer at
      128x128/AA=5 and 256x256/AA=10 taking the strips; then strips forced
-     at 64x64/AA=5 against the scene kernel (two independent kernels);
+     at 64x64/AA=5 against the scene kernel (two independent kernels).
+     The other modes: packed_raster at 64x64, 32x32, 16x16 and 48x64 with
+     both fills, a bg_color, an HSV and a degenerate case, and against the
+     scene kernel forced at 64x64/AA=1; the scene kernel in centroid+box at
+     64x64/AA=5 and 32x32/AA=2 and in exact+box; the strip kernels in
+     centroid+box at 256x256/AA=10 and 128x128/AA=5, and forced at
+     64x64/AA=5 box against the scene kernel in box mode; then the ten
+     mosaic-parity CASES of tests_tpu/test_mosaic_parity.py through the
+     renderer's dispatch, each checked to run the kernel it should;
   4. the main path: bench.py's image64 workload at anti_aliasing=5 over
      2048 lanes — reset, warm-up, 3 timed chunks of 50 steps, each step
      followed by torch.cuda.synchronize() — checking that every render went
@@ -28,9 +37,18 @@ Phases:
      20 steps — checking that every render went through the strip kernels,
      images are not blank, rewards are finite wherever the task is valid
      and step types follow FIRST/MID/LAST;
-  6. each kernel's time at its path's shapes beside its plain version and
-     its bound, as one JSON `kernels` line;
-  7. the last line: {"ok": true, "device": {...}}.
+  6. every bench.py workload (bench_torch.py's builders): image64 at AA=1
+     (packed_raster), image64 fast at AA=5 (the scene kernel in
+     centroid+box), factors (no kernel), clustering, sorting and embodied
+     (the scene kernel), 2048 lanes each, and demo256 fast over 256 lanes
+     (the strip kernel in centroid+box): a short warm-up and one timed
+     chunk longer than an episode, with the same per-step checks, launch
+     counts by kernel and mode, and for embodied that actions moved the
+     agent's body; each workload's env-steps/s on a line of its own;
+  7. each kernel's time at its path's shapes beside its plain version and
+     its bound, as one JSON `kernels` line, and the scene kernel's time at
+     image64/AA=1 beside packed_raster's;
+  8. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
 """
@@ -51,6 +69,10 @@ DEMO_BATCH = 256
 DEMO_STEPS = 20
 DEMO_WARMUP_STEPS = 3
 DEMO_SIZE, DEMO_AA = 256, 10
+# Phase 6: warm-up steps and one timed chunk longer than the longest
+# episode (50 steps), so every lane ends one.
+WORKLOAD_WARMUP_STEPS = 2
+WORKLOAD_STEPS = 55
 
 
 class SmokeFailure(RuntimeError):
@@ -146,24 +168,37 @@ def kernel_vs_plain(torch, rasterize_cuda, colors):
 
 def check_layouts(rasterize_cuda):
     """Phase 2: the dispatch's Python mirrors of the kernels' shared-memory
-    layouts equal the kernels' own, over the shapes the phases use."""
-    scene_lib = rasterize_cuda._scene_launcher()[0]
-    strip_lib = rasterize_cuda._strip_launchers()[0]
+    layouts equal the kernels' own, over the shapes and downsample modes
+    the phases use."""
+    rc = rasterize_cuda
+    scene_lib = rc._scene_launcher()[0]
+    strip_lib = rc._strip_launchers()[0]
+    packed_lib = rc._packed_launcher()[0]
     v = 30
     for (h, w, aa, k) in [(64, 64, 5, 6), (64, 64, 1, 8), (32, 32, 2, 8),
-                          (256, 256, 10, 4), (128, 128, 5, 8),
+                          (64, 64, 6, 6), (256, 256, 10, 4), (128, 128, 5, 8),
                           (96, 160, 3, 8), (1024, 1024, 1, 8)]:
         hc, wc = h * aa, w * aa
-        ht, vt = rasterize_cuda._tap_widths(hc, wc, h, w)
-        want = scene_lib.scene_raster_smem_bytes(
-            k, rasterize_cuda.table_width(v), hc, wc, h, w, ht, vt)
-        got = rasterize_cuda.scene_smem_bytes(k, v, hc, wc, h, w)
-        check(got == want, f"scene layout mirror {got} != {want} at "
-                           f"{h}x{w}/AA={aa}")
-        rows = rasterize_cuda.default_strip_rows(hc, wc)
-        want = strip_lib.strip_raster_smem_bytes(k, rows, wc)
-        got = rasterize_cuda.strip_smem_bytes(k, rows, wc)
-        check(got == want, f"strip layout mirror {got} != {want}")
+        for ds in ((rc.DS_IDENTITY,) if aa == 1
+                   else (rc.DS_LANCZOS, rc.DS_BOX)):
+            ht, vt = rc._tap_widths(hc, wc, h, w, ds)
+            want = scene_lib.scene_raster_smem_bytes(
+                k, rc.table_width(v), hc, wc, h, w, ht, vt)
+            got = rc.scene_smem_bytes(k, v, hc, wc, h, w, ds)
+            check(got == want, f"scene layout mirror {got} != {want} at "
+                               f"{h}x{w}/AA={aa}, mode {ds}")
+            if (h, w, aa) == (64, 64, 6):
+                print(f"scene layout at 64x64/AA=6, mode {ds}: {got} bytes")
+            rows = rc.default_strip_rows(hc, wc,
+                                         aa if ds == rc.DS_BOX else 1)
+            want = strip_lib.strip_raster_smem_bytes(k, rows, wc)
+            got = rc.strip_smem_bytes(k, rows, wc)
+            check(got == want, f"strip layout mirror {got} != {want}")
+        if aa == 1:
+            rows = rc.default_tile_rows(h, w)
+            want = packed_lib.packed_raster_smem_bytes(k, rows, w)
+            got = rc.packed_smem_bytes(k, rows, w)
+            check(got == want, f"packed layout mirror {got} != {want}")
     print("shared-memory layout mirrors equal the kernels' own")
 
 
@@ -251,25 +286,164 @@ def strips_vs_plain(torch, rasterize_cuda, colors):
     return worst_fill, worst_v
 
 
+def modes_vs_plain(torch, rasterize_cuda, colors):
+    """Phase 3, the other modes: packed_raster, and the centroid and box
+    modes of the scene and strip kernels, bit-exact against the plain
+    version and against each other. Returns the largest difference by
+    kernel and mode."""
+    rc = rasterize_cuda
+    worst = {}
+
+    def record(key, got, want, what):
+        err, count = compare(got, want)
+        print(f"{what}: max |diff| {err}, {count} differing values")
+        check(count == 0, f"{what} differs")
+        worst[key] = max(worst.get(key, 0), err)
+
+    def tables_of(seed, b, size, aa, pil_exact, bkw=None, rkw=None):
+        f, n = scene_batch(seed, b, **(bkw or {}))
+        return rc.prepare(torch.from_numpy(f).cuda(),
+                          torch.from_numpy(n).cuda(), size[0] * aa,
+                          size[1] * aa, (rkw or {}).get("color_to_rgb"),
+                          pil_exact)
+
+    hsv = {"color_to_rgb": colors.hsv_to_rgb}
+    packed_cases = [
+        # (label, seed, image_size, batch kw, render kw)
+        ("64x64", 21, (64, 64), {}, {}),
+        ("32x32", 22, (32, 32), {}, {}),
+        ("16x16", 23, (16, 16), {}, {}),
+        ("48x64", 24, (48, 64), {}, {}),
+        ("64x64 bg_color", 25, (64, 64), {}, {"bg_color": (10, 20, 30)}),
+        ("64x64 hsv", 26, (64, 64), {"hsv": True}, hsv),
+        ("64x64 degenerate", 27, (64, 64), {"degenerate": True}, {}),
+    ]
+    for label, seed, size, bkw, rkw in packed_cases:
+        for pe in (True, False):
+            t = tables_of(seed, 256, size, 1, pe, bkw, rkw)
+            bg = rkw.get("bg_color")
+            mode = rc.mode_name(pe, rc.DS_IDENTITY)
+            record(("packed_raster", mode), rc.packed_raster(t, size, bg),
+                   rc.render_rgb_batch_plain(t, size, bg),
+                   f"packed_raster vs plain, {label}, {mode}, B=256")
+    # Two independent kernels at anti_aliasing=1.
+    for pe in (True, False):
+        t = tables_of(28, 256, (64, 64), 1, pe)
+        mode = rc.mode_name(pe, rc.DS_IDENTITY)
+        record(("packed_raster", mode), rc.packed_raster(t, (64, 64)),
+               rc.scene_raster(t, (64, 64)),
+               f"packed_raster vs scene kernel, 64x64/AA=1, {mode}, B=256")
+
+    scene_cases = [
+        # (label, seed, image_size, aa, pil_exact, downsample)
+        ("64x64/AA=5", 31, (64, 64), 5, False, "auto"),
+        ("32x32/AA=2", 32, (32, 32), 2, False, "auto"),
+        ("64x64/AA=5", 33, (64, 64), 5, True, "box"),
+        ("64x64/AA=6", 34, (64, 64), 6, False, "auto"),
+    ]
+    for label, seed, size, aa, pe, ds in scene_cases:
+        t = tables_of(seed, 256, size, aa, pe)
+        mode = rc.mode_name(pe, rc.downsample_mode(aa, pe, ds))
+        record(("scene_raster", mode), rc.scene_raster(t, size, None, ds),
+               rc.render_rgb_batch_plain(t, size, None, ds),
+               f"scene kernel vs plain, {label}, {mode}, B=256")
+
+    strip_cases = [
+        # (label, seed, b, image_size, aa, strip_rows, render kw)
+        ("256x256/AA=10 hsv", 35, 8, (256, 256), 10, None, hsv),
+        ("128x128/AA=5", 36, 32, (128, 128), 5, None, {}),
+        ("64x64/AA=5, 10-row strips", 37, 64, (64, 64), 5, 10, {}),
+    ]
+    for label, seed, b, size, aa, rows, rkw in strip_cases:
+        t = tables_of(seed, b, size, aa, False, {"hsv": bool(rkw)}, rkw)
+        mode = rc.mode_name(False, rc.DS_BOX)
+        record(("strip_raster", mode), rc.render_strips(t, size, None, rows),
+               rc.render_rgb_batch_plain(t, size),
+               f"strip kernel vs plain, {label}, {mode}, B={b}")
+    # Strips forced at the fast path's size against the scene kernel, in
+    # both fills with the box filter.
+    for pe in (True, False):
+        t = tables_of(38, 256, (64, 64), 5, pe)
+        mode = rc.mode_name(pe, rc.DS_BOX)
+        record(("strip_raster", mode),
+               rc.render_strips(t, (64, 64), None, 15, "box"),
+               rc.scene_raster(t, (64, 64), None, "box"),
+               f"strip kernel (15-row strips) vs scene kernel, 64x64/AA=5, "
+               f"{mode}, B=256")
+    return worst
+
+
+# tests_tpu/test_mosaic_parity.py's CASES, each with the kernel it runs.
+CASES = [
+    # (image_size, aa, pil_exact, downsample, kernel_mode, kernel)
+    ((64, 64), 1, True, "auto", "auto", "packed_raster"),
+    ((64, 64), 1, False, "auto", "auto", "packed_raster"),
+    ((32, 32), 2, True, "auto", "auto", "scene_raster"),
+    ((32, 32), 2, False, "auto", "auto", "scene_raster"),
+    ((64, 64), 5, True, "auto", "auto", "scene_raster"),
+    ((64, 64), 5, False, "auto", "auto", "scene_raster"),
+    ((64, 64), 5, True, "box", "auto", "scene_raster"),
+    ((64, 64), 5, True, "auto", "strips", "strip_raster"),
+    ((64, 64), 5, False, "auto", "strips", "strip_raster"),
+    ((64, 64), 1, True, "auto", "scene", "scene_raster"),
+]
+
+
+def check_cases(torch, rasterize_cuda):
+    """Phase 3: the mosaic-parity CASES through the renderer's dispatch,
+    each against the plain version on the card, each through its kernel.
+    Returns the largest difference."""
+    rc = rasterize_cuda
+    kernels = (rc.scene_raster, rc.strip_raster, rc.strip_vpass,
+               rc.packed_raster)
+    worst = 0
+    for i, (size, aa, pe, ds, km, kernel) in enumerate(CASES):
+        f, n = scene_batch(40 + i, 64)
+        f, n = torch.from_numpy(f).cuda(), torch.from_numpy(n).cuda()
+        before = {k.__name__: k.launches for k in kernels}
+        got = rc.render_rgb_batch(f, n, image_size=size, anti_aliasing=aa,
+                                  pil_exact=pe, downsample=ds,
+                                  kernel_mode=km)
+        ran = sorted(k.__name__ for k in kernels
+                     if k.launches != before[k.__name__])
+        t = rc.prepare(f, n, size[0] * aa, size[1] * aa, None, pe)
+        err, count = compare(got, rc.render_rgb_batch_plain(t, size, None,
+                                                            ds))
+        print(f"CASE {size} AA={aa} pil_exact={pe} downsample={ds} "
+              f"kernel_mode={km}: ran {ran}, max |diff| {err}, {count} "
+              "differing values")
+        want = [kernel]
+        if kernel == "strip_raster" and rc.downsample_mode(
+                aa, pe, ds) == rc.DS_LANCZOS:
+            want = ["strip_raster", "strip_vpass"]
+        check(ran == want, f"CASE {i} ran {ran}, not {want}")
+        check(count == 0, f"CASE {i} differs from the plain version")
+        worst = max(worst, err)
+    return worst
+
+
 def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
-          label):
+          label, moved_of=None):
     """Reset, `warmup` steps, then `chunks` timed chunks of `steps` steps,
     each step synchronised and checked: step types follow FIRST/MID/LAST,
-    no image is blank, `bad_rewards_of(state, ts, first)` flags no lane.
-    Returns (best steps/s, final state, renders)."""
+    no image is blank (where the workload renders one, of `image_shape`),
+    `bad_rewards_of(state, ts, first)` flags no lane, and, given
+    `moved_of(before, state, ts)`, some lane moved. Returns (best steps/s,
+    final state, renders)."""
     from spriteworld_torch.core.state import StepType
 
     dev = benv.env.device
     state, ts = benv.reset()
     renders = 1
     prev_type = ts.step_type
-    bad_types = torch.zeros((), dtype=torch.int64, device=dev)
-    bad_rewards = torch.zeros((), dtype=torch.int64, device=dev)
-    blank = torch.zeros((), dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    bad_types = bad_rewards = blank = moved = zero
     seen = torch.zeros(3, dtype=torch.int64, device=dev)
 
     def step():
         nonlocal state, ts, prev_type, bad_types, bad_rewards, blank, seen
+        nonlocal moved
+        before = state
         state, ts = benv.step(state, benv.sample_actions())
         torch.cuda.synchronize()
         cur = ts.step_type
@@ -277,8 +451,11 @@ def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
         after_last = prev_type == StepType.LAST
         bad_types = bad_types + (first != after_last).sum()
         bad_rewards = bad_rewards + bad_rewards_of(state, ts, first).sum()
-        blank = blank + (ts.observation["image"].amax(dim=(1, 2, 3))
-                         == 0).sum()
+        if image_shape is not None:
+            blank = blank + (ts.observation["image"].amax(dim=(1, 2, 3))
+                             == 0).sum()
+        if moved_of is not None:
+            moved = moved + moved_of(before, state, ts).sum()
         seen = seen + torch.bincount(cur.long(), minlength=3)
         prev_type = cur
 
@@ -296,21 +473,19 @@ def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
         renders += steps
         print(f"{label} chunk {c}: {steps} steps x {benv.num_envs} lanes in "
               f"{dt:.4f} s")
-    image = ts.observation["image"]
-    check(tuple(image.shape) == (benv.num_envs,) + image_shape
-          and image.dtype == torch.uint8, f"image {tuple(image.shape)}")
+    if image_shape is not None:
+        image = ts.observation["image"]
+        check(tuple(image.shape) == (benv.num_envs,) + image_shape
+              and image.dtype == torch.uint8, f"image {tuple(image.shape)}")
     print(f"{label}: step types seen (FIRST, MID, LAST) {seen.tolist()}")
     check(int(bad_types) == 0, f"{int(bad_types)} bad step-type transitions")
     check(int(bad_rewards) == 0, f"{int(bad_rewards)} bad rewards")
     check(int(blank) == 0, f"{int(blank)} blank images")
     check(int(seen[2]) > 0 and int(seen[0]) > 0, "no episode ended")
+    if moved_of is not None:
+        print(f"{label}: {int(moved)} lane-steps moved the body")
+        check(int(moved) > 0, "no action moved a body")
     return benv.num_envs * steps / best, state, renders
-
-
-def reset_counts(rasterize_cuda):
-    for fn in (rasterize_cuda.scene_raster, rasterize_cuda.strip_raster,
-               rasterize_cuda.strip_vpass):
-        fn.launches = 0
 
 
 def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
@@ -325,7 +500,7 @@ def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
         return (torch.isnan(ts.reward) != (~first & empty)) \
             | torch.isinf(ts.reward)
 
-    reset_counts(rasterize_cuda)
+    rasterize_cuda.reset_launch_counts()
     rate, state, renders = drive(torch, benv, STEPS, CHUNKS, WARMUP_STEPS,
                                  (64, 64, 3), bad_rewards, "main path")
     launches = rasterize_cuda.scene_raster.launches
@@ -345,7 +520,7 @@ def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
     def bad_rewards(state, ts, first):
         return ~torch.isfinite(ts.reward) & state.task_valid
 
-    reset_counts(rasterize_cuda)
+    rasterize_cuda.reset_launch_counts()
     rate, state, renders = drive(
         torch, benv, DEMO_STEPS, CHUNKS, DEMO_WARMUP_STEPS,
         (DEMO_SIZE, DEMO_SIZE, 3), bad_rewards, "demo path")
@@ -361,6 +536,73 @@ def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
     check(launches["scene_raster"] == 0, "a demo render took the scene "
                                          "kernel")
     return rate, state, launches
+
+
+# Phase 6: (label, bench_torch workload, anti_aliasing, pil_exact, lanes,
+# the kernel and mode every render must take, or None for no kernel).
+WORKLOADS = [
+    ("image64 AA=1", "image64", 1, True, BATCH,
+     ("packed_raster", "exact+identity")),
+    ("image64 AA=5 fast", "image64", 5, False, BATCH,
+     ("scene_raster", "centroid+box")),
+    ("factors", "factors", None, True, BATCH, None),
+    ("clustering", "clustering", None, True, BATCH,
+     ("scene_raster", "exact+lanczos")),
+    ("sorting", "sorting", None, True, BATCH,
+     ("scene_raster", "exact+lanczos")),
+    ("embodied", "embodied", None, True, BATCH,
+     ("scene_raster", "exact+lanczos")),
+    ("demo256 fast", "demo256", DEMO_AA, False, DEMO_BATCH,
+     ("strip_raster", "centroid+box")),
+]
+
+
+def drive_workloads(torch, bench_torch, env_lib, rasterize_cuda, card):
+    """Phase 6: every bench.py workload, and demo256 fast. Returns {label:
+    (steps/s, final state, {kernel: {mode: launches}})}."""
+    rc = rasterize_cuda
+    kernels = (rc.scene_raster, rc.strip_raster, rc.strip_vpass,
+               rc.packed_raster)
+    out = {}
+    for label, name, aa, exact, lanes, want in WORKLOADS:
+        env, _, _ = bench_torch.build(name, aa, exact, device="cuda", seed=0)
+        benv = env_lib.BatchedEnvironment(env, lanes)
+        task = env.task
+        if hasattr(task, "filter_mask"):  # FindGoalPosition
+            def bad_rewards(state, ts, first, task=task):
+                empty = ~task.filter_mask(state.factors,
+                                          state.num_sprites).any(-1)
+                return (torch.isnan(ts.reward) != (~first & empty)) \
+                    | torch.isinf(ts.reward)
+        else:
+            def bad_rewards(state, ts, first):
+                return ~torch.isfinite(ts.reward) & state.task_valid
+        moved_of = None
+        if name == "embodied":
+            def moved_of(before, state, ts):
+                b = torch.arange(lanes, device=state.factors.device)
+                body = (before.num_sprites - 1).clamp(min=0).long()
+                was = before.factors[b, body, 0:2]
+                now = state.factors[b, body, 0:2]
+                return (ts.step_type != 0) & (was != now).any(-1)
+        image_shape = None
+        if "image" in env.renderers:
+            image_shape = env.renderers["image"].image_size + (3,)
+        rc.reset_launch_counts()
+        rate, state, renders = drive(
+            torch, benv, WORKLOAD_STEPS, 1, WORKLOAD_WARMUP_STEPS,
+            image_shape, bad_rewards, label, moved_of)
+        launches = {k.__name__: dict(k.by_mode) for k in kernels}
+        print(f"{label} launches {launches} for {renders} renders")
+        expected = {k.__name__: {} for k in kernels}
+        if want is not None:
+            expected[want[0]] = {want[1]: renders}
+        check(launches == expected,
+              f"{label}: a render did not take {want}")
+        print(f"env_steps_per_sec {rate:.1f} ({label}, {lanes} lanes) on "
+              f"{card}")
+        out[label] = (rate, state, launches)
+    return out
 
 
 def event_ms(torch, fn, reps):
@@ -515,6 +757,102 @@ def time_kernel(torch, rasterize_cuda, colors, state):
     }
 
 
+def centroid_ops(torch, tables):
+    """The centroid fill's operations on these tables: per live sprite and
+    row of its bounds, 4 per edge for the straddle test and crossing, and
+    per column a compare and an add for each edge that straddles the row."""
+    from spriteworld_torch.ops import rasterize_cuda as s
+
+    tab = tables.tab
+    v, hc, wc = tables.num_vertices, tables.hc, tables.wc
+    rows = torch.arange(hc, dtype=torch.float32, device=tab.device)
+    total = 0.0
+    for k in range(tab.shape[1]):
+        t = tab[:, k]
+        y0 = t[:, s.NUM_SCALARS + s.C_Y0 * v:s.NUM_SCALARS + (s.C_Y0 + 1) * v]
+        y1 = t[:, s.NUM_SCALARS + s.C_Y1 * v:s.NUM_SCALARS + (s.C_Y1 + 1) * v]
+        py = rows[None, :, None] + 0.5
+        straddles = ((y0[:, None] > py) != (y1[:, None] > py)).sum(-1)
+        inb = ((rows[None] >= t[:, s.T_ROW0, None])
+               & (rows[None] <= t[:, s.T_ROW1, None]))  # [B, hc]
+        cols = (t[:, s.T_COL1].clamp(max=wc - 1)
+                - t[:, s.T_COL0].clamp(min=0) + 1).clamp(min=0)
+        per_row = straddles * 2 * cols[:, None] + 4 * t[:, s.T_COUNT, None]
+        total += float((per_row * inb * (t[:, s.T_COUNT, None] > 0)).sum())
+    return total
+
+
+def time_modes(torch, rasterize_cuda, colors, workloads):
+    """Phase 7, the kernels of this slice's modes at their paths' inputs:
+    packed_raster at image64/AA=1 (B=2048) beside the scene kernel on the
+    same tables, the scene kernel in centroid+box at image64/AA=5 (B=2048),
+    the strip kernel in centroid+box at demo256 (B=256). Returns their
+    `kernels` entries."""
+    rc = rasterize_cuda
+    entries = []
+
+    def entry(name, replaces, source, key, state, image_size, aa, pil_exact,
+              run, reps, plain_reps, extra_ops):
+        h, w = image_size
+        tables = rc.prepare(state.factors, state.num_sprites, h * aa, w * aa,
+                            colors.hsv_to_rgb, pil_exact)
+        got = run(tables)
+        want = rc.render_rgb_batch_plain(tables, image_size)
+        err, count = compare(got, want)
+        b = tables.tab.shape[0]
+        print(f"{name} vs plain at its path's inputs, B={b}: max |diff| "
+              f"{err}, {count} differing values")
+        check(count == 0, f"{name} differs from the plain version")
+        ms = event_ms(torch, lambda: run(tables), reps)
+        plain_ms = event_ms(
+            torch, lambda: rc.render_rgb_batch_plain(tables, image_size),
+            plain_reps)
+        f_ops = (fill_ops(tables) if pil_exact
+                 else centroid_ops(torch, tables))
+        bound_ms, bound_by = bound(tables.tab.numel() * 4, got.numel(),
+                                   f_ops + extra_ops(b))
+        print(f"{name} bound: {tables.tab.numel() * 4 + got.numel()} bytes, "
+              f"{f_ops:.0f} fill + {extra_ops(b)} downsample operations -> "
+              f"{bound_ms:.6f} ms ({bound_by})")
+        label, kernel, mode = key
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": workloads[label][2][kernel].get(mode, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # No single PyTorch call fills and filters a scene.
+            "library_ms": None,
+        })
+        return tables
+
+    state = workloads["image64 AA=1"][1]
+    tables = entry(
+        "packed_raster", "spriteworld_tpu/ops/rasterize_pallas.py:761",
+        "spriteworld_torch/csrc/packed_raster.cu",
+        ("image64 AA=1", "packed_raster", "exact+identity"), state,
+        (64, 64), 1, True, lambda t: rc.packed_raster(t, (64, 64)), 50, 2,
+        lambda b: 0)
+    scene_ms = event_ms(torch, lambda: rc.scene_raster(tables, (64, 64)), 50)
+    print(f"scene_raster at image64/AA=1 on the same tables, B={BATCH}: "
+          f"{scene_ms:.4f} ms (packed_raster {entries[-1]['ms']:.4f} ms)")
+    entry("scene_raster[centroid+box]",
+          "spriteworld_tpu/ops/rasterize_pallas.py:312",
+          "spriteworld_torch/csrc/scene_raster.cu",
+          ("image64 AA=5 fast", "scene_raster", "centroid+box"),
+          workloads["image64 AA=5 fast"][1], (64, 64), 5, False,
+          lambda t: rc.scene_raster(t, (64, 64)), 20, 2,
+          lambda b: b * 64 * 64 * 3 * 25)
+    entry("strip_raster[centroid+box]",
+          "spriteworld_tpu/ops/rasterize_pallas.py:761",
+          "spriteworld_torch/csrc/strip_raster.cu",
+          ("demo256 fast", "strip_raster", "centroid+box"),
+          workloads["demo256 fast"][1], (DEMO_SIZE, DEMO_SIZE), DEMO_AA,
+          False, lambda t: rc.strip_raster(t, (DEMO_SIZE, DEMO_SIZE)), 10, 1,
+          lambda b: b * DEMO_SIZE * DEMO_SIZE * 3 * DEMO_AA * DEMO_AA)
+    return entries
+
+
 def main():
     import torch
 
@@ -543,6 +881,8 @@ def main():
 
     worst = kernel_vs_plain(torch, rasterize_cuda, colors)
     worst_strip, worst_v = strips_vs_plain(torch, rasterize_cuda, colors)
+    worst_modes = modes_vs_plain(torch, rasterize_cuda, colors)
+    worst_cases = check_cases(torch, rasterize_cuda)
 
     steps_per_sec, state, scene_launches = drive_main_path(
         torch, bench_torch, env_lib, rasterize_cuda)
@@ -553,6 +893,9 @@ def main():
     print(f"env_steps_per_sec {demo_rate:.1f} (demo256 clustering, "
           f"AA={DEMO_AA}, {DEMO_BATCH} lanes) on {card}")
 
+    workloads = drive_workloads(torch, bench_torch, env_lib, rasterize_cuda,
+                                card)
+
     entry = time_kernel(torch, rasterize_cuda, colors, state)
     entry["launches"] = scene_launches
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
@@ -560,7 +903,14 @@ def main():
     for e, err in zip(strip_entries, (worst_strip, worst_v)):
         e["launches"] = demo_launches[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"], err)
-    entries = [entry] + strip_entries
+    mode_entries = time_modes(torch, rasterize_cuda, colors, workloads)
+    for e in mode_entries:
+        kernel = e["name"].split("[")[0]
+        mode = "exact+identity" if kernel == "packed_raster" else \
+            "centroid+box"
+        e["max_abs_err"] = max(e["max_abs_err"], worst_cases,
+                               worst_modes.get((kernel, mode), 0))
+    entries = [entry] + strip_entries + mode_entries
     for e in entries:
         print(f"{e['name']}: kernel {e['ms']:.4f} ms, plain "
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms "

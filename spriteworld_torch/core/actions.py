@@ -1,19 +1,28 @@
 """Action spaces as batched state-update functions.
 
-Counterpart of `spriteworld_tpu/core/actions.py`, for `SelectMove` and
-`DragAndDrop`: motion = (click2 - 0.5) * scale (SelectMove) or
-(click2 - click1) * scale (DragAndDrop); optional Gaussian action noise;
-the topmost (foreground-most) live sprite containing click1 moves, clipped
-to the frame when `keep_in_frame`; cost = -motion_cost * ||motion||.
+Counterpart of `spriteworld_tpu/core/actions.py`:
+
+  * SelectMove / DragAndDrop: motion = (click2 - 0.5) * scale (SelectMove)
+    or (click2 - click1) * scale (DragAndDrop); optional Gaussian action
+    noise; the topmost (foreground-most) live sprite containing click1
+    moves, clipped to the frame when `keep_in_frame`; cost = -motion_cost *
+    ||motion||.
+  * Embodied: the last live sprite is the agent's body; an action is the
+    integer pair [carry in {0, 1}, direction in {0..3}] (up, left, down,
+    right). When carrying, the topmost non-body sprite containing the body's
+    centre (decided from positions before the move) moves first, then the
+    body; cost = -motion_cost * step_size.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from spriteworld_torch.ops import geometry
+from spriteworld_torch.utils import device as device_lib
 
 
 def _move_sprite(factors, idx, motion, do_move, keep_in_frame: bool):
@@ -75,3 +84,47 @@ class DragAndDrop(SelectMove):
 
     def get_motion(self, action):
         return (action[..., 2:] - action[..., :2]) * self._scale
+
+
+class Embodied:
+    """Grid-motion embodied agent with adhere-and-carry physics."""
+
+    ACTION_SIZE = 2
+
+    def __init__(self, step_size: float = 0.05, motion_cost: float = 0.0):
+        self._step_size = step_size
+        self._motion_cost = motion_cost
+        # Motion table rows: up, left, down, right.
+        self._motions = np.array(
+            [[0.0, step_size], [-step_size, 0.0],
+             [0.0, -step_size], [step_size, 0.0]], dtype=np.float32)
+
+    def step(self, action, factors, num_sprites, keep_in_frame: bool,
+             generator: torch.Generator):
+        """action i32[B, 2], factors f32[B, K, 10], num_sprites i32[B] ->
+        (factors', cost f32[B])."""
+        del generator
+        b = factors.shape[0]
+        motion = device_lib.constant(self._motions, factors.device)[
+            action[:, 1].long()]
+        body_idx = (num_sprites - 1).clamp(min=0).long()
+        body_pos = factors[torch.arange(b, device=factors.device),
+                           body_idx, 0:2]
+        hits = geometry.sprites_containing_point(factors, body_pos)
+        carried_idx, has_carried = geometry.topmost_hit(hits, body_idx)
+        do_carry = has_carried & (action[:, 0] > 0)
+        factors = _move_sprite(factors, carried_idx, motion, do_carry,
+                               keep_in_frame)
+        factors = _move_sprite(factors, body_idx, motion, num_sprites > 0,
+                               keep_in_frame)
+        cost = torch.full((b,), -self._motion_cost * self._step_size,
+                          dtype=torch.float32, device=factors.device)
+        return factors, cost
+
+    def sample(self, generator: torch.Generator, batch: int):
+        """Uniform random actions i32[B, 2]."""
+        dev = generator.device
+        return torch.stack([
+            torch.randint(0, 2, (batch,), generator=generator, device=dev),
+            torch.randint(0, 4, (batch,), generator=generator, device=dev),
+        ], -1).to(torch.int32)

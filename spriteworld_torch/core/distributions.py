@@ -1,11 +1,12 @@
 """Factor distributions: batched samplers and contains-masks on tensors.
 
-Counterpart of `spriteworld_tpu/core/distributions.py`, for the nodes the
-goal-finding path uses: `Continuous`, `Discrete` and `Product`. Each node
-offers
+Counterpart of `spriteworld_tpu/core/distributions.py`, with its seven-node
+algebra: `Continuous`, `Discrete`, `Mixture`, `Intersection`, `Product`,
+`SetMinus` and `Selection`. Each node offers
 
-  * ``sample(generator, shape) -> dict[str, f32[*shape]]`` — draws from an
-    explicit `torch.Generator`, on that generator's device;
+  * ``sample_with_status(generator, shape) -> (dict[str, f32[*shape]],
+    ok bool[*shape])`` — draws from an explicit `torch.Generator`, on that
+    generator's device; ``sample`` drops the status;
   * ``contains(spec) -> bool tensor`` — vectorized over any batch of factor
     values, so one call masks all sprites of all lanes.
 
@@ -13,6 +14,12 @@ Semantics kept from the reference:
   * ``Continuous.contains`` is half-open ``[minval, maxval)``.
   * ``Continuous.sample`` casts through ``dtype`` (int dtypes truncate).
   * ``contains`` on a spec lacking the key raises KeyError.
+  * Mixtures sample a component per element by probability; Intersection
+    samples from ``index_for_sampling`` and rejects with the rest;
+    SetMinus and Selection reject samples of their base.
+  * Rejection is bounded by MAX_REJECTION_TRIES proposals per element;
+    ``ok`` is False where the bound ran out or a nested rejection node
+    reported exhaustion, which stops the outer loop at once (fail fast).
 """
 
 from __future__ import annotations
@@ -26,6 +33,10 @@ import torch
 from spriteworld_torch import constants
 
 Spec = Dict[str, torch.Tensor]
+
+# Proposals per element before a rejection node gives up, as the JAX
+# package's (the reference raises after as many).
+MAX_REJECTION_TRIES = 100_000
 
 
 def _resolve(key: str, value):
@@ -45,7 +56,7 @@ class AbstractDistribution(abc.ABC):
     @abc.abstractmethod
     def sample_with_status(self, generator: torch.Generator, shape=()):
         """(spec, ok bool[*shape]) — ok=False where a bounded rejection loop
-        found no in-support sample. The nodes here never reject."""
+        found no in-support sample."""
 
     @abc.abstractmethod
     def contains(self, spec: Spec) -> torch.Tensor:
@@ -143,6 +154,121 @@ class Discrete(AbstractDistribution):
         return frozenset([self.key])
 
 
+def _same_keys_check(components, what):
+    keys = components[0].keys
+    for c in components[1:]:
+        if c.keys != keys:
+            raise ValueError(
+                f"All {what} components must have the same key sets; got "
+                f"{sorted(keys)} and {sorted(c.keys)}")
+    return keys
+
+
+def _rejection_sample(generator, shape, propose, accept):
+    """Batched bounded rejection: propose until each element is accepted.
+
+    `propose(generator, shape) -> (Spec, ok)`, `accept(Spec) -> bool`. Each
+    round proposes again only for the elements still pending (not accepted,
+    and whose last proposal was ok), so every element has its own do-while
+    loop of at most MAX_REJECTION_TRIES proposals, as in the JAX package's
+    `_rejection_sample`. A proposal with ok=False (a nested rejection node
+    that ran out) stops that element's loop: fail fast. Returns (spec,
+    accept(spec) & ok). Each round costs one host check of the pending
+    count.
+    """
+    spec, ok = propose(generator, shape)
+    flat = {k: v.reshape(-1).clone() for k, v in spec.items()}
+    ok = ok.reshape(-1).clone()
+    pending = (~accept(flat) & ok).nonzero().squeeze(1)
+    tries = 1
+    while pending.numel() and tries < MAX_REJECTION_TRIES:
+        new, new_ok = propose(generator, (pending.numel(),))
+        for k in flat:
+            flat[k][pending] = new[k]
+        ok[pending] = new_ok
+        pending = pending[~accept(new) & new_ok]
+        tries += 1
+    shape = tuple(shape)
+    return ({k: v.reshape(shape) for k, v in flat.items()},
+            (accept(flat) & ok).reshape(shape))
+
+
+class Mixture(AbstractDistribution):
+    """Mixture of same-keyed components with optional probabilities."""
+
+    def __init__(self, components, probs=None):
+        self.components = list(components)
+        self.probs = (np.ones(len(self.components)) / len(self.components)
+                      if probs is None else np.asarray(probs))
+        self._keys = _same_keys_check(self.components, "Mixture")
+
+    def sample_with_status(self, generator, shape=()):
+        dev = generator.device
+        numel = int(np.prod(shape))
+        p = torch.as_tensor(self.probs, dtype=torch.float32, device=dev)
+        idx = torch.multinomial(p, numel, replacement=True,
+                                generator=generator)
+        out = {k: torch.zeros(numel, device=dev) for k in self._keys}
+        ok = torch.ones(numel, dtype=torch.bool, device=dev)
+        # Each element draws from its own component only.
+        for i, c in enumerate(self.components):
+            where = (idx == i).nonzero().squeeze(1)
+            if not where.numel():
+                continue
+            spec, c_ok = c.sample_with_status(generator, (where.numel(),))
+            for k in out:
+                out[k][where] = spec[k].to(torch.float32)
+            ok[where] = c_ok
+        shape = tuple(shape)
+        return ({k: v.reshape(shape) for k, v in out.items()},
+                ok.reshape(shape))
+
+    def contains(self, spec: Spec) -> torch.Tensor:
+        results = torch.broadcast_tensors(
+            *[c.contains(spec) for c in self.components])
+        return torch.stack(results).any(0)
+
+    def to_str(self, indent):
+        inner = ",\n".join(c.to_str(indent + 2) for c in self.components)
+        return (indent * "  " + "<Mixture:\n" + (indent + 1) * "  "
+                + f"components=[\n{inner},\n" + (indent + 1) * "  " + "],\n"
+                + (indent + 1) * "  " + f"probs={self.probs}>")
+
+    @property
+    def keys(self):
+        return self._keys
+
+
+class Intersection(AbstractDistribution):
+    """Intersection via rejection sampling from one component."""
+
+    def __init__(self, components, index_for_sampling: int = 0):
+        self.components = list(components)
+        self.index_for_sampling = index_for_sampling
+        self._keys = _same_keys_check(self.components, "Intersection")
+
+    def sample_with_status(self, generator, shape=()):
+        proposal = self.components[self.index_for_sampling]
+        return _rejection_sample(generator, shape,
+                                 proposal.sample_with_status, self.contains)
+
+    def contains(self, spec: Spec) -> torch.Tensor:
+        results = torch.broadcast_tensors(
+            *[c.contains(spec) for c in self.components])
+        return torch.stack(results).all(0)
+
+    def to_str(self, indent):
+        inner = ",\n".join(c.to_str(indent + 2) for c in self.components)
+        return (indent * "  " + "<Intersection:\n" + (indent + 1) * "  "
+                + f"components=[\n{inner},\n" + (indent + 1) * "  " + "],\n"
+                + (indent + 1) * "  "
+                + f"index_for_sampling={self.index_for_sampling}>")
+
+    @property
+    def keys(self):
+        return self._keys
+
+
 class Product(AbstractDistribution):
     """Product of components with disjoint key sets."""
 
@@ -175,6 +301,68 @@ class Product(AbstractDistribution):
         inner = ",\n".join(c.to_str(indent + 2) for c in self.components)
         return (indent * "  " + "<Product:\n" + (indent + 1) * "  "
                 + f"components=[\n{inner},\n" + (indent + 1) * "  " + "]>")
+
+    @property
+    def keys(self):
+        return self._keys
+
+
+class SetMinus(AbstractDistribution):
+    """base \\ hold_out, via rejection sampling."""
+
+    def __init__(self, base, hold_out):
+        self.base = base
+        self.hold_out = hold_out
+        self._keys = base.keys
+        if not hold_out.keys.issubset(self._keys):
+            raise ValueError(
+                f"Keys {sorted(hold_out.keys)} of hold_out is not a subset of "
+                f"keys {sorted(base.keys)} of SetMinus base distribution.")
+
+    def sample_with_status(self, generator, shape=()):
+        return _rejection_sample(generator, shape,
+                                 self.base.sample_with_status,
+                                 lambda s: ~self.hold_out.contains(s))
+
+    def contains(self, spec: Spec) -> torch.Tensor:
+        return self.base.contains(spec) & ~self.hold_out.contains(spec)
+
+    def to_str(self, indent):
+        return (indent * "  " + "<SetMinus:\n" + (indent + 1) * "  "
+                + f"base=\n{self.base.to_str(indent + 2)},\n"
+                + (indent + 1) * "  "
+                + f"hold_out=\n{self.hold_out.to_str(indent + 2)}>")
+
+    @property
+    def keys(self):
+        return self._keys
+
+
+class Selection(AbstractDistribution):
+    """Samples of `base` accepted by `filtering` (subset-keyed)."""
+
+    def __init__(self, base, filtering):
+        self.base = base
+        self.filtering = filtering
+        self._keys = base.keys
+        if not filtering.keys.issubset(self._keys):
+            raise ValueError(
+                f"Keys {sorted(filtering.keys)} of filtering is not a subset "
+                f"of keys {sorted(base.keys)} of Selection base distribution.")
+
+    def sample_with_status(self, generator, shape=()):
+        return _rejection_sample(generator, shape,
+                                 self.base.sample_with_status,
+                                 self.filtering.contains)
+
+    def contains(self, spec: Spec) -> torch.Tensor:
+        return self.base.contains(spec) & self.filtering.contains(spec)
+
+    def to_str(self, indent):
+        return (indent * "  " + "<Selection:\n" + (indent + 1) * "  "
+                + f"base=\n{self.base.to_str(indent + 2)},\n"
+                + (indent + 1) * "  "
+                + f"filtering=\n{self.filtering.to_str(indent + 2)}>")
 
     @property
     def keys(self):

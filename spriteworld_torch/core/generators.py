@@ -1,21 +1,47 @@
 """Scene generators: distributions -> packed batched sprite factor tensors.
 
-Counterpart of `spriteworld_tpu/core/generators.py`, for the generators the
-goal-finding and clustering paths use. A generator has a static capacity
-``max_sprites`` and ``sample_with_status(generator, batch) -> (factors
-f32[B, max_sprites, 10], num i32[B], ok bool[B])``, drawing from an
-explicit `torch.Generator`.
+Counterpart of `spriteworld_tpu/core/generators.py`. A generator has a
+static capacity ``max_sprites`` and ``sample_with_status(generator, batch)
+-> (factors f32[B, max_sprites, 10], num i32[B], ok bool[B])``, drawing from
+an explicit `torch.Generator`.
 
 Packing invariant: live sprites occupy slots [0, num); slot order is z-order
 (higher slot = foreground). Dead slots hold the default factor row so
-downstream masked math stays finite.
+downstream masked math stays finite. Random sprite counts are `RandInt`s
+(or `(low, high)` tuples), drawn per lane within the static capacity.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple, Union
+
+import numpy as np
 import torch
 
 from spriteworld_torch.core import state as state_lib
+
+
+class RandInt:
+    """Uniform random integer in [low, high): a per-lane sprite count."""
+
+    def __init__(self, low: int, high: int):
+        if high <= low:
+            raise ValueError(f"need high > low, got [{low}, {high})")
+        self.low = int(low)
+        self.high = int(high)
+
+    @property
+    def max_value(self) -> int:
+        return self.high - 1
+
+    def __call__(self, generator: torch.Generator, batch: int):
+        """i32[batch] of counts."""
+        return torch.randint(self.low, self.high, (batch,),
+                             generator=generator, device=generator.device,
+                             dtype=torch.int32)
+
+
+NumSprites = Union[int, Tuple[int, int], RandInt]
 
 
 def _pack(factors: torch.Tensor, valid: torch.Tensor):
@@ -53,29 +79,37 @@ class SpriteGenerator:
 
 
 class GenerateSprites(SpriteGenerator):
-    """Sample `num_sprites` iid sprites from a factor distribution."""
+    """Sample `num_sprites` iid sprites from a factor distribution; a
+    `RandInt` (or a `(low, high)` tuple) draws the count per lane."""
 
-    def __init__(self, factor_dist, num_sprites: int = 1):
-        if not isinstance(num_sprites, int):
-            raise TypeError(
-                "GenerateSprites takes a fixed int sprite count; random "
-                "counts (RandInt) are ROADMAP Queue 1 item 10")
+    def __init__(self, factor_dist, num_sprites: NumSprites = 1):
+        if isinstance(num_sprites, tuple):
+            num_sprites = RandInt(*num_sprites)
         self.factor_dist = factor_dist
         self.num_sprites = num_sprites
-        self.max_sprites = num_sprites
+        self.max_sprites = (num_sprites if isinstance(num_sprites, int)
+                            else num_sprites.max_value)
 
     def sample_with_status(self, generator, batch: int):
         dev = generator.device
         kmax = self.max_sprites
+        if isinstance(self.num_sprites, int):
+            num = torch.full((batch,), self.num_sprites, dtype=torch.int32,
+                             device=dev)
+        else:
+            num = self.num_sprites(generator, batch)
         specs, ok = self.factor_dist.sample_with_status(
             generator, (batch, kmax))
         factors = state_lib.default_factors((batch, kmax), dev)
         for name, values in specs.items():
             factors[..., state_lib.FACTOR_INDEX[name]] = values.to(
                 torch.float32)
-        num = torch.full((batch,), self.num_sprites, dtype=torch.int32,
-                         device=dev)
-        return factors, num, ok.all(-1)
+        alive = torch.arange(kmax, device=dev) < num[:, None]
+        factors = torch.where(alive[..., None], factors,
+                              state_lib.default_factors((1, 1), dev))
+        # Only live slots count: a dead slot's discarded draw cannot poison
+        # the scene status.
+        return factors, num, (ok | ~alive).all(-1)
 
 
 class ChainGenerators(SpriteGenerator):
@@ -95,6 +129,40 @@ class ChainGenerators(SpriteGenerator):
             valids.append(idx < n[:, None])
             ok = ok & g_ok
         factors, num = _pack(torch.cat(parts, 1), torch.cat(valids, 1))
+        return factors, num, ok
+
+
+class SampleGenerator(SpriteGenerator):
+    """Sample one of several generators per lane ('OR'), with optional
+    probabilities; scenes are padded to the largest capacity with default
+    rows, as the JAX package pads them."""
+
+    def __init__(self, gens: Sequence[SpriteGenerator], p=None):
+        self.gens = list(gens)
+        self.p = None if p is None else np.asarray(p)
+        self.max_sprites = max(g.max_sprites for g in self.gens)
+
+    def sample_with_status(self, generator, batch: int):
+        dev = generator.device
+        n = len(self.gens)
+        if self.p is None:
+            idx = torch.randint(n, (batch,), generator=generator, device=dev)
+        else:
+            p = torch.as_tensor(self.p, dtype=torch.float32, device=dev)
+            idx = torch.multinomial(p, batch, replacement=True,
+                                    generator=generator)
+        factors = state_lib.default_factors((batch, self.max_sprites), dev)
+        num = torch.zeros(batch, dtype=torch.int32, device=dev)
+        ok = torch.ones(batch, dtype=torch.bool, device=dev)
+        # Each lane draws from its own generator only.
+        for i, g in enumerate(self.gens):
+            lanes = (idx == i).nonzero().squeeze(1)
+            if not lanes.numel():
+                continue
+            f, n_i, ok_i = g.sample_with_status(generator, lanes.numel())
+            factors[lanes, :g.max_sprites] = f
+            num[lanes] = n_i
+            ok[lanes] = ok_i
         return factors, num, ok
 
 
@@ -120,12 +188,16 @@ class Shuffle(SpriteGenerator):
 
 
 # Functional aliases mirroring the reference module-level API.
-def generate_sprites(factor_dist, num_sprites: int = 1):
+def generate_sprites(factor_dist, num_sprites: NumSprites = 1):
     return GenerateSprites(factor_dist, num_sprites)
 
 
 def chain_generators(*gens):
     return ChainGenerators(*gens)
+
+
+def sample_generator(gens, p=None):
+    return SampleGenerator(gens, p)
 
 
 def shuffle(gen):

@@ -5,12 +5,12 @@ Counterpart of `spriteworld_tpu/core/renderers.py`. Each renderer offers
 
   * SpriteFactors — selected factor columns [B, K, F] + live mask [B, K].
   * Success — the task success flag [B].
-  * ImageRenderer — RGB pixels u8[B, H, W, 3]. With the Pillow-exact fill
-    (the default) a CUDA batch goes to the scene kernel when its canvas fits
-    one block's shared memory and to the row-strip kernels otherwise
-    (`kernel_mode`), and a CPU batch to their plain version
-    (`ops/rasterize_cuda.py`). The centroid fill and the box filter run on
-    the CPU only (`ops/rasterize.py`).
+  * ImageRenderer — RGB pixels u8[B, H, W, 3], in every fill and
+    downsample mode. A CUDA batch goes to a kernel of
+    `ops/rasterize_cuda.py`: the anti_aliasing=1 small-canvas kernel where
+    the JAX package takes its packed mode, else the scene kernel when its
+    canvas fits one block's shared memory and the row-strip kernels
+    otherwise (`kernel_mode`); a CPU batch goes to their plain version.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from spriteworld_torch.core import state as state_lib
-from spriteworld_torch.ops import rasterize
 from spriteworld_torch.ops import rasterize_cuda
 from spriteworld_torch.utils import colors as color_maps
 
@@ -105,6 +104,8 @@ class ImageRenderer(AbstractRenderer):
     kernel: "scene" (one block a scene), "strips" (one block a strip of
     canvas rows) or "auto" (the scene kernel where its layout fits the
     card's shared memory per block; `rasterize_cuda.resolve_kernel_mode`).
+    "auto" and "strips" take the anti_aliasing=1 small-canvas kernel where
+    `rasterize_cuda.uses_packed` holds.
     """
 
     def __init__(self,
@@ -126,6 +127,8 @@ class ImageRenderer(AbstractRenderer):
         if pil_exact == "auto":
             pil_exact = True
         self._pil_exact = bool(pil_exact)
+        if downsample not in rasterize_cuda.DOWNSAMPLES:
+            raise ValueError(f"Unknown downsample: {downsample!r}")
         self._downsample = downsample
         if kernel_mode not in rasterize_cuda.KERNEL_MODES:
             raise ValueError(f"Unknown kernel_mode: {kernel_mode!r}")
@@ -137,21 +140,11 @@ class ImageRenderer(AbstractRenderer):
 
     def render(self, factors, num_sprites, success):
         del success
-        kwargs = dict(
-            image_size=self._image_size,
-            anti_aliasing=self._anti_aliasing,
-            bg_color=self._bg_color,
-            color_to_rgb=self._color_to_rgb,
-            pil_exact=self._pil_exact,
-            downsample=self._downsample)
-        if factors.is_cuda or rasterize_cuda.kernel_covers(
-                self._anti_aliasing, self._pil_exact, self._downsample):
-            # The kernels, or their plain version for CPU tensors; it raises
-            # NotImplementedError for the modes they do not cover.
-            return rasterize_cuda.render_rgb_batch(
-                factors, num_sprites, kernel_mode=self._kernel_mode,
-                **kwargs)
-        return rasterize.render_rgb(factors, num_sprites, **kwargs)
+        return rasterize_cuda.render_rgb_batch(
+            factors, num_sprites, image_size=self._image_size,
+            anti_aliasing=self._anti_aliasing, bg_color=self._bg_color,
+            color_to_rgb=self._color_to_rgb, pil_exact=self._pil_exact,
+            downsample=self._downsample, kernel_mode=self._kernel_mode)
 
     def observation_spec(self):
         return (self._image_size + (3,), torch.uint8)

@@ -1,14 +1,20 @@
 """Tasks as batched reward/success functions over the factor state.
 
-Counterpart of `spriteworld_tpu/core/tasks.py`, for the goal-finding and
-clustering paths: `NoReward`, `FindGoalPosition`, `Clustering` and
-`task_valid`. Each task maps ``(factors f32[B, K, 10], num_sprites i32[B])``
-to a per-lane reward f32[B] and success bool[B].
+Counterpart of `spriteworld_tpu/core/tasks.py`: `NoReward`,
+`FindGoalPosition`, `Clustering`, `MetaAggregated` and `task_valid`. Each
+task maps ``(factors f32[B, K, 10], num_sprites i32[B])`` to a per-lane
+reward f32[B] and success bool[B].
 
 Contract quirks kept: FindGoalPosition returns NaN when no sprite passes
 the filter, and its success is then vacuously True (``all([])``).
 Clustering scores 1/davies_bouldin and assigns each sprite to the FIRST
-cluster distribution containing it.
+cluster distribution containing it. MetaAggregated combines subtask rewards
+with NaN-ignoring aggregators and adds `terminate_bonus * success`.
+
+Goal distance: each product of ``sum(w * (pos - goal)**2)`` is rounded once
+before the sum, as the TPU computes it (Mosaic and XLA on the TPU do not
+contract a multiply and an add into one FMA; XLA on the CPU does, so the
+JAX package on the CPU can differ from the port by an ulp off the grid).
 """
 
 from __future__ import annotations
@@ -60,8 +66,9 @@ class FindGoalPosition:
         delta = factors[..., 0:2] - device_lib.constant(
             self._goal_position, dev)
         weights = device_lib.constant(self._weights_dimensions, dev)
-        # float64 sqrt rounds to the correctly rounded float32 value, which
-        # torch's vectorized float32 sqrt on the CPU does not always give.
+        # Each product rounded once (see the module docstring); float64 sqrt
+        # rounds to the correctly rounded float32 value, which torch's
+        # vectorized float32 sqrt on the CPU does not always give.
         dist = torch.sqrt((weights * delta ** 2).sum(-1).double()).float()
         return self._raw_reward_multiplier * (self._terminate_distance - dist)
 
@@ -156,12 +163,67 @@ class Clustering:
         return (n_labels >= 2) & (n_labels < n_samples)
 
 
+def _nan_extreme(x, largest: bool):
+    """NaN-ignoring max or min over dim 0; NaN where every entry is NaN."""
+    fill = -torch.inf if largest else torch.inf
+    clean = torch.where(torch.isnan(x), torch.full_like(x, fill), x)
+    out = clean.amax(0) if largest else clean.amin(0)
+    return torch.where(torch.isnan(x).all(0), torch.full_like(out, torch.nan),
+                       out)
+
+
+_AGGREGATORS = {
+    "sum": lambda x: torch.nansum(x, 0),
+    "max": lambda x: _nan_extreme(x, True),
+    "min": lambda x: _nan_extreme(x, False),
+    "mean": lambda x: torch.nanmean(x, 0),
+}
+_CRITERIA = {"all": lambda x: x.all(0), "any": lambda x: x.any(0)}
+
+
+class MetaAggregated:
+    """NaN-aware aggregation of several subtasks."""
+
+    def __init__(self,
+                 subtasks: Sequence,
+                 reward_aggregator: str = "sum",
+                 termination_criterion: str = "all",
+                 terminate_bonus: float = 0.0):
+        if reward_aggregator not in _AGGREGATORS:
+            raise ValueError(
+                f"Unknown reward_aggregator. {reward_aggregator} not in "
+                f"{sorted(_AGGREGATORS)}")
+        if termination_criterion not in _CRITERIA:
+            raise ValueError(
+                f"Unknown termination_criterion. {termination_criterion} "
+                f"not in {sorted(_CRITERIA)}")
+        self._subtasks = list(subtasks)
+        self._reward_aggregator = _AGGREGATORS[reward_aggregator]
+        self._termination_criterion = _CRITERIA[termination_criterion]
+        self._terminate_bonus = terminate_bonus
+
+    def reward(self, factors, num_sprites):
+        rewards = torch.stack(
+            [t.reward(factors, num_sprites) for t in self._subtasks])
+        agg = self._reward_aggregator(rewards)
+        return agg + self._terminate_bonus * self.success(
+            factors, num_sprites).to(agg.dtype)
+
+    def success(self, factors, num_sprites):
+        return self._termination_criterion(torch.stack(
+            [t.success(factors, num_sprites) for t in self._subtasks]))
+
+    def valid(self, factors, num_sprites):
+        return torch.stack([task_valid(t, factors, num_sprites)
+                            for t in self._subtasks]).all(0)
+
+
 def task_valid(task, factors, num_sprites) -> torch.Tensor:
     """bool[B]: whether the task's reward/success are defined on each lane.
 
     Tasks without a `valid` method (NoReward, FindGoalPosition, whose NaN
     rewards are contractual) are always valid; Clustering is valid on
-    sklearn's domain.
+    sklearn's domain; MetaAggregated where all its subtasks are.
     """
     fn = getattr(task, "valid", None)
     if fn is None:

@@ -1,11 +1,16 @@
-// Pillow's exact polygon fill of one sprite, shared by the scene kernel
-// (scene_raster.cu) and the row-strip kernel (strip_raster.cu).
+// The two polygon fills of one sprite, shared by the scene kernel
+// (scene_raster.cu), the row-strip kernel (strip_raster.cu) and the small
+// anti_aliasing=1 kernel (packed_raster.cu), and the box filter those with
+// a downsample share.
 //
 // Inputs are one sprite's row of the packed table of
 // spriteworld_torch/ops/rasterize_cuda.py (`prepare`): 8 scalars, 5 edge
-// fields of V values, then 2V features (row, lo, hi).
+// fields of V values, then 2V features (row, lo, hi). The exact fill's
+// tables hold (y0, m, x0, ymin, ymax) per edge; the centroid fill's hold
+// (y0, dy, x0, y1, dx) and no features.
 //
-// Canvas row r belongs to warp r % num_warps, and lane e holds edge e. For
+// `fill_sprite` is Pillow's exact fill. Canvas row r belongs to warp
+// r % num_warps, and lane e holds edge e. For
 // each row the warp computes xi = x0 + (r - y0) * m with __fmul_rn/__fadd_rn
 // (two roundings, as Pillow; nvcc would otherwise contract to an FMA), the
 // edge's Pillow weight with the bottom-duplicate rule, and by warp
@@ -30,6 +35,10 @@ constexpr float kBig = 1e9f;
 constexpr int kNumScalars = 8;
 enum { T_COUNT, T_NF, T_COLOR, T_GYMAX, T_ROW0, T_ROW1, T_COL0, T_COL1 };
 enum { E_Y0, E_M, E_X0, E_YMIN, E_YMAX };
+enum { C_Y0, C_DY, C_X0, C_Y1, C_DX };
+
+// Downsample modes of the kernels (rasterize_cuda.py's DS_* constants).
+enum { DS_IDENTITY = 0, DS_LANCZOS = 1, DS_BOX = 2 };
 
 __host__ __device__ inline size_t round16(size_t n) {
   return (n + 15) & ~size_t(15);
@@ -99,6 +108,84 @@ __device__ __forceinline__ void fill_sprite(
       if (fill) crow[c] = value;
     }
   }
+}
+
+// The centroid fill (pil_exact=False): pixel (r, c) is filled when the
+// point (c + 0.5, r + 0.5) lies inside the polygon by the even-odd rule of
+// ops/geometry.py::points_in_polygons, computed with its roundings: edge e
+// from (x0, y0) to (x0 + dx, y1) straddles row r when (y0 > py) != (y1 >
+// py), and crosses it at x = x0 + ((py - y0) / dy) * dx (a subtract, a
+// divide, a multiply and an add, each rounded once); the pixel counts it
+// when c + 0.5 < x. Edges past the vertex count and dead slots have y1 ==
+// y0 and never straddle. Same ownership as fill_sprite: canvas row r
+// belongs to warp r % num_warps, lane e computes edge e's crossing, and the
+// warp compacts the straddling crossings into `wx` (a row crosses a simple
+// polygon at two of them, mostly) before its lanes test the columns.
+__device__ __forceinline__ void fill_sprite_centroid(
+    const float* st, int V, uint8_t value, int r0, int r1, int c0, int c1,
+    int row_base, uint8_t* canvas, int wc, float* wx, int warp,
+    int num_warps, int lane) {
+  const int count = static_cast<int>(st[T_COUNT]);
+  const bool has_edge = lane < count;
+  const float y0 = has_edge ? st[kNumScalars + C_Y0 * V + lane] : 0.f;
+  const float dy = has_edge ? st[kNumScalars + C_DY * V + lane] : 1.f;
+  const float x0 = has_edge ? st[kNumScalars + C_X0 * V + lane] : 0.f;
+  const float y1 = has_edge ? st[kNumScalars + C_Y1 * V + lane] : 0.f;
+  const float dx = has_edge ? st[kNumScalars + C_DX * V + lane] : 0.f;
+  const unsigned below = (1u << lane) - 1u;
+
+  const int first_row =
+      r0 + ((warp - r0) % num_warps + num_warps) % num_warps;
+  for (int r = first_row; r <= r1; r += num_warps) {
+    const float py = __fadd_rn(static_cast<float>(r), 0.5f);
+    const bool straddle = has_edge && ((y0 > py) != (y1 > py));
+    const unsigned hits = __ballot_sync(kFull, straddle);
+    if (hits == 0u) continue;  // uniform across the warp
+    const float x =
+        __fadd_rn(x0, __fmul_rn(__fdiv_rn(__fsub_rn(py, y0), dy), dx));
+    __syncwarp();
+    if (straddle) wx[__popc(hits & below)] = x;
+    __syncwarp();
+
+    const int n = __popc(hits);
+    uint8_t* crow = canvas + size_t(r - row_base) * wc;
+    for (int c = c0 + lane; c <= c1; c += 32) {
+      const float px = __fadd_rn(static_cast<float>(c), 0.5f);
+      int inside = 0;
+      for (int e = 0; e < n; ++e) inside ^= px < wx[e];
+      if (inside) crow[c] = value;
+    }
+  }
+}
+
+// The box filter of one output pixel: the integer sum of each channel over
+// the aa x aa canvas block whose top-left slot is `block` (slots through the
+// colour table `ctab`), divided once, correctly rounded, by aa * aa and
+// rounded half to even; written to `o[0..2]`.
+__device__ __forceinline__ void box_pixel(const uint8_t* block, int wc,
+                                          int aa, const int* ctab,
+                                          uint8_t* o) {
+  int sr = 0, sg = 0, sb = 0;
+  for (int dy = 0; dy < aa; ++dy) {
+    const uint8_t* row = block + dy * wc;
+    for (int dx = 0; dx < aa; ++dx) {
+      const int c = ctab[row[dx]];
+      sr += c >> 16;
+      sg += (c >> 8) & 255;
+      sb += c & 255;
+    }
+  }
+  const float n = static_cast<float>(aa * aa);
+  o[0] = static_cast<uint8_t>(rintf(__fdiv_rn(static_cast<float>(sr), n)));
+  o[1] = static_cast<uint8_t>(rintf(__fdiv_rn(static_cast<float>(sg), n)));
+  o[2] = static_cast<uint8_t>(rintf(__fdiv_rn(static_cast<float>(sb), n)));
+}
+
+// One slot's colour, unpacked to `o[0..2]` (the identity downsample).
+__device__ __forceinline__ void slot_pixel(int c, uint8_t* o) {
+  o[0] = static_cast<uint8_t>(c >> 16);
+  o[1] = static_cast<uint8_t>((c >> 8) & 255);
+  o[2] = static_cast<uint8_t>(c & 255);
 }
 
 }  // namespace sw

@@ -2,18 +2,21 @@
 //
 // Replaces the TPU kernel `_fill_kernel_scene` of
 // spriteworld_tpu/ops/rasterize_pallas.py (its pallas_call at the scene
-// branch of render_rgb_batch). It computes the same function: Pillow's exact
-// scanline fill of every sprite polygon, painted back to front on the
-// anti_aliasing-supersampled canvas, then Pillow's Lanczos downsample (or
-// none at anti_aliasing=1) and the vertical flip to math coordinates.
-// Inputs are the per-sprite tables of spriteworld_torch/ops/rasterize_cuda.py
-// (`prepare`); the plain torch version there computes the same values.
+// branch of render_rgb_batch), in all its modes. It paints every sprite
+// polygon back to front on the anti_aliasing-supersampled canvas with
+// Pillow's exact scanline fill or the centroid fill (the even-odd test at
+// pixel centres), downsamples with Pillow's Lanczos filter, the box filter
+// or none (anti_aliasing=1), and flips to math coordinates. Inputs are the
+// per-sprite tables of spriteworld_torch/ops/rasterize_cuda.py (`prepare`);
+// the plain torch version there computes the same values.
 //
 // What bounds it. The output is 64*64*3 bytes a scene and the tables ~8 KB,
 // so at 2048 scenes the kernel moves ~40 MB: ~12 us at 3.35 TB/s. The work
 // is scalar arithmetic: per filled-region pixel a test of each of the
-// sprite's <= 30 scanline crossings, and per h-pass output ~31 integer
-// multiply-adds per channel. The kernel is bound by operations.
+// sprite's <= 30 scanline crossings (the exact fill) or of the row's ~2
+// straddling crossings (the centroid fill), and per output ~31 integer
+// multiply-adds per channel and pass (Lanczos) or aa*aa adds (box). The
+// kernel is bound by operations.
 //
 // Design.
 // * The TPU kernel keeps an f32 packed-RGB canvas (400 KiB at 320x320) and
@@ -23,8 +26,11 @@
 //   k + 1 = sprite k): 100 KiB at 320x320. Later sprites overwrite earlier
 //   ones (painter's order); colours stay in a K + 1 entry table.
 // * Crossings are recomputed per (row, edge) instead of stored, one warp per
-//   canvas row and one lane per edge: the fill is `sw::fill_sprite` of
-//   raster_fill.cuh, which the row-strip kernel (strip_raster.cu) shares.
+//   canvas row and one lane per edge: the fills are `sw::fill_sprite` and
+//   `sw::fill_sprite_centroid` of raster_fill.cuh, which the row-strip and
+//   anti_aliasing=1 kernels share. The centroid crossing is computed with
+//   ops/geometry.py's roundings, not the TPU kernel's x0 + (row - y0) * m,
+//   so the kernel equals the port's CPU centroid fill bit for bit.
 // * The Lanczos filter runs in Pillow's own int32 fixed point with the
 //   integer taps q (tap = q / 2^22): acc = 2^21 + sum(q * p), out =
 //   clip(acc >> 22, 0, 255). Integer sums are exact in any order, so the
@@ -32,9 +38,15 @@
 //   h-pass reads the index canvas through the colour table into a
 //   u8[hc][w][3] buffer (60 KiB at 320x64); the v-pass writes the output
 //   already flipped.
-// * Shared memory at 64x64, anti_aliasing=5: ~190 KiB (opted in with
-//   cudaFuncSetAttribute), so one block per SM. A canvas whose layout does
-//   not fit one block's shared memory goes to the row-strip kernel instead.
+// * The box filter (`sw::box_pixel`) sums each channel over the aa x aa
+//   block in integers and divides once, so it needs neither tap tables nor
+//   the h-pass buffer: its layout is the identity's, and 64x64 at
+//   anti_aliasing=6 fits a block in box mode where it does not with Lanczos.
+//   The TPU kernel multiplied by 1/aa matrices on the MXU instead.
+// * Shared memory at 64x64, anti_aliasing=5: ~190 KiB with Lanczos, ~110
+//   KiB with the box filter (opted in with cudaFuncSetAttribute), so one
+//   block per SM. A canvas whose layout does not fit one block's shared
+//   memory goes to the row-strip kernel instead.
 // * Left out: the TPU kernel's single-interval fast path for convex sprites
 //   (`_scene_fastok`), a speed trick with the same output.
 
@@ -75,7 +87,7 @@ __host__ __device__ inline Layout layout(int K, int NT, int hc, int wc, int h,
 
 __global__ void __launch_bounds__(kThreads)
 scene_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
-                    int hc, int wc, int h, int w,
+                    int hc, int wc, int h, int w, int centroid, int ds,
                     const int* __restrict__ hx0, const int* __restrict__ hq,
                     int ht, const int* __restrict__ vy0,
                     const int* __restrict__ vq, int vt, int bg_packed,
@@ -108,32 +120,38 @@ scene_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
   for (int i = tid; i < (hc * wc + 3) / 4; i += kThreads) canvas32[i] = 0u;
   __syncthreads();
 
-  // ---- exact fill, sprite by sprite, one warp per canvas row ----------- //
+  // ---- fill, sprite by sprite, one warp per canvas row ----------------- //
   const int warp = tid >> 5, lane = tid & 31;
   float* wx = s_xi + warp * 32;
   int* ww = s_wgt + warp * 32;
   for (int k = 0; k < K; ++k) {
     const float* st = s_tab + k * NT;
     if (static_cast<int>(st[T_COUNT]) <= 0) continue;
-    fill_sprite(st, V, static_cast<uint8_t>(k + 1),
-                max(static_cast<int>(st[T_ROW0]), 0),
-                min(static_cast<int>(st[T_ROW1]), hc - 1),
-                max(static_cast<int>(st[T_COL0]), 0),
-                min(static_cast<int>(st[T_COL1]), wc - 1), 0, canvas, wc, wx,
-                ww, warp, kWarps, lane);
+    const uint8_t value = static_cast<uint8_t>(k + 1);
+    const int r0 = max(static_cast<int>(st[T_ROW0]), 0);
+    const int r1 = min(static_cast<int>(st[T_ROW1]), hc - 1);
+    const int c0 = max(static_cast<int>(st[T_COL0]), 0);
+    const int c1 = min(static_cast<int>(st[T_COL1]), wc - 1);
+    if (centroid)
+      fill_sprite_centroid(st, V, value, r0, r1, c0, c1, 0, canvas, wc, wx,
+                           warp, kWarps, lane);
+    else
+      fill_sprite(st, V, value, r0, r1, c0, c1, 0, canvas, wc, wx, ww, warp,
+                  kWarps, lane);
   }
   __syncthreads();
 
   // ---- downsample and flip --------------------------------------------- //
   uint8_t* img = out + size_t(blockIdx.x) * h * w * 3;
-  if (ht == 0) {  // anti_aliasing=1: identity
+  if (ds != DS_LANCZOS) {  // identity (anti_aliasing=1) or box
+    const int aa = hc / h;
     for (int i = tid; i < h * w; i += kThreads) {
       const int y = i / w, x = i - y * w;
-      const int c = s_ctab[canvas[y * wc + x]];
       uint8_t* o = img + ((h - 1 - y) * w + x) * 3;
-      o[0] = static_cast<uint8_t>(c >> 16);
-      o[1] = static_cast<uint8_t>((c >> 8) & 255);
-      o[2] = static_cast<uint8_t>(c & 255);
+      if (ds == DS_BOX)
+        box_pixel(canvas + (y * aa) * wc + x * aa, wc, aa, s_ctab, o);
+      else
+        slot_pixel(s_ctab[canvas[y * wc + x]], o);
     }
     return;
   }
@@ -178,11 +196,13 @@ scene_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
 
 }  // namespace
 
-// Launches on `stream`; returns the CUDA error code (0 on success). With
-// ht == 0 (anti_aliasing=1) the tap pointers may be null.
+// Launches on `stream`; returns the CUDA error code (0 on success).
+// `centroid` selects the fill (tables of prepare(pil_exact=False)), `ds` the
+// downsample (DS_IDENTITY, DS_LANCZOS or DS_BOX). Outside DS_LANCZOS, ht and
+// vt are 0 and the tap pointers may be null.
 extern "C" int scene_raster_launch(const float* tab, int B, int K, int V,
                                    int NT, int hc, int wc, int h, int w,
-                                   const int* hx0, const int* hq, int ht,
+                                   int centroid, int ds, const int* hx0, const int* hq, int ht,
                                    const int* vy0, const int* vq, int vt,
                                    int bg_packed, uint8_t* out, void* stream) {
   const Layout L = layout(K, NT, hc, wc, h, w, ht, vt);
@@ -192,13 +212,15 @@ extern "C" int scene_raster_launch(const float* tab, int B, int K, int V,
   if (err != cudaSuccess) return static_cast<int>(err);
   scene_raster_kernel<<<B, kThreads, L.bytes,
                         static_cast<cudaStream_t>(stream)>>>(
-      tab, K, V, NT, hc, wc, h, w, hx0, hq, ht, vy0, vq, vt, bg_packed, out);
+      tab, K, V, NT, hc, wc, h, w, centroid, ds, hx0, hq, ht, vy0, vq, vt,
+      bg_packed, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory the kernel needs for these sizes; the renderer's
-// dispatch compares its Python mirror (rasterize_cuda.scene_smem_bytes) with
-// the card's per-block limit before launching.
+// Dynamic shared memory the kernel needs for these sizes (ht = vt = 0 for
+// the identity and box modes); the renderer's dispatch compares its Python
+// mirror (rasterize_cuda.scene_smem_bytes) with the card's per-block limit
+// before launching.
 extern "C" long long scene_raster_smem_bytes(int K, int NT, int hc, int wc,
                                              int h, int w, int ht, int vt) {
   return static_cast<long long>(layout(K, NT, hc, wc, h, w, ht, vt).bytes);

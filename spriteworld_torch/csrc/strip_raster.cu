@@ -6,21 +6,25 @@
 // spriteworld_tpu/ops/rasterize_pallas.py in its row-strip mode (its
 // pallas_call at the end of render_rgb_batch), and the vertical Lanczos pass
 // and flip that XLA runs after it. It computes the same function as the
-// scene kernel, from the same per-sprite tables
+// scene kernel, in all its modes, from the same per-sprite tables
 // (spriteworld_torch/ops/rasterize_cuda.py `prepare`): Pillow's exact
-// scanline fill of every sprite polygon painted back to front on the
-// anti_aliasing-supersampled canvas, Pillow's Lanczos downsample (or none at
-// anti_aliasing=1) and the vertical flip to math coordinates. Only the
-// tiling differs.
+// scanline fill or the centroid fill of every sprite polygon painted back to
+// front on the anti_aliasing-supersampled canvas, Pillow's Lanczos
+// downsample, the box filter or none (anti_aliasing=1), and the vertical
+// flip to math coordinates. Only the tiling differs.
 //
 // Two kernels:
 // * strip_raster_kernel: per (scene, strip), cull sprites by row bounds,
-//   fill them with `sw::fill_sprite` (raster_fill.cuh, shared with the
-//   scene kernel) into a u8 top-slot canvas of strip_rows x wc bytes in
-//   shared memory, then run the horizontal Lanczos pass in Pillow's int32
-//   fixed point with its intermediate u8 rounding, writing u8[B][hc][w][3]
-//   in Pillow's row order. At anti_aliasing=1 it writes the strip straight
-//   out as the flipped image instead.
+//   fill them with `sw::fill_sprite` or `sw::fill_sprite_centroid`
+//   (raster_fill.cuh, shared with the scene kernel) into a u8 top-slot
+//   canvas of strip_rows x wc bytes in shared memory, then run the
+//   horizontal Lanczos pass in Pillow's int32 fixed point with its
+//   intermediate u8 rounding, writing u8[B][hc][w][3] in Pillow's row
+//   order. At anti_aliasing=1 it writes the strip straight out as the
+//   flipped image instead. With the box filter the strips hold a multiple
+//   of aa rows, so every output pixel's aa x aa block lies in one strip: the
+//   kernel writes its rows of the flipped image directly (`sw::box_pixel`),
+//   and no second kernel runs.
 // * strip_vpass_kernel: the vertical Lanczos pass over that buffer, one
 //   thread per output pixel, in the same fixed point, writing u8[B][h][w][3]
 //   already flipped. Its support (3 * anti_aliasing canvas rows each side)
@@ -31,7 +35,10 @@
 // channels (~120 M integer multiply-adds a scene) and outweighs the fill
 // (~4 sprites x ~0.2 M pixels of bounds x a compare and an add per edge).
 // The h-pass buffer is 1.9 MB a scene, written once and read by the v-pass.
-// Both kernels are bound by operations.
+// Both kernels are bound by operations. With the box filter the strip
+// kernel alone runs: aa * aa adds per output channel (~20 M a scene at
+// anti_aliasing=10) and the fill, still operations against ~0.2 MB of
+// output a scene.
 //
 // Design.
 // * Shared memory holds only the strip's canvas (one byte per pixel: 0 =
@@ -78,8 +85,9 @@ __host__ __device__ inline Layout layout(int K, int strip_rows, int wc) {
 
 __global__ void __launch_bounds__(kThreads)
 strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
-                    int hc, int wc, int h, int w, int strip_rows,
-                    int num_strips, const int* __restrict__ hx0,
+                    int hc, int wc, int h, int w, int centroid, int ds,
+                    int strip_rows, int num_strips,
+                    const int* __restrict__ hx0,
                     const int* __restrict__ hqt, int ht, int bg_packed,
                     uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -101,7 +109,7 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
   for (int i = tid; i < (rows * wc + 3) / 4; i += kThreads) canvas32[i] = 0u;
   __syncthreads();
 
-  // ---- exact fill of the sprites that reach this strip ------------------ //
+  // ---- fill of the sprites that reach this strip ------------------------ //
   const int warp = tid >> 5, lane = tid & 31;
   float* wx = s_xi + warp * 32;
   int* ww = s_wgt + warp * 32;
@@ -111,22 +119,29 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
     const int r0 = max(static_cast<int>(st[T_ROW0]), row_begin);
     const int r1 = min(static_cast<int>(st[T_ROW1]), row_begin + rows - 1);
     if (r0 > r1) continue;  // the sprite misses this strip
-    fill_sprite(st, V, static_cast<uint8_t>(k + 1), r0, r1,
-                max(static_cast<int>(st[T_COL0]), 0),
-                min(static_cast<int>(st[T_COL1]), wc - 1), row_begin, canvas,
-                wc, wx, ww, warp, kWarps, lane);
+    const uint8_t value = static_cast<uint8_t>(k + 1);
+    const int c0 = max(static_cast<int>(st[T_COL0]), 0);
+    const int c1 = min(static_cast<int>(st[T_COL1]), wc - 1);
+    if (centroid)
+      fill_sprite_centroid(st, V, value, r0, r1, c0, c1, row_begin, canvas,
+                           wc, wx, warp, kWarps, lane);
+    else
+      fill_sprite(st, V, value, r0, r1, c0, c1, row_begin, canvas, wc, wx,
+                  ww, warp, kWarps, lane);
   }
   __syncthreads();
 
-  if (ht == 0) {  // anti_aliasing=1: the strip is the image, flipped
+  if (ds != DS_LANCZOS) {  // identity or box: this strip's image rows
+    const int aa = hc / h;  // 1 for the identity
+    const int out_begin = row_begin / aa;
     uint8_t* img = out + size_t(scene) * h * w * 3;
-    for (int i = tid; i < rows * w; i += kThreads) {
+    for (int i = tid; i < (rows / aa) * w; i += kThreads) {
       const int y = i / w, x = i - y * w;
-      const int c = s_ctab[canvas[y * wc + x]];
-      uint8_t* o = img + (size_t(h - 1 - row_begin - y) * w + x) * 3;
-      o[0] = static_cast<uint8_t>(c >> 16);
-      o[1] = static_cast<uint8_t>((c >> 8) & 255);
-      o[2] = static_cast<uint8_t>(c & 255);
+      uint8_t* o = img + (size_t(h - 1 - out_begin - y) * w + x) * 3;
+      if (ds == DS_BOX)
+        box_pixel(canvas + (y * aa) * wc + x * aa, wc, aa, s_ctab, o);
+      else
+        slot_pixel(s_ctab[canvas[y * wc + x]], o);
     }
     return;
   }
@@ -186,12 +201,15 @@ extern "C" long long strip_raster_smem_bytes(int K, int strip_rows, int wc) {
   return static_cast<long long>(layout(K, strip_rows, wc).bytes);
 }
 
-// Fill and h-pass (or, with ht == 0, the image at anti_aliasing=1) of B
-// scenes in strips of `strip_rows` canvas rows. Launches on `stream`;
+// Fill and h-pass (ds == DS_LANCZOS) or the flipped image (DS_IDENTITY, or
+// DS_BOX with strip_rows a multiple of anti_aliasing) of B scenes in strips
+// of `strip_rows` canvas rows; `centroid` selects the fill. Outside
+// DS_LANCZOS ht is 0 and the tap pointers may be null. Launches on `stream`;
 // returns the CUDA error code (0 on success).
 extern "C" int strip_raster_launch(const float* tab, int B, int K, int V,
                                    int NT, int hc, int wc, int h, int w,
-                                   int strip_rows, const int* hx0,
+                                   int centroid, int ds, int strip_rows,
+                                   const int* hx0,
                                    const int* hqt, int ht, int bg_packed,
                                    uint8_t* out, void* stream) {
   const Layout L = layout(K, strip_rows, wc);
@@ -202,8 +220,8 @@ extern "C" int strip_raster_launch(const float* tab, int B, int K, int V,
   const int num_strips = (hc + strip_rows - 1) / strip_rows;
   strip_raster_kernel<<<B * num_strips, kThreads, L.bytes,
                         static_cast<cudaStream_t>(stream)>>>(
-      tab, K, V, NT, hc, wc, h, w, strip_rows, num_strips, hx0, hqt, ht,
-      bg_packed, out);
+      tab, K, V, NT, hc, wc, h, w, centroid, ds, strip_rows, num_strips, hx0,
+      hqt, ht, bg_packed, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -276,8 +276,22 @@ def _render_chunk(factors, num_sprites, image_size, aa, bg_color,
     if aa > 1:
         if downsample == "lanczos":
             out = resample.pil_resize_lanczos(canvas, h, w)
-            return torch.flip(out, dims=(1,))
-        canvas = canvas.reshape(b, h, aa, w, aa, 3).mean(dim=(2, 4))
+        else:
+            out = box_filter(canvas, h, w)
+    else:
+        out = torch.round(canvas).to(torch.uint8)
     # PIL top-left origin -> math bottom-left origin.
-    canvas = torch.flip(canvas, dims=(1,))
-    return torch.round(canvas).to(torch.uint8)
+    return torch.flip(out, dims=(1,))
+
+
+def box_filter(pix: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The box filter of integer-valued pixels [B, h*aa, w*aa, 3] ->
+    u8[B, h, w, 3]: each channel's exact sum over its aa x aa block, one
+    correctly rounded division by aa * aa, rounded half to even (the CUDA
+    kernels' `box_pixel`). The divisor is a tensor: torch divides by a
+    scalar through its reciprocal on the card, which rounds differently
+    where aa * aa is not a power of two."""
+    b, hc, wc, _ = pix.shape
+    aa = hc // h
+    sums = pix.reshape(b, h, aa, w, aa, 3).sum((2, 4)).to(torch.float32)
+    return torch.round(sums / torch.full_like(sums, aa * aa)).to(torch.uint8)

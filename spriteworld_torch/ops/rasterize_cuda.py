@@ -1,38 +1,48 @@
-"""Rasterizer for the card: two hand-written CUDA kernels and their plain twin.
+"""Rasterizer for the card: three hand-written CUDA kernels and their plain
+twin.
 
 Counterpart of `spriteworld_tpu/ops/rasterize_pallas.py`'s scene kernel
-(`_fill_kernel_scene`), its row-strip kernel (`_fill_kernel` in strip mode)
-and their host preparation (`_prepare`, `_build_edge_tables`). Same
-contract as `ops/rasterize.py`: paint sprite polygons back-to-front on an
-`anti_aliasing`-supersampled canvas with Pillow's exact scanline fill,
-downsample with Pillow's Lanczos filter (or not at all at
-anti_aliasing=1), flip to math coordinates.
+(`_fill_kernel_scene`), its `_fill_kernel` in row-strip and packed mode, and
+their host preparation (`_prepare`, `_build_edge_tables`). Same contract as
+`ops/rasterize.py`: paint sprite polygons back-to-front on an
+`anti_aliasing`-supersampled canvas with Pillow's exact scanline fill
+(`pil_exact=True`) or the even-odd test at pixel centres (`pil_exact=False`),
+downsample with Pillow's Lanczos filter, the box filter or not at all
+(anti_aliasing=1), flip to math coordinates.
 
-The work splits in four:
+The work splits in five:
 
 * `prepare` turns factors into one packed per-sprite table: scalars
   (vertex count, feature count, packed colour, global bottom row, pixel
-  bounds), the per-edge fields of the scanline fill and Pillow's
+  bounds), then five per-edge fields. For the exact fill those are the
+  scanline fill's fields of the truncated vertices, followed by Pillow's
   horizontal-edge and wedge features compacted to (row, lo, hi) integer
-  intervals. Only plain elementwise torch operations are used, so nothing
-  fuses into an FMA.
+  intervals; for the centroid fill they are the untruncated edges as
+  `points_in_polygons` reads them, and there are no features. Only plain
+  elementwise torch operations are used, so nothing fuses into an FMA.
 * `scene_raster` launches the scene kernel (`csrc/scene_raster.cu`) on a
   CUDA table: one thread block renders one whole scene, its canvas in
   shared memory.
 * `strip_raster` and `strip_vpass` launch the row-strip kernels
   (`csrc/strip_raster.cu`): one block fills one strip of canvas rows and
-  runs the horizontal Lanczos pass; a second kernel runs the vertical pass.
-  They take the canvases whose scene layout does not fit one block's
-  shared memory (`render_rgb_batch`'s `kernel_mode="auto"`).
+  runs the horizontal Lanczos pass (or the box filter, whole); a second
+  kernel runs the vertical Lanczos pass. They take the canvases whose scene
+  layout does not fit one block's shared memory (`render_rgb_batch`'s
+  `kernel_mode="auto"`).
+* `packed_raster` launches the anti_aliasing=1 kernel for small canvases
+  (`csrc/packed_raster.cu`), where the JAX package takes its packed mode
+  (`uses_packed`).
 * `render_rgb_batch_plain` computes the same function from the same table
-  with torch operations. CPU tensors take it; on the card both kernels are
+  with torch operations. CPU tensors take it; on the card every kernel is
   held against it, bit for bit (`hpass_plain` and `vpass_plain` are its two
   Lanczos passes, for holding the strip kernels against it one at a time).
 
-All evaluate the crossing of an edge with a scanline as the float32
-multiply-then-add ``x0 + (row - y0) * m``, and all downsample with Pillow's
-integer taps, exactly; so the kernels and the plain version agree on every
-value, and all agree with Pillow.
+All evaluate the exact fill's crossing as the float32 multiply-then-add
+``x0 + (row - y0) * m`` and the centroid fill's as ``x0 + ((py - y0) / dy)
+* dx``, each operation rounded once; all downsample with Pillow's integer
+Lanczos taps, or with the box filter's integer sums divided once and
+rounded half to even. So the kernels and the plain version agree on every
+value, and agree with Pillow and with `ops/rasterize.py`.
 """
 
 from __future__ import annotations
@@ -58,8 +68,11 @@ _BIG = 1e9
 (T_COUNT, T_NF, T_COLOR, T_GYMAX,
  T_ROW0, T_ROW1, T_COL0, T_COL1) = range(8)
 NUM_SCALARS = 8
-# Per-edge fields that follow, each a block of V values.
+# Per-edge fields that follow, each a block of V values: the exact fill's,
 E_Y0, E_M, E_X0, E_YMIN, E_YMAX = range(5)
+# or, in the same places, the centroid fill's (edge e runs from (x0, y0) to
+# (x0 + dx, y1); dy = y1 - y0, or 1 where that is 0).
+C_Y0, C_DY, C_X0, C_Y1, C_DX = range(5)
 NUM_EDGE_FIELDS = 5
 # Then 2V compacted features (row, lo, hi).
 NUM_FEATURE_FIELDS = 3
@@ -75,14 +88,16 @@ def table_width(num_vertices: int) -> int:
 class SceneTables:
     """Packed per-sprite tables of a batch of scenes.
 
-    tab: f32[B, K, table_width(V)] — every value is an exact integer except
-    the edge slopes `m`; colours are packed as r*65536 + g*256 + b.
+    tab: f32[B, K, table_width(V)]. In the exact fill's tables every value
+    is an exact integer except the edge slopes `m`; colours are packed as
+    r*65536 + g*256 + b. `pil_exact` says which fill the tables are for.
     """
 
     tab: torch.Tensor
     num_vertices: int
     hc: int
     wc: int
+    pil_exact: bool = True
 
     def features(self):
         """f32[B, K, 2V, 3] of (row, lo, hi); the first `nf` are active."""
@@ -92,8 +107,10 @@ class SceneTables:
 
 
 def prepare(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
-            wc: int, color_to_rgb: Optional[Callable]) -> SceneTables:
-    """Per-scene tables for the exact fill of factors[B, K, 10]."""
+            wc: int, color_to_rgb: Optional[Callable],
+            pil_exact: bool = True) -> SceneTables:
+    """Per-scene tables of factors[B, K, 10] for the exact fill, or with
+    pil_exact=False for the centroid fill."""
     dev = factors.device
     verts_c = rasterize._canvas_vertices(factors, hc, wc)  # [B, K, V, 2]
     b, k, vmax, _ = verts_c.shape
@@ -107,38 +124,53 @@ def prepare(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
     colors = rasterize.sprite_colors(factors, color_to_rgb)
     packed = colors[..., 0] * 65536.0 + colors[..., 1] * 256.0 + colors[..., 2]
 
-    v = torch.trunc(verts_c)
+    v = torch.trunc(verts_c) if pil_exact else verts_c
     x0, y0 = v[..., 0], v[..., 1]
     x1 = torch.roll(x0, -1, dims=-1)
     y1 = torch.roll(y0, -1, dims=-1)
     valid = torch.arange(vmax, device=dev) < counts[..., None]
-    horiz = (y0 == y1) & valid
-    slant = (y0 != y1) & valid
-    dy = torch.where(y1 == y0, torch.ones_like(y1), y1 - y0)
-    m = (x1 - x0) / dy
+    big = torch.full_like(y0, _BIG)
     ymin_e = torch.minimum(y0, y1)
     ymax_e = torch.maximum(y0, y1)
-    big = torch.full_like(y0, _BIG)
     gymax = torch.where(valid, ymax_e, -big).amax(-1)  # [B, K]
+    dy = torch.where(y1 == y0, torch.ones_like(y1), y1 - y0)
 
-    # Features: horizontal edges fill [min x, max x] on their row; wedges
-    # fill [lo, hi] on their vertex row. Active ones are compacted to the
-    # front (a stable partition), the rest zeroed.
-    wact, wlo, whi = rasterize.wedge_intervals(x0, y0, valid, counts, gymax)
-    act = torch.cat([horiz, wact], -1)  # [B, K, 2V]
-    cand = torch.stack([
-        torch.cat([y0, y0], -1),
-        torch.cat([torch.minimum(x0, x1), wlo], -1),
-        torch.cat([torch.maximum(x0, x1), whi], -1)], -1)  # [B, K, 2V, 3]
-    order = torch.sort((~act).to(torch.int8), dim=-1, stable=True).indices
-    feats = cand.gather(-2, order[..., None].expand(-1, -1, -1, 3))
-    nf = act.sum(-1)
-    keep = torch.arange(2 * vmax, device=dev) < nf[..., None]
-    feats = torch.where(keep[..., None], feats, torch.zeros_like(feats))
+    if pil_exact:
+        horiz = (y0 == y1) & valid
+        slant = (y0 != y1) & valid
+        m = (x1 - x0) / dy
+        # Features: horizontal edges fill [min x, max x] on their row;
+        # wedges fill [lo, hi] on their vertex row. Active ones are
+        # compacted to the front (a stable partition), the rest zeroed.
+        wact, wlo, whi = rasterize.wedge_intervals(x0, y0, valid, counts,
+                                                   gymax)
+        act = torch.cat([horiz, wact], -1)  # [B, K, 2V]
+        cand = torch.stack([
+            torch.cat([y0, y0], -1),
+            torch.cat([torch.minimum(x0, x1), wlo], -1),
+            torch.cat([torch.maximum(x0, x1), whi], -1)], -1)  # [B, K, 2V, 3]
+        order = torch.sort((~act).to(torch.int8), dim=-1, stable=True).indices
+        feats = cand.gather(-2, order[..., None].expand(-1, -1, -1, 3))
+        nf = act.sum(-1)
+        keep = torch.arange(2 * vmax, device=dev) < nf[..., None]
+        feats = torch.where(keep[..., None], feats, torch.zeros_like(feats))
+        edges = torch.cat([
+            y0, m, x0,
+            torch.where(slant, ymin_e, big),
+            torch.where(slant, ymax_e, -big)], -1)  # [B, K, 5V]
+    else:
+        # points_in_polygons' edges, its dy guard and its x2 - x1; invalid
+        # edges get y1 := y0, so they never straddle a row (as JAX's
+        # _build_edge_tables does).
+        feats = torch.zeros((b, k, 2 * vmax, 3), device=dev)
+        nf = torch.zeros_like(counts)
+        edges = torch.cat([y0, dy, x0, torch.where(valid, y1, y0), x1 - x0],
+                          -1)
 
-    # Conservative pixel bounds: wedges reach round_half_up(u) +- 1 of an
-    # edge intersection inside the vertex x-extent; pair and window fills
-    # reach at most the extent + 0.5.
+    # Conservative pixel bounds from the untruncated extent: wedges reach
+    # round_half_up(u) +- 1 of an edge intersection inside the vertex
+    # x-extent; pair, window and centroid fills reach at most the extent
+    # + 0.5.
     xs, ys = verts_c[..., 0], verts_c[..., 1]
     bigv = torch.full_like(ys, _BIG)
     ymin = torch.where(valid, ys, bigv).amin(-1)
@@ -150,12 +182,9 @@ def prepare(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
         counts.to(torch.float32), nf.to(torch.float32), packed, gymax,
         torch.floor(ymin) - 1.0, torch.ceil(ymax) + 1.0,
         torch.floor(xmin) - 2.0, torch.ceil(xmax) + 2.0], -1)
-    edges = torch.cat([
-        y0, m, x0,
-        torch.where(slant, ymin_e, big),
-        torch.where(slant, ymax_e, -big)], -1)  # [B, K, 5V]
     tab = torch.cat([scal, edges, feats.reshape(b, k, 6 * vmax)], -1)
-    return SceneTables(tab=tab.contiguous(), num_vertices=vmax, hc=hc, wc=wc)
+    return SceneTables(tab=tab.contiguous(), num_vertices=vmax, hc=hc, wc=wc,
+                       pil_exact=bool(pil_exact))
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,13 +222,43 @@ def lanczos_taps_t(in_size: int, out_size: int, device):
             device_lib.constant(np.ascontiguousarray(q.T), device))
 
 
-def kernel_covers(anti_aliasing: int, pil_exact: bool,
-                  downsample: str) -> bool:
-    """Whether the kernels compute this render mode: the exact fill with
-    Lanczos downsampling, or with none at anti_aliasing=1."""
+# Downsample modes of the kernels (csrc/raster_fill.cuh DS_*).
+DS_IDENTITY, DS_LANCZOS, DS_BOX = 0, 1, 2
+DOWNSAMPLES = ("auto", "lanczos", "box")
+
+
+def downsample_mode(anti_aliasing: int, pil_exact: bool,
+                    downsample: str) -> int:
+    """DS_IDENTITY at anti_aliasing=1 whatever `downsample` says, else
+    DS_LANCZOS or DS_BOX; "auto" follows the fill (Lanczos with the exact
+    fill, box with the centroid fill), as `ops.rasterize.render_rgb`."""
+    if downsample not in DOWNSAMPLES:
+        raise ValueError(f"Unknown downsample: {downsample!r}")
+    if anti_aliasing == 1:
+        return DS_IDENTITY
     if downsample == "auto":
         downsample = "lanczos" if pil_exact else "box"
-    return pil_exact and (anti_aliasing == 1 or downsample == "lanczos")
+    return DS_LANCZOS if downsample == "lanczos" else DS_BOX
+
+
+def mode_name(pil_exact: bool, ds: int) -> str:
+    """"<fill>+<downsample>", e.g. "centroid+box": the key of a kernel
+    wrapper's `by_mode` launch counts."""
+    return (("exact" if pil_exact else "centroid") + "+"
+            + ("identity", "lanczos", "box")[ds])
+
+
+def _count_launch(fn, mode: str):
+    """One more launch of kernel wrapper `fn`, in all and in `mode`."""
+    fn.launches += 1
+    fn.by_mode[mode] = fn.by_mode.get(mode, 0) + 1
+
+
+def reset_launch_counts():
+    """Set every kernel wrapper's launch counts to 0."""
+    for fn in (scene_raster, strip_raster, strip_vpass, packed_raster):
+        fn.launches = 0
+        fn.by_mode = {}
 
 
 def _round16(n: int) -> int:
@@ -208,21 +267,24 @@ def _round16(n: int) -> int:
 
 _SCENE_WARPS = 16  # scene_raster.cu kThreads / 32
 _STRIP_WARPS = 8  # strip_raster.cu kThreads / 32
+_PACKED_WARPS = 4  # packed_raster.cu kThreads / 32
 
 
-def _tap_widths(hc: int, wc: int, h: int, w: int) -> Tuple[int, int]:
-    """(h-pass, v-pass) padded tap counts; 0 at anti_aliasing=1."""
-    if hc == h:
+def _tap_widths(hc: int, wc: int, h: int, w: int,
+                ds: int) -> Tuple[int, int]:
+    """(h-pass, v-pass) padded tap counts; 0 outside DS_LANCZOS."""
+    if ds != DS_LANCZOS:
         return 0, 0
     return (_lanczos_taps_host(wc, w)[1].shape[1],
             _lanczos_taps_host(hc, h)[1].shape[1])
 
 
 def scene_smem_bytes(k: int, num_vertices: int, hc: int, wc: int, h: int,
-                     w: int) -> int:
-    """Shared memory of one scene_raster block: a mirror of `layout` in
-    csrc/scene_raster.cu (chip_smoke.py holds the two equal)."""
-    ht, vt = _tap_widths(hc, wc, h, w)
+                     w: int, ds: int) -> int:
+    """Shared memory of one scene_raster block in downsample mode `ds`: a
+    mirror of `layout` in csrc/scene_raster.cu (chip_smoke.py holds the two
+    equal). The identity and box modes need no taps and no h-pass buffer."""
+    ht, vt = _tap_widths(hc, wc, h, w, ds)
     words = (k * table_width(num_vertices) + k + 1 + 2 * _SCENE_WARPS * 32
              + (w if ht else 0) + w * ht + (h if vt else 0) + h * vt)
     canvas = _round16(words * 4)
@@ -235,6 +297,13 @@ def strip_smem_bytes(k: int, strip_rows: int, wc: int) -> int:
     csrc/strip_raster.cu."""
     return (_round16((k + 1 + 2 * _STRIP_WARPS * 32) * 4)
             + _round16(strip_rows * wc))
+
+
+def packed_smem_bytes(k: int, tile_rows: int, w: int) -> int:
+    """Shared memory of one packed_raster block: a mirror of `layout` in
+    csrc/packed_raster.cu."""
+    return (_round16((k + 1 + 2 * _PACKED_WARPS * 32) * 4)
+            + _round16(tile_rows * w))
 
 
 KERNEL_MODES = ("auto", "scene", "strips")
@@ -260,14 +329,55 @@ def resolve_kernel_mode(kernel_mode: str, scene_bytes: int,
     return kernel_mode
 
 
+def _num_strips(h: int, aa: int, wc: int, limit: int = 16000) -> int:
+    """The JAX package's strip count (rasterize_pallas._pick_strip): whole
+    output rows per program of ~`limit` canvas pixels."""
+    if h % 8:
+        return 1
+    strip_out = next((c for c in (64, 32, 16)
+                      if h % c == 0 and c * aa * wc <= limit), 8)
+    if h * aa * wc <= limit:
+        strip_out = h
+    return h // strip_out
+
+
+def uses_packed(image_size: Tuple[int, int], anti_aliasing: int,
+                kernel_mode: str) -> bool:
+    """Whether a render takes the anti_aliasing=1 small-canvas kernel: the
+    JAX package's rule for its packed mode (render_rgb_batch), one strip at
+    anti_aliasing=1 of a canvas narrower than 128 that divides 128 and
+    fills whole 128-pixel rows, unless the caller asks for the scene
+    kernel. Any other anti_aliasing=1 render takes the scene or strip
+    kernels, as there."""
+    h, w = image_size
+    aa = int(anti_aliasing)
+    hc, wc = h * aa, w * aa
+    return (aa == 1 and _num_strips(h, aa, wc) == 1 and wc < 128
+            and 128 % wc == 0 and (hc * wc) % 128 == 0
+            and kernel_mode != "scene")
+
+
 # Canvas bytes a strip block keeps in shared memory by default: small
 # enough for three blocks on one SM.
 _STRIP_CANVAS_BYTES = 64 * 1024
+# And a packed block, whose canvas is usually the whole frame (4 KiB at
+# 64x64): taller frames go in tiles of rows of at most this much.
+_PACKED_CANVAS_BYTES = 32 * 1024
 
 
-def default_strip_rows(hc: int, wc: int) -> int:
-    """Canvas rows per strip: as many as fit `_STRIP_CANVAS_BYTES`."""
-    return max(1, min(hc, _STRIP_CANVAS_BYTES // wc))
+def default_strip_rows(hc: int, wc: int, multiple: int = 1) -> int:
+    """Canvas rows per strip: as many as fit `_STRIP_CANVAS_BYTES`, rounded
+    down to a multiple of `multiple` (the box filter's anti_aliasing), and
+    at least `multiple`."""
+    rows = min(hc, _STRIP_CANVAS_BYTES // wc) // multiple * multiple
+    return max(multiple, rows)
+
+
+def default_tile_rows(h: int, w: int) -> int:
+    """Image rows per packed_raster block: the whole frame up to
+    `_PACKED_CANVAS_BYTES` (a block then needs at most ~35 KiB of shared
+    memory for K <= 254)."""
+    return max(1, min(h, _PACKED_CANVAS_BYTES // w))
 
 
 def render_rgb_batch(factors: torch.Tensor,
@@ -280,36 +390,36 @@ def render_rgb_batch(factors: torch.Tensor,
                      pil_exact: bool = True,
                      downsample: str = "auto",
                      kernel_mode: str = "auto") -> torch.Tensor:
-    """Render factors[B, K, 10] to u8[B, H, W, 3] (math orientation).
+    """Render factors[B, K, 10] to u8[B, H, W, 3] (math orientation), in
+    every mode of `ops.rasterize.render_rgb` (same arguments).
 
-    CUDA tensors launch a kernel: the scene kernel when `kernel_mode`
+    CUDA tensors launch a kernel: the anti_aliasing=1 small-canvas kernel
+    where `uses_packed` says so; else the scene kernel when `kernel_mode`
     resolves to "scene" (see `resolve_kernel_mode`; "auto" decides from the
     card's shared memory per block before launching), the row-strip kernels
-    otherwise. CPU tensors take the plain version, whatever the mode. Same
-    arguments as `ops.rasterize.render_rgb`; the modes the kernels do not
-    cover raise NotImplementedError.
+    otherwise. A kernel that cannot run raises; nothing falls back. CPU
+    tensors take the plain version, whatever the mode.
     """
     aa = int(anti_aliasing)
-    if not kernel_covers(aa, pil_exact, downsample):
-        raise NotImplementedError(
-            "the kernels cover pil_exact=True with Lanczos (or, at "
-            "anti_aliasing=1, no) downsampling; the centroid fill and the "
-            "box filter on the card are ROADMAP Queue 2 item 1b "
-            f"(got pil_exact={pil_exact}, downsample={downsample!r})")
     if kernel_mode not in KERNEL_MODES:
         raise ValueError(f"Unknown kernel_mode: {kernel_mode!r}")
+    ds = downsample_mode(aa, pil_exact, downsample)
     h, w = image_size
-    tables = prepare(factors, num_sprites, h * aa, w * aa, color_to_rgb)
+    tables = prepare(factors, num_sprites, h * aa, w * aa, color_to_rgb,
+                     pil_exact)
     if not factors.is_cuda:
-        return render_rgb_batch_plain(tables, image_size, bg_color)
+        return render_rgb_batch_plain(tables, image_size, bg_color,
+                                      downsample)
+    if uses_packed(image_size, aa, kernel_mode):
+        return packed_raster(tables, image_size, bg_color)
     budget = torch.cuda.get_device_properties(
         factors.device).shared_memory_per_block_optin
     mode = resolve_kernel_mode(
         kernel_mode, scene_smem_bytes(factors.shape[1], tables.num_vertices,
-                                      h * aa, w * aa, h, w), budget)
+                                      h * aa, w * aa, h, w, ds), budget)
     if mode == "scene":
-        return scene_raster(tables, image_size, bg_color)
-    return render_strips(tables, image_size, bg_color)
+        return scene_raster(tables, image_size, bg_color, downsample)
+    return render_strips(tables, image_size, bg_color, downsample=downsample)
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,7 +427,7 @@ def _scene_launcher():
     """(library, its C launch function with argument types declared)."""
     lib = _build.load("scene_raster")
     fn = lib.scene_raster_launch
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 10
                    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] * 2
                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -331,7 +441,7 @@ def _strip_launchers():
     """(library, strip_raster_launch, strip_vpass_launch), typed."""
     lib = _build.load("strip_raster")
     fill = lib.strip_raster_launch
-    fill.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 9
+    fill.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 11
                      + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fill.restype = ctypes.c_int
@@ -343,6 +453,19 @@ def _strip_launchers():
     lib.strip_raster_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.strip_raster_smem_bytes.restype = ctypes.c_longlong
     return lib, fill, vpass
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_launcher():
+    """(library, packed_raster_launch), typed."""
+    lib = _build.load("packed_raster")
+    fn = lib.packed_raster_launch
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.packed_raster_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.packed_raster_smem_bytes.restype = ctypes.c_longlong
+    return lib, fn
 
 
 def _bg_packed(bg_color) -> int:
@@ -381,60 +504,72 @@ def _check_tables(tables: SceneTables, image_size, name: str):
     return b, k
 
 
+def _table_ds(tables: SceneTables, image_size, downsample: str) -> int:
+    return downsample_mode(tables.hc // image_size[0], tables.pil_exact,
+                           downsample)
+
+
 def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
-                 bg_color=None) -> torch.Tensor:
+                 bg_color=None, downsample: str = "auto") -> torch.Tensor:
     """Launch the CUDA scene kernel on prepared tables -> u8[B, H, W, 3].
 
+    The tables say which fill; `downsample` is `ops.rasterize.render_rgb`'s.
     Runs on the current stream; raises when the kernel cannot launch.
-    Each launch adds one to `scene_raster.launches`.
+    Each launch adds one to `scene_raster.launches` and to
+    `scene_raster.by_mode[mode_name(...)]`.
     """
     b, k = _check_tables(tables, image_size, "scene_raster")
     tab = tables.tab
     h, w = image_size
     hc, wc = tables.hc, tables.wc
+    ds = _table_ds(tables, image_size, downsample)
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=tab.device)
     if b == 0:
         return out
-    if hc == h:  # anti_aliasing=1: identity downsample
-        hx0 = hq = vy0 = vq = None
-        ht = vt = 0
-    else:
+    if ds == DS_LANCZOS:
         hx0, hq = lanczos_taps(wc, w, tab.device)
         vy0, vq = lanczos_taps(hc, h, tab.device)
         ht, vt = hq.shape[1], vq.shape[1]
+    else:
+        hx0 = hq = vy0 = vq = None
+        ht = vt = 0
 
     lib, launch = _scene_launcher()
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(_ptr(tab), b, k, tables.num_vertices, tab.shape[-1], hc,
-                     wc, h, w, _ptr(hx0), _ptr(hq), ht, _ptr(vy0), _ptr(vq),
-                     vt, _bg_packed(bg_color), _ptr(out), stream)
+                     wc, h, w, int(not tables.pil_exact), ds, _ptr(hx0),
+                     _ptr(hq), ht, _ptr(vy0), _ptr(vq), vt,
+                     _bg_packed(bg_color), _ptr(out), stream)
     _check_launch(lib, err, "scene_raster")
-    scene_raster.launches += 1
+    _count_launch(scene_raster, mode_name(tables.pil_exact, ds))
     return out
 
 
-scene_raster.launches = 0
-
-
 def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
-                 bg_color=None, strip_rows: Optional[int] = None
-                 ) -> torch.Tensor:
+                 bg_color=None, strip_rows: Optional[int] = None,
+                 downsample: str = "auto") -> torch.Tensor:
     """Launch the row-strip kernel on prepared tables.
 
-    Returns the h-pass u8[B, hc, W, 3] in Pillow's row order (no flip), or
-    at anti_aliasing=1 the image u8[B, H, W, 3]. Runs on the current
-    stream; raises when the kernel cannot launch. Each launch adds one to
-    `strip_raster.launches`.
+    With the Lanczos filter it returns the h-pass u8[B, hc, W, 3] in
+    Pillow's row order (no flip); with the box filter, or none at
+    anti_aliasing=1, the image u8[B, H, W, 3]. Box strips hold a multiple
+    of anti_aliasing rows. Runs on the current stream; raises when the
+    kernel cannot launch. Each launch adds one to `strip_raster.launches`
+    and to `strip_raster.by_mode[mode_name(...)]`.
     """
     b, k = _check_tables(tables, image_size, "strip_raster")
     tab = tables.tab
     h, w = image_size
     hc, wc = tables.hc, tables.wc
-    rows = default_strip_rows(hc, wc) if strip_rows is None else int(
-        strip_rows)
-    if not 1 <= rows <= hc:
-        raise ValueError(f"strip_rows must lie in [1, {hc}]; got {rows}")
+    aa = hc // h
+    ds = _table_ds(tables, image_size, downsample)
+    multiple = aa if ds == DS_BOX else 1
+    rows = (default_strip_rows(hc, wc, multiple) if strip_rows is None
+            else int(strip_rows))
+    if not 1 <= rows <= hc or rows % multiple:
+        raise ValueError(f"strip_rows must lie in [1, {hc}] and be a "
+                         f"multiple of {multiple}; got {rows}")
     budget = torch.cuda.get_device_properties(
         tab.device).shared_memory_per_block_optin
     if strip_smem_bytes(k, rows, wc) > budget:
@@ -442,27 +577,27 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
             f"a strip of {rows} rows of {wc} pixels needs "
             f"{strip_smem_bytes(k, rows, wc)} bytes of shared memory; the "
             f"card gives a block {budget}")
-    out = torch.empty((b, hc, w, 3), dtype=torch.uint8, device=tab.device)
+    out_rows = hc if ds == DS_LANCZOS else h
+    out = torch.empty((b, out_rows, w, 3), dtype=torch.uint8,
+                      device=tab.device)
     if b == 0:
         return out
-    if hc == h:
-        hx0 = hqt = None
-        ht = 0
-    else:
+    if ds == DS_LANCZOS:
         hx0, hqt = lanczos_taps_t(wc, w, tab.device)
         ht = hqt.shape[0]
+    else:
+        hx0 = hqt = None
+        ht = 0
     lib, launch, _ = _strip_launchers()
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(_ptr(tab), b, k, tables.num_vertices, tab.shape[-1], hc,
-                     wc, h, w, rows, _ptr(hx0), _ptr(hqt), ht,
-                     _bg_packed(bg_color), _ptr(out), stream)
+                     wc, h, w, int(not tables.pil_exact), ds, rows,
+                     _ptr(hx0), _ptr(hqt), ht, _bg_packed(bg_color),
+                     _ptr(out), stream)
     _check_launch(lib, err, "strip_raster")
-    strip_raster.launches += 1
+    _count_launch(strip_raster, mode_name(tables.pil_exact, ds))
     return out
-
-
-strip_raster.launches = 0
 
 
 def strip_vpass(hpass: torch.Tensor, h: int) -> torch.Tensor:
@@ -487,22 +622,55 @@ def strip_vpass(hpass: torch.Tensor, h: int) -> torch.Tensor:
         err = launch(_ptr(hpass), b, hc, w, h, _ptr(vy0), _ptr(vq),
                      vq.shape[1], _ptr(out), stream)
     _check_launch(lib, err, "strip_vpass")
-    strip_vpass.launches += 1
+    _count_launch(strip_vpass, "lanczos")
     return out
 
 
-strip_vpass.launches = 0
-
-
 def render_strips(tables: SceneTables, image_size: Tuple[int, int],
-                  bg_color=None, strip_rows: Optional[int] = None
-                  ) -> torch.Tensor:
-    """The row-strip kernels on prepared CUDA tables -> u8[B, H, W, 3]."""
-    out = strip_raster(tables, image_size, bg_color, strip_rows)
-    if tables.hc == image_size[0]:  # anti_aliasing=1: already the image
-        return out
+                  bg_color=None, strip_rows: Optional[int] = None,
+                  downsample: str = "auto") -> torch.Tensor:
+    """The row-strip kernels on prepared CUDA tables -> u8[B, H, W, 3]: the
+    strip kernel, then the v-pass kernel with the Lanczos filter."""
+    out = strip_raster(tables, image_size, bg_color, strip_rows, downsample)
+    if _table_ds(tables, image_size, downsample) != DS_LANCZOS:
+        return out  # already the image
     return strip_vpass(out, image_size[0])
 
+
+def packed_raster(tables: SceneTables, image_size: Tuple[int, int],
+                  bg_color=None) -> torch.Tensor:
+    """Launch the anti_aliasing=1 small-canvas kernel on prepared tables ->
+    u8[B, H, W, 3].
+
+    Any anti_aliasing=1 canvas, in tiles of `default_tile_rows` rows;
+    `render_rgb_batch` sends it the canvases of `uses_packed`. Runs on the
+    current stream; raises when the kernel cannot launch. Each launch adds
+    one to `packed_raster.launches` and to
+    `packed_raster.by_mode[mode_name(...)]`.
+    """
+    b, k = _check_tables(tables, image_size, "packed_raster")
+    tab = tables.tab
+    h, w = image_size
+    if tables.hc != h:
+        raise ValueError(f"packed_raster renders at anti_aliasing=1; the "
+                         f"canvas is {tables.hc}x{tables.wc} for {h}x{w}")
+    rows = default_tile_rows(h, w)
+    out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=tab.device)
+    if b == 0:
+        return out
+    lib, launch = _packed_launcher()
+    with torch.cuda.device(tab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(_ptr(tab), b, k, tables.num_vertices, tab.shape[-1], h,
+                     w, int(not tables.pil_exact), rows,
+                     _bg_packed(bg_color), _ptr(out), stream)
+    _check_launch(lib, err, "packed_raster")
+    _count_launch(packed_raster,
+                  mode_name(tables.pil_exact, DS_IDENTITY))
+    return out
+
+
+reset_launch_counts()
 
 # Canvas pixels per step of the plain version: bounds its [chunk, hc, wc]
 # temporaries (a few hundred bytes a pixel) whatever the canvas size.
@@ -518,25 +686,28 @@ def _plain_chunks(tables: SceneTables, max_pixels: int):
 
 
 def render_rgb_batch_plain(tables: SceneTables, image_size: Tuple[int, int],
-                           bg_color=None, *,
+                           bg_color=None, downsample: str = "auto", *,
                            max_pixels: int = _PLAIN_PIXELS) -> torch.Tensor:
-    """The plain torch version of both kernels -> u8[B, H, W, 3].
+    """The plain torch version of every kernel -> u8[B, H, W, 3].
 
-    Both `scene_raster` and the strip kernels (`render_strips`) are held
-    against it, bit for bit. It works through the batch in chunks of at
-    most `max_pixels` canvas pixels (one scene at least); the values do not
-    depend on the chunk.
+    `scene_raster`, the strip kernels (`render_strips`) and
+    `packed_raster` are held against it, bit for bit. It works through the
+    batch in chunks of at most `max_pixels` canvas pixels (one scene at
+    least); the values do not depend on the chunk.
     """
     b = tables.tab.shape[0]
     h, w = image_size
+    ds = _table_ds(tables, image_size, downsample)
     out = torch.empty((b, h, w, 3), dtype=torch.uint8,
                       device=tables.tab.device)
     for s, sub in _plain_chunks(tables, max_pixels):
         pix = _plain_pixels(sub, bg_color)
-        if tables.hc == h:
+        if ds == DS_IDENTITY:
             img = pix.to(torch.uint8)
-        else:
+        elif ds == DS_LANCZOS:
             img = resample.lanczos_v(resample.lanczos_h(pix, w), h)
+        else:
+            img = rasterize.box_filter(pix, h, w)
         out[s:s + sub.tab.shape[0]] = torch.flip(img, dims=(1,))
     return out
 
@@ -562,21 +733,62 @@ def vpass_plain(hpass: torch.Tensor, h: int) -> torch.Tensor:
 
 
 def _plain_fill(tables: SceneTables, k: int) -> torch.Tensor:
-    """bool[B, hc, wc]: sprite k's exact fill inside its pixel bounds."""
+    """bool[B, hc, wc]: sprite k's fill inside its pixel bounds."""
+    tab = tables.tab[:, k]  # [B, NT]
+    hc, wc = tables.hc, tables.wc
+    dev = tab.device
+    fill = (_plain_fill_exact if tables.pil_exact
+            else _plain_fill_centroid)(tables, k)
+    # The kernels visit only the sprite's clamped bounds.
+    rows = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None]
+    cols = torch.arange(wc, dtype=torch.float32, device=dev)
+    r0 = tab[:, T_ROW0].clamp(0, hc - 1)[:, None, None]
+    r1 = tab[:, T_ROW1].clamp(0, hc - 1)[:, None, None]
+    c0 = tab[:, T_COL0].clamp(0, wc - 1)[:, None, None]
+    c1 = tab[:, T_COL1].clamp(0, wc - 1)[:, None, None]
+    box = (rows >= r0) & (rows <= r1) & (cols >= c0) & (cols <= c1)
+    count = tab[:, T_COUNT].to(torch.int64)
+    return fill & box & (count > 0)[:, None, None]
+
+
+def _edge_fields(tables: SceneTables, k: int):
+    """Sprite k's five per-edge fields, each f32[B, 1, V]."""
+    v = tables.num_vertices
+    tab = tables.tab[:, k]
+    return [tab[:, None, NUM_SCALARS + f * v:NUM_SCALARS + (f + 1) * v]
+            for f in range(NUM_EDGE_FIELDS)]
+
+
+def _plain_fill_centroid(tables: SceneTables, k: int) -> torch.Tensor:
+    """bool[B, hc, wc]: points_in_polygons at pixel centres, from the
+    centroid tables, with its roundings."""
+    hc, wc = tables.hc, tables.wc
+    dev = tables.tab.device
+    y0, dy, x0, y1, dx = _edge_fields(tables, k)
+    py = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None] \
+        + 0.5
+    straddle = (y0 > py) != (y1 > py)  # [B, hc, V]
+    x = torch.where(straddle, x0 + ((py - y0) / dy) * dx, 0.0)
+    # Column c counts an edge when c + 0.5 < x, i.e. c < ceil(x - 0.5)
+    # (exact in float64): the edge counts for the columns below its bucket.
+    t = torch.ceil(x.to(torch.float64) - 0.5).clamp(0, wc).to(torch.int64)
+    below = torch.zeros(x.shape[:2] + (wc + 1,), dtype=torch.int32,
+                        device=dev)
+    below.scatter_add_(-1, t, straddle.to(torch.int32))
+    total = straddle.sum(-1, keepdim=True, dtype=torch.int32)
+    crossings = total - below[..., :wc].cumsum(-1)
+    return (crossings & 1) == 1
+
+
+def _plain_fill_exact(tables: SceneTables, k: int) -> torch.Tensor:
+    """bool[B, hc, wc]: Pillow's exact fill from the exact tables."""
     hc, wc = tables.hc, tables.wc
     tab = tables.tab[:, k]  # [B, NT]
     dev = tab.device
     v = tables.num_vertices
-
-    def edge(field):
-        start = NUM_SCALARS + field * v
-        return tab[:, None, start:start + v]  # [B, 1, V]
-
     rows = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None]
-    y0, m, x0 = edge(E_Y0), edge(E_M), edge(E_X0)
-    ymn, ymx = edge(E_YMIN), edge(E_YMAX)
+    y0, m, x0, ymn, ymx = _edge_fields(tables, k)
     gymax = tab[:, None, None, T_GYMAX]
-    count = tab[:, T_COUNT].to(torch.int64)
     prod = (rows - y0) * m
     xi = x0 + prod  # [B, hc, V]
     inr = (rows >= ymn) & (rows <= ymx)
@@ -614,16 +826,7 @@ def _plain_fill(tables: SceneTables, k: int) -> torch.Tensor:
               & fact[:, None, :]).to(torch.float32)         # [B, hc, 2V]
     colhit = ((cols >= feats[..., 1:2])
               & (cols <= feats[..., 2:3])).to(torch.float32)  # [B, 2V, wc]
-    fill = fill | (torch.bmm(rowhit, colhit) > 0)
-
-    # The kernel visits only the sprite's clamped bounds.
-    r0 = tab[:, T_ROW0].clamp(0, hc - 1)[:, None, None]
-    r1 = tab[:, T_ROW1].clamp(0, hc - 1)[:, None, None]
-    c0 = tab[:, T_COL0].clamp(0, wc - 1)[:, None, None]
-    c1 = tab[:, T_COL1].clamp(0, wc - 1)[:, None, None]
-    r = rows[:, :, 0:1]
-    box = (r >= r0) & (r <= r1) & (cols >= c0) & (cols <= c1)
-    return fill & box & (count > 0)[:, None, None]
+    return fill | (torch.bmm(rowhit, colhit) > 0)
 
 
 def _plain_pixels(tables: SceneTables, bg_color) -> torch.Tensor:

@@ -251,27 +251,39 @@ def test_prepare_tables():
 
 
 def test_scene_kernel_modes_and_devices():
-    """Modes the kernel does not cover raise instead of running something
-    else; the kernel wrapper refuses CPU tables."""
+    """The centroid fill and the box filter render on CPU tensors through
+    the plain twin, which equals ops/rasterize.render_rgb; the kernel
+    wrappers refuse CPU tables."""
     f = torch.from_numpy(_sprites(np.random.default_rng(0), (1, 2)))
     n = torch.tensor([2], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tcuda.render_rgb_batch(f, n, anti_aliasing=2, pil_exact=False)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tcuda.render_rgb_batch(f, n, anti_aliasing=2, downsample="box")
+    for kw in (dict(pil_exact=False), dict(downsample="box"),
+               dict(pil_exact=False, downsample="lanczos")):
+        kw = dict(image_size=(32, 32), anti_aliasing=2, **kw)
+        got = tcuda.render_rgb_batch(f, n, **kw)
+        tables = tcuda.prepare(f, n, 64, 64, None, kw.get("pil_exact", True))
+        plain = tcuda.render_rgb_batch_plain(tables, (32, 32), None,
+                                             kw.get("downsample", "auto"))
+        np.testing.assert_array_equal(got.numpy(), plain.numpy())
+        np.testing.assert_array_equal(
+            got.numpy(), trasterize.render_rgb(f, n, **kw).numpy())
+        assert got.numpy().any()
     tables = tcuda.prepare(f, n, 32, 32, None)
-    launches = tcuda.scene_raster.launches
-    with pytest.raises(ValueError, match="CUDA"):
-        tcuda.scene_raster(tables, (32, 32))
-    assert tcuda.scene_raster.launches == launches
+    for wrapper in (tcuda.scene_raster, tcuda.packed_raster,
+                    tcuda.strip_raster):
+        launches = wrapper.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(tables, (32, 32))
+        assert wrapper.launches == launches
     # AA=1 takes the identity downsample whatever `downsample` says.
     out = tcuda.render_rgb_batch(f, n, image_size=(32, 32), downsample="box")
     assert out.shape == (1, 32, 32, 3) and out.dtype == torch.uint8
+    np.testing.assert_array_equal(
+        out.numpy(), tcuda.render_rgb_batch(f, n, image_size=(32, 32)).numpy())
 
 
 def test_renderer_cpu_paths_match_rasterizer():
-    """ImageRenderer on CPU tensors: the exact path goes through the scene
-    kernel's plain version, the fast path through ops/rasterize.py."""
+    """ImageRenderer on CPU tensors: both fills go through the kernels'
+    plain version, which equals ops/rasterize.py."""
     from spriteworld_torch.core import renderers
 
     rng = np.random.default_rng(50)

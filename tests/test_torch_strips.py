@@ -142,7 +142,8 @@ def test_scene_layout_against_the_h100_budget(size, aa, k, fits):
     """Which canvases the scene kernel holds on an H100, and that a strip
     of the default height fits every one of them."""
     hc = size * aa
-    scene = tcuda.scene_smem_bytes(k, 30, hc, hc, size, size)
+    scene = tcuda.scene_smem_bytes(k, 30, hc, hc, size, size,
+                                   tcuda.downsample_mode(aa, True, "auto"))
     assert (scene <= H100_SMEM_PER_BLOCK) == fits
     mode = tcuda.resolve_kernel_mode("auto", scene, H100_SMEM_PER_BLOCK)
     assert mode == ("scene" if fits else "strips")
@@ -177,7 +178,8 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {name: _build.library_path(name) for name in _build.KERNELS}
-    assert set(_build.KERNELS) == {"scene_raster", "strip_raster"}
+    assert set(_build.KERNELS) == {"scene_raster", "strip_raster",
+                                   "packed_raster"}
     header = csrc / "raster_fill.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.KERNELS}
