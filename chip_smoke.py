@@ -6,7 +6,8 @@ Phases:
   2. build every kernel from spriteworld_torch/csrc (one nvcc per source,
      all started together), and hold the renderer's Python mirrors of the
      kernels' shared-memory layouts equal to the kernels' own, with the
-     Lanczos and the box layouts of the scene kernel;
+     Lanczos and the box layouts of the scene kernel, and the blocks each
+     layout keeps resident on an SM at the two paths' shapes;
   3. each kernel against its plain PyTorch version on the card, bit-exact,
      over seeded batches. The scene kernel: all 12 shapes, random angles,
      1-8 live sprites, the degenerate tiny/axis-aligned generator, at
@@ -24,7 +25,12 @@ Phases:
      centroid+box at 256x256/AA=10 and 128x128/AA=5, and forced at
      64x64/AA=5 box against the scene kernel in box mode; then the ten
      mosaic-parity CASES of tests_tpu/test_mosaic_parity.py through the
-     renderer's dispatch, each checked to run the kernel it should;
+     renderer's dispatch, each checked to run the kernel it should; batches
+     of 16 sprites (K + 1 = 17 slots, the h-pass's table route) through
+     the scene and strip kernels; at random angles, the count of
+     world-vertex values and of 64x64/AA=1 pixels that differ between the
+     card and the CPU; the IMMA instructions in each built kernel
+     (cuobjdump -sass);
   4. the main path: bench.py's image64 workload at anti_aliasing=5 over
      2048 lanes — reset, warm-up, 3 timed chunks of 50 steps, each step
      followed by torch.cuda.synchronize() — checking that every render went
@@ -45,9 +51,16 @@ Phases:
      chunk longer than an episode, with the same per-step checks, launch
      counts by kernel and mode, and for embodied that actions moved the
      agent's body; each workload's env-steps/s on a line of its own;
-  7. each kernel's time at its path's shapes beside its plain version and
-     its bound, as one JSON `kernels` line, and the scene kernel's time at
-     image64/AA=1 beside packed_raster's;
+  7. the split: scene_raster at image64/AA=5 (B=2048) and strip_raster +
+     strip_vpass at demo256 (B=256) in exact+lanczos, exact+box and
+     centroid+box on their paths' scenes (one JSON `split` line); each
+     kernel's time at its path's shapes beside its plain version and two
+     bounds (`bound_ms`, every edge at every pixel and every tap at the
+     float32 rate; `bound_tc_ms`, the work as the kernels do it: the
+     compacted fill at the float32 rate, the Lanczos multiply-adds of the
+     h-pass units that hold more than one slot and of the v-pass at the
+     int8 tensor-core rate), as one JSON `kernels` line, and the scene
+     kernel's time at image64/AA=1 beside packed_raster's;
   8. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
@@ -61,6 +74,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 on the tensor cores, dense
 BATCH = 2048
 STEPS = 50
 CHUNKS = 3
@@ -181,19 +195,31 @@ def check_layouts(rasterize_cuda):
         hc, wc = h * aa, w * aa
         for ds in ((rc.DS_IDENTITY,) if aa == 1
                    else (rc.DS_LANCZOS, rc.DS_BOX)):
-            ht, vt = rc._tap_widths(hc, wc, h, w, ds)
+            lanczos = ds == rc.DS_LANCZOS
+            cp = rc.lanczos_tiles(wc, w).pitch if lanczos else wc
+            wp, hp = rc.hpass_geometry(hc, h, w) if lanczos else (0, 0)
             want = scene_lib.scene_raster_smem_bytes(
-                k, rc.table_width(v), hc, wc, h, w, ht, vt)
+                k, rc.table_width(v), hc, cp, wp, hp)
             got = rc.scene_smem_bytes(k, v, hc, wc, h, w, ds)
             check(got == want, f"scene layout mirror {got} != {want} at "
                                f"{h}x{w}/AA={aa}, mode {ds}")
-            if (h, w, aa) == (64, 64, 6):
-                print(f"scene layout at 64x64/AA=6, mode {ds}: {got} bytes")
-            rows = rc.default_strip_rows(hc, wc,
-                                         aa if ds == rc.DS_BOX else 1)
-            want = strip_lib.strip_raster_smem_bytes(k, rows, wc)
-            got = rc.strip_smem_bytes(k, rows, wc)
+            if (h, w, aa) in ((64, 64, 5), (64, 64, 6)):
+                blocks = scene_lib.scene_raster_blocks_per_sm(got,
+                                                          int(lanczos))
+                print(f"scene layout at {h}x{w}/AA={aa}, mode {ds}: {got} "
+                      f"bytes, {blocks} resident blocks an SM")
+            rows = min(hc, rc.default_strip_rows(
+                hc, cp, 8 if lanczos else (aa if ds == rc.DS_BOX else 1)))
+            want = strip_lib.strip_raster_smem_bytes(
+                k, (rows + 7) // 8 * 8 if lanczos else rows, cp,
+                int(lanczos))
+            got = rc.strip_smem_bytes(k, rows, wc, w if lanczos else None)
             check(got == want, f"strip layout mirror {got} != {want}")
+            if (h, w, aa) == (256, 256, 10):
+                blocks = strip_lib.strip_raster_blocks_per_sm(got,
+                                                          int(lanczos))
+                print(f"strip layout at 256x256/AA=10, mode {ds}: {rows} "
+                      f"rows, {got} bytes, {blocks} resident blocks an SM")
         if aa == 1:
             rows = rc.default_tile_rows(h, w)
             want = packed_lib.packed_raster_smem_bytes(k, rows, w)
@@ -236,11 +262,14 @@ def strips_vs_plain(torch, rasterize_cuda, colors):
             worst_fill = max(worst_fill, err)
             continue
         # Each kernel on its own: the h-pass, then the v-pass on the plain
-        # h-pass.
+        # h-pass, copied into the kernel's buffer layout.
         hp = rc.strip_raster(tables, size, bg, rows)
         hp_plain = rc.hpass_plain(tables, size[1], bg)
         err_h, count_h = compare(hp, hp_plain)
-        err_v, count_v = compare(rc.strip_vpass(hp_plain, size[0]),
+        _, hp_in = rc.hpass_buffer(b, tables.hc, size[0], size[1],
+                                   hp_plain.device)
+        hp_in.copy_(hp_plain)
+        err_v, count_v = compare(rc.strip_vpass(hp_in, size[0]),
                                  rc.vpass_plain(hp_plain, size[0]))
         print(f"  h-pass vs plain: max |diff| {err_h}, {count_h} differing; "
               f"v-pass vs plain: max |diff| {err_v}, {count_v} differing")
@@ -340,6 +369,7 @@ def modes_vs_plain(torch, rasterize_cuda, colors):
         ("32x32/AA=2", 32, (32, 32), 2, False, "auto"),
         ("64x64/AA=5", 33, (64, 64), 5, True, "box"),
         ("64x64/AA=6", 34, (64, 64), 6, False, "auto"),
+        ("64x64/AA=6", 39, (64, 64), 6, True, "auto"),
     ]
     for label, seed, size, aa, pe, ds in scene_cases:
         t = tables_of(seed, 256, size, aa, pe)
@@ -632,6 +662,56 @@ def fill_ops(tables):
     return float((rows * cols * tab[..., s.T_COUNT] * 2).sum())
 
 
+def compacted_fill_ops(torch, tables):
+    """The exact fill's operations as the kernels do them: per live sprite
+    and row of its bounds, 5 per edge for the crossing (a subtract, a
+    multiply, an add) and the row-range test (two compares); per pixel of
+    the bounds a compare and an add for each crossing the row keeps (the
+    edges left with a weight after the odd-total trim)."""
+    from spriteworld_torch.ops import rasterize_cuda as s
+
+    total = 0.0
+    for _, sub in s._plain_chunks(tables, s._PLAIN_PIXELS):
+        rows = torch.arange(sub.hc, dtype=torch.float32,
+                            device=sub.tab.device)
+        for k in range(sub.tab.shape[1]):
+            t = sub.tab[:, k]
+            crossings = (s.exact_crossings(sub, k)[1] > 0).sum(-1)  # [B, hc]
+            cols = (t[:, s.T_COL1].clamp(max=sub.wc - 1)
+                    - t[:, s.T_COL0].clamp(min=0) + 1).clamp(min=0)
+            inb = ((rows[None] >= t[:, s.T_ROW0, None])
+                   & (rows[None] <= t[:, s.T_ROW1, None])
+                   & (t[:, s.T_COUNT, None] > 0))
+            per_row = 5 * t[:, s.T_COUNT, None] + 2 * crossings * cols[:, None]
+            total += float((per_row * inb).sum())
+    return total
+
+
+def uniform_units(torch, tables, w):
+    """(h-pass units whose window holds one slot throughout, all units) of
+    these exact or centroid tables rendered to width w with Lanczos: a unit
+    is 16 outputs (one m-tile's window of canvas columns) by 8 canvas rows.
+    The kernels skip the products of such a unit (colour times tap sum)."""
+    from spriteworld_torch.ops import rasterize_cuda as s
+
+    tiles = s.lanczos_tiles(tables.wc, w)
+    window = 32 * tiles.ksteps
+    uniform = total = 0
+    for _, sub in s._plain_chunks(tables, s._PLAIN_PIXELS):
+        b, k, _ = sub.tab.shape
+        slots = torch.zeros((b, sub.hc, tiles.pitch), dtype=torch.uint8,
+                            device=sub.tab.device)
+        for i in range(k):
+            slots[..., :sub.wc] = torch.where(s._plain_fill(sub, i), i + 1,
+                                              slots[..., :sub.wc])
+        for start in tiles.kstart[:(w + 15) // 16]:
+            win = slots[..., start:start + window].reshape(
+                b, sub.hc // 8, 8 * window)
+            uniform += int((win == win[..., :1]).all(-1).sum())
+            total += win.shape[0] * win.shape[1]
+    return uniform, total
+
+
 def lanczos_ops(resample, in_size, out_size, scenes, lines):
     """A multiply and an add per tap and channel of each output of one
     Lanczos pass over `lines` lines of `scenes` scenes."""
@@ -640,12 +720,27 @@ def lanczos_ops(resample, in_size, out_size, scenes, lines):
     return scenes * lines * taps * 3 * 2
 
 
-def bound(in_bytes, out_bytes, ops):
-    """(bound ms, "bytes" or "operations")."""
+def bound(in_bytes, out_bytes, ops, tc_ops=0.0):
+    """(bound ms, "bytes" or "operations"): `ops` at the float32 rate and
+    `tc_ops` at the int8 tensor-core rate."""
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ops_ms = (ops / FP32_OPS_PER_S + tc_ops / INT8_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
                                    else "operations")
+
+
+def bounds(in_bytes, out_bytes, ops, fill_tc, lanczos_tc):
+    """The two bounds of a kernel: `bound_ms` counts `ops` (the fill at
+    every edge for every pixel of the bounds, every Lanczos tap) at the
+    float32 rate, the column every PR has; `bound_tc_ms` counts the work as
+    the kernels now do it: `fill_tc` compacted-fill operations at the
+    float32 rate and `lanczos_tc` multiply-adds, those of the h-pass units
+    that hold more than one slot and all of the v-pass's, at the int8
+    tensor-core rate."""
+    ms, by = bound(in_bytes, out_bytes, ops)
+    tc_ms, tc_by = bound(in_bytes, out_bytes, fill_tc, lanczos_tc)
+    return {"bound_ms": ms, "bound_by": by, "bound_tc_ms": tc_ms,
+            "bound_tc_by": tc_by}
 
 
 def time_strips(torch, rasterize_cuda, colors, state):
@@ -676,34 +771,42 @@ def time_strips(torch, rasterize_cuda, colors, state):
 
     from spriteworld_torch.ops import resample
 
-    hx0, hqt = rc.lanczos_taps_t(hc, DEMO_SIZE, tables.tab.device)
-    vy0, vq = rc.lanczos_taps(hc, DEMO_SIZE, tables.tab.device)
+    # Taps: the tensor-core fragments and window starts of each pass.
+    tiles = rc.lanczos_tiles(hc, DEMO_SIZE)
+    taps_bytes = tiles.frags.nbytes + tiles.kstart.nbytes
     hp_bytes = hp.numel()
     f_ops = fill_ops(tables)
+    f_ops_tc = compacted_fill_ops(torch, tables)
     h_ops = lanczos_ops(resample, hc, DEMO_SIZE, b, hc)
     v_ops = lanczos_ops(resample, hc, DEMO_SIZE, b, DEMO_SIZE)
-    bound_h, by_h = bound(tables.tab.numel() * 4
-                          + (hx0.numel() + hqt.numel()) * 4, hp_bytes,
-                          f_ops + h_ops)
-    bound_v, by_v = bound(hp_bytes + (vy0.numel() + vq.numel()) * 4,
-                          img.numel(), v_ops)
-    print(f"strip_raster bound: {f_ops:.0f} fill + {h_ops} h-pass "
-          f"operations, {hp_bytes} bytes out -> {bound_h:.6f} ms "
-          f"({by_h}); strip_vpass bound: {v_ops} operations, "
-          f"{hp_bytes + img.numel()} bytes -> {bound_v:.6f} ms ({by_v})")
+    one_slot, units = uniform_units(torch, tables, DEMO_SIZE)
+    bh = bounds(tables.tab.numel() * 4 + taps_bytes, hp_bytes, f_ops + h_ops,
+                f_ops_tc, h_ops * (1 - one_slot / units))
+    bv = bounds(hp_bytes + taps_bytes, img.numel(), v_ops, 0, v_ops)
+    print(f"strip_raster bound: {f_ops:.0f} fill ({f_ops_tc:.0f} compacted) "
+          f"+ {h_ops} h-pass operations ({one_slot} of {units} units one "
+          f"slot), {hp_bytes} bytes out -> "
+          f"{bh['bound_ms']:.6f} ms ({bh['bound_by']}), "
+          f"{bh['bound_tc_ms']:.6f} ms ({bh['bound_tc_by']}) with the "
+          f"compacted fill and the h-pass on the int8 tensor cores; "
+          f"strip_vpass bound: {v_ops} "
+          f"operations, {hp_bytes + img.numel()} bytes -> "
+          f"{bv['bound_ms']:.6f} ms ({bv['bound_by']}), "
+          f"{bv['bound_tc_ms']:.6f} ms ({bv['bound_tc_by']}) on the tensor "
+          "cores")
     source = "spriteworld_torch/csrc/strip_raster.cu"
     return [{
         "name": "strip_raster", "route": "cuda", "source": source,
         "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:761",
         "launches": None, "max_abs_err": err_h, "ms": ms_h,
-        "plain_ms": plain_h, "bound_ms": bound_h, "bound_by": by_h,
+        "plain_ms": plain_h, **bh,
         # No single PyTorch call computes Pillow's fill and Lanczos.
         "library_ms": None,
     }, {
         "name": "strip_vpass", "route": "cuda", "source": source,
         "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:1484",
         "launches": None, "max_abs_err": err_v, "ms": ms_v,
-        "plain_ms": plain_v, "bound_ms": bound_v, "bound_by": by_v,
+        "plain_ms": plain_v, **bv,
         # No single PyTorch call gives Pillow's fixed-point rounding.
         "library_ms": None,
     }]
@@ -732,16 +835,23 @@ def time_kernel(torch, rasterize_cuda, colors, state):
     # rate, whichever is larger.
     from spriteworld_torch.ops import resample
 
-    hx0, hq = rasterize_cuda.lanczos_taps(64 * aa, 64, tables.tab.device)
-    in_bytes = tables.tab.numel() * 4 + 2 * (hx0.numel() + hq.numel()) * 4
+    tiles = rasterize_cuda.lanczos_tiles(64 * aa, 64)
+    in_bytes = tables.tab.numel() * 4 + 2 * (tiles.frags.nbytes
+                                             + tiles.kstart.nbytes)
     out_bytes = BATCH * 64 * 64 * 3
     f_ops = fill_ops(tables)
-    l_ops = (lanczos_ops(resample, 64 * aa, 64, BATCH, 64 * aa)
-             + lanczos_ops(resample, 64 * aa, 64, BATCH, 64))
-    bound_ms, bound_by = bound(in_bytes, out_bytes, f_ops + l_ops)
+    f_ops_tc = compacted_fill_ops(torch, tables)
+    h_ops = lanczos_ops(resample, 64 * aa, 64, BATCH, 64 * aa)
+    v_ops = lanczos_ops(resample, 64 * aa, 64, BATCH, 64)
+    one_slot, units = uniform_units(torch, tables, 64)
+    bd = bounds(in_bytes, out_bytes, f_ops + h_ops + v_ops, f_ops_tc,
+                h_ops * (1 - one_slot / units) + v_ops)
     print(f"scene_raster bound: {in_bytes + out_bytes} bytes, {f_ops:.0f} "
-          f"fill + {l_ops} Lanczos operations -> {bound_ms:.6f} ms "
-          f"({bound_by})")
+          f"fill ({f_ops_tc:.0f} compacted) + {h_ops} h-pass ({one_slot} "
+          f"of {units} units one slot) + {v_ops} v-pass operations -> "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}), "
+          f"{bd['bound_tc_ms']:.6f} ms ({bd['bound_tc_by']}) with the "
+          "compacted fill and the Lanczos passes on the int8 tensor cores")
     return {
         "name": "scene_raster",
         "route": "cuda",
@@ -751,8 +861,7 @@ def time_kernel(torch, rasterize_cuda, colors, state):
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **bd,
         "library_ms": None,  # no single PyTorch call rasterizes a scene
     }
 
@@ -807,13 +916,20 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
         plain_ms = event_ms(
             torch, lambda: rc.render_rgb_batch_plain(tables, image_size),
             plain_reps)
-        f_ops = (fill_ops(tables) if pil_exact
-                 else centroid_ops(torch, tables))
-        bound_ms, bound_by = bound(tables.tab.numel() * 4, got.numel(),
+        # The centroid count is already the compacted fill's.
+        if pil_exact:
+            f_ops = fill_ops(tables)
+            f_ops_tc = compacted_fill_ops(torch, tables)
+        else:
+            f_ops = f_ops_tc = centroid_ops(torch, tables)
+        in_bytes = tables.tab.numel() * 4
+        bound_ms, bound_by = bound(in_bytes, got.numel(),
                                    f_ops + extra_ops(b))
-        print(f"{name} bound: {tables.tab.numel() * 4 + got.numel()} bytes, "
-              f"{f_ops:.0f} fill + {extra_ops(b)} downsample operations -> "
-              f"{bound_ms:.6f} ms ({bound_by})")
+        tc_ms, tc_by = bound(in_bytes, got.numel(), f_ops_tc + extra_ops(b))
+        print(f"{name} bound: {in_bytes + got.numel()} bytes, "
+              f"{f_ops:.0f} fill ({f_ops_tc:.0f} compacted) + "
+              f"{extra_ops(b)} downsample operations -> {bound_ms:.6f} ms "
+              f"({bound_by}), {tc_ms:.6f} ms ({tc_by}) compacted")
         label, kernel, mode = key
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -821,6 +937,8 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
             "launches": workloads[label][2][kernel].get(mode, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            # No Lanczos pass: only the compacted fill changes the count.
+            "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
             # No single PyTorch call fills and filters a scene.
             "library_ms": None,
         })
@@ -853,6 +971,160 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
     return entries
 
 
+# Phase 7, the split: (fill, downsample) modes of each Lanczos kernel. The
+# difference exact+lanczos - exact+box is the Lanczos passes' cost, exact+box
+# - centroid+box mostly the exact fill's.
+SPLIT_MODES = (("exact+lanczos", True, "lanczos"), ("exact+box", True, "box"),
+               ("centroid+box", False, "box"))
+
+
+def path_states(torch, bench_torch, env_lib, steps=2):
+    """(image64 AA=5 state over BATCH lanes, demo256 state over DEMO_BATCH
+    lanes), each after a reset and `steps` steps: the scenes the two
+    Lanczos kernels render on their paths."""
+    out = []
+    for env, lanes in (
+            (bench_torch.build_env(anti_aliasing=5, device="cuda", seed=1),
+             BATCH),
+            (bench_torch.build_demo_env(anti_aliasing=DEMO_AA,
+                                        render_size=DEMO_SIZE, device="cuda",
+                                        seed=1), DEMO_BATCH)):
+        benv = env_lib.BatchedEnvironment(env, lanes)
+        state, _ = benv.reset()
+        for _ in range(steps):
+            state, _ = benv.step(state, benv.sample_actions())
+        out.append(state)
+    torch.cuda.synchronize()
+    return out
+
+
+def time_split(torch, rasterize_cuda, colors, scene_state, demo_state):
+    """Phase 7: scene_raster at image64/AA=5 (B=2048) and strip_raster +
+    strip_vpass at demo256 (B=256), each in the three SPLIT_MODES on its
+    path's scenes. Returns {kernel: {mode: ms}}."""
+    rc = rasterize_cuda
+    runs = (
+        ("scene_raster", scene_state, (64, 64), 5, 20,
+         lambda t, ds: rc.scene_raster(t, (64, 64), None, ds)),
+        ("strip_raster+strip_vpass", demo_state, (DEMO_SIZE, DEMO_SIZE),
+         DEMO_AA, 5,
+         lambda t, ds: rc.render_strips(t, (DEMO_SIZE, DEMO_SIZE), None,
+                                        None, ds)),
+    )
+    split = {}
+    for kernel, state, (h, w), aa, reps, run in runs:
+        split[kernel] = {}
+        for mode, pil_exact, ds in SPLIT_MODES:
+            tables = rc.prepare(state.factors, state.num_sprites, h * aa,
+                                w * aa, colors.hsv_to_rgb, pil_exact)
+            split[kernel][mode] = event_ms(torch, lambda: run(tables, ds),
+                                           reps)
+        print(f"{kernel} split, B={state.factors.shape[0]}: "
+              + ", ".join(f"{m} {ms:.4f} ms"
+                          for m, ms in split[kernel].items()))
+    return split
+
+
+def many_sprites(torch, rasterize_cuda):
+    """Phase 3: batches of up to 16 sprites (K + 1 = 17 slots: the h-pass
+    resolves slots through the shared colour table, not the registers)
+    through the scene kernel and the strip kernels, against the plain
+    version. Returns the largest difference."""
+    rc = rasterize_cuda
+    worst = 0
+    for label, seed, b, size, aa, run in (
+            ("scene kernel, 64x64/AA=5", 51, 256, (64, 64), 5,
+             lambda t: rc.scene_raster(t, (64, 64))),
+            ("strip kernels, 128x128/AA=5", 52, 32, (128, 128), 5,
+             lambda t: rc.render_strips(t, (128, 128))),
+            ("strip kernels, 64x64/AA=5, 13-row strips", 53, 64, (64, 64), 5,
+             lambda t: rc.render_strips(t, (64, 64), None, 13))):
+        f, n = scene_batch(seed, b, kmax=16)
+        n[0] = 16
+        t = rc.prepare(torch.from_numpy(f).cuda(), torch.from_numpy(n).cuda(),
+                       size[0] * aa, size[1] * aa, None)
+        err, count = compare(run(t), rc.render_rgb_batch_plain(t, size))
+        print(f"{label}, 16 sprites, B={b}: max |diff| {err}, {count} "
+              "differing values")
+        check(count == 0, f"{label} with 16 sprites differs from plain")
+        worst = max(worst, err)
+    return worst
+
+
+def vertex_trig(torch, rasterize_cuda):
+    """Phase 3: at random angles, the world vertices the card computes
+    (CUDA's sin/cos) against the CPU's, and the 64x64/AA=1 renders of the
+    same factors on each. Prints both counts; neither is checked, since the
+    CPU is no reference for the card's trig."""
+    from spriteworld_torch.ops import geometry
+
+    f, n = scene_batch(61, BATCH)
+    fc, nc = torch.from_numpy(f), torch.from_numpy(n)
+    v_gpu = geometry.world_vertices(fc.cuda()).cpu()
+    v_cpu = geometry.world_vertices(fc)
+    vdiff = int((v_gpu != v_cpu).sum())
+    kw = dict(image_size=(64, 64), anti_aliasing=1)
+    _, pdiff = compare(rasterize_cuda.render_rgb_batch(fc.cuda(), nc.cuda(),
+                                                       **kw),
+                       rasterize_cuda.render_rgb_batch(fc, nc, **kw))
+    print(f"vertex trig, card vs CPU at random angles, B={BATCH}: "
+          f"{vdiff} of {v_cpu.numel()} world_vertices values differ; "
+          f"64x64/AA=1 renders: {pdiff} of {BATCH * 64 * 64 * 3} values "
+          "differ")
+    return vdiff, pdiff
+
+
+def imma_counts(_build):
+    """{library: {kernel function: IMMA instructions}} from `cuobjdump
+    -sass` of the built libraries, or None where the toolkit has no
+    cuobjdump."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    counts = {}
+    for name in _build.KERNELS:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True).stdout
+        per = {}
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                per[fn] = 0
+            elif fn is not None and re.search(r"\bIMMA\b", line):
+                per[fn] += 1
+        counts[name] = per
+    return counts
+
+
+def split_only():
+    """The phase-7 split alone, on freshly built kernels:
+    python3 -c 'import chip_smoke; chip_smoke.split_only()'."""
+    import torch
+
+    import bench_torch
+    from spriteworld_torch.core import environment as env_lib
+    from spriteworld_torch.ops import _build
+    from spriteworld_torch.ops import rasterize_cuda
+    from spriteworld_torch.utils import colors
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = bench_torch.card_name_and_power_limit()
+    print(card)
+    _build.build_all()
+    scene_state, demo_state = path_states(torch, bench_torch, env_lib)
+    split = time_split(torch, rasterize_cuda, colors, scene_state,
+                       demo_state)
+    print(json.dumps({"split": split, "card": card}))
+
+
 def main():
     import torch
 
@@ -883,6 +1155,12 @@ def main():
     worst_strip, worst_v = strips_vs_plain(torch, rasterize_cuda, colors)
     worst_modes = modes_vs_plain(torch, rasterize_cuda, colors)
     worst_cases = check_cases(torch, rasterize_cuda)
+    worst_many = many_sprites(torch, rasterize_cuda)
+    vertex_trig(torch, rasterize_cuda)
+    imma = imma_counts(_build)
+    print("IMMA instructions by kernel function (cuobjdump -sass): "
+          + ("not measured (no cuobjdump)" if imma is None
+             else json.dumps(imma)))
 
     steps_per_sec, state, scene_launches = drive_main_path(
         torch, bench_torch, env_lib, rasterize_cuda)
@@ -896,13 +1174,15 @@ def main():
     workloads = drive_workloads(torch, bench_torch, env_lib, rasterize_cuda,
                                 card)
 
+    split = time_split(torch, rasterize_cuda, colors, state, demo_state)
+    print(json.dumps({"split": split}))
     entry = time_kernel(torch, rasterize_cuda, colors, state)
     entry["launches"] = scene_launches
-    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+    entry["max_abs_err"] = max(entry["max_abs_err"], worst, worst_many)
     strip_entries = time_strips(torch, rasterize_cuda, colors, demo_state)
     for e, err in zip(strip_entries, (worst_strip, worst_v)):
         e["launches"] = demo_launches[e["name"]]
-        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["max_abs_err"] = max(e["max_abs_err"], err, worst_many)
     mode_entries = time_modes(torch, rasterize_cuda, colors, workloads)
     for e in mode_entries:
         kernel = e["name"].split("[")[0]
@@ -914,8 +1194,9 @@ def main():
     for e in entries:
         print(f"{e['name']}: kernel {e['ms']:.4f} ms, plain "
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms "
-              f"({e['bound_by']}), {e['launches']} launches on its path, "
-              f"on {card}")
+              f"({e['bound_by']}), tensor-core bound "
+              f"{e['bound_tc_ms']:.6f} ms ({e['bound_tc_by']}), "
+              f"{e['launches']} launches on its path, on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

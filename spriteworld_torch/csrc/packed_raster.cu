@@ -14,11 +14,11 @@
 // written straight out as u8[B][h][w][3].
 //
 // What bounds it. At 64x64 a scene's output is 12 KiB and its tables ~8 KB,
-// so at 2048 scenes ~42 MB: ~0.012 ms at 3.35 TB/s. The fill tests each of
-// a sprite's <= 30 scanline crossings for every pixel of its bounds (the
-// exact fill) or the row's ~2 straddling crossings (the centroid fill): a
-// few hundred million operations at 2048 scenes of 6 sprites, a few
-// microseconds at 67 TFLOP/s (chip_smoke.py counts them from the tables).
+// so at 2048 scenes ~42 MB: ~0.012 ms at 3.35 TB/s. The fill tests every
+// pixel of a sprite's bounds against the row's few crossings, compacted by
+// ballot (both fills): a few hundred million operations at 2048 scenes of
+// 6 sprites, a few microseconds at 67 TFLOP/s (chip_smoke.py counts them
+// from the tables, at every edge for the exact fill).
 // So the bound is the bytes; what the kernel pays in practice is latency,
 // the serial per-row warp reductions of the fill.
 //

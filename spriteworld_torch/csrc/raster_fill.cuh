@@ -15,11 +15,16 @@
 // (two roundings, as Pillow; nvcc would otherwise contract to an FMA), the
 // edge's Pillow weight with the bottom-duplicate rule, and by warp
 // reductions the row's total weight and its first maximum crossing: the
-// odd-total trim drops one instance of it. Each lane then fills columns of
-// the sprite's bounds: odd(sum of weights with xi <= c - 0.5) or some weight
-// with c - 0.5 < xi < c + 0.5, or a horizontal-edge/wedge feature interval
-// on this row. A row is only ever written by its own warp, so the painter's
-// order needs no block barrier between sprites.
+// odd-total trim drops one instance of it. The warp then compacts the edges
+// left with a weight (a row crosses a simple polygon at two, mostly) by
+// ballot, into every lane's registers by shuffle (up to kRegCrossings) or
+// else its shared scratch, and finds the row's features by ballot, so that
+// each lane fills the columns of the sprite's bounds from those alone:
+// odd(sum of weights with xi <= c - 0.5) or some weight with c - 0.5 < xi <
+// c + 0.5, or a horizontal-edge/wedge feature interval on this row. Integer
+// weights and unchanged crossings give the same pixels in any order. A row
+// is only ever written by its own warp, so the painter's order needs no
+// block barrier between sprites. `wc` is the canvas pitch in bytes.
 
 #pragma once
 
@@ -50,6 +55,25 @@ __device__ __forceinline__ uint8_t clip8(int acc) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
+// Crossings a row keeps in registers in `fill_sprite`; rows with more use
+// the warp's shared scratch.
+constexpr int kRegCrossings = 4;
+
+// Whether column `cf` lies in one of the row's features: those of the
+// ballots f_lo (features 0-31) and f_hi (32-63).
+__device__ __forceinline__ bool on_feature(const float* feat, unsigned f_lo,
+                                           unsigned f_hi, float cf) {
+  for (unsigned f = f_lo; f; f &= f - 1u) {
+    const float* fj = feat + 3 * (__ffs(f) - 1);
+    if (fj[1] <= cf && cf <= fj[2]) return true;
+  }
+  for (unsigned f = f_hi; f; f &= f - 1u) {
+    const float* fj = feat + 3 * (__ffs(f) + 31);
+    if (fj[1] <= cf && cf <= fj[2]) return true;
+  }
+  return false;
+}
+
 // Paints slot index `value` into every pixel of sprite table row `st` that
 // Pillow fills, over canvas rows [r0, r1] and columns [c0, c1] (clipped by
 // the caller). `canvas` holds rows from `row_base` on, `wc` bytes each. `wx`
@@ -69,6 +93,7 @@ __device__ __forceinline__ void fill_sprite(
   const float x0 = has_edge ? st[kNumScalars + E_X0 * V + lane] : 0.f;
   const float ymn = has_edge ? st[kNumScalars + E_YMIN * V + lane] : kBig;
   const float ymx = has_edge ? st[kNumScalars + E_YMAX * V + lane] : -kBig;
+  const unsigned below = (1u << lane) - 1u;
 
   const int first_row =
       r0 + ((warp - r0) % num_warps + num_warps) % num_warps;
@@ -85,27 +110,61 @@ __device__ __forceinline__ void fill_sprite(
       rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, o));
     const unsigned ismax = __ballot_sync(kFull, wgt > 0 && xi == rmax);
     if ((total & 1) && lane == __ffs(ismax) - 1) wgt -= 1;
-    __syncwarp();
-    wx[lane] = xi;
-    ww[lane] = wgt;
-    __syncwarp();
-
+    // The row's crossings: the edges left with a weight (a row crosses a
+    // simple polygon at two, mostly), compacted by ballot; and its
+    // features, found by ballot (nf <= 2V <= 64).
+    const unsigned hits = __ballot_sync(kFull, wgt > 0);
+    const unsigned f_lo =
+        __ballot_sync(kFull, lane < nf && feat[3 * lane] == rf);
+    const unsigned f_hi =
+        __ballot_sync(kFull, lane + 32 < nf && feat[3 * (lane + 32)] == rf);
+    if (hits == 0u && (f_lo | f_hi) == 0u) continue;  // uniform: nothing here
+    const int n = __popc(hits);
     uint8_t* crow = canvas + size_t(r - row_base) * wc;
+    if (n <= kRegCrossings) {
+      // Up to four crossings go to every lane's registers by shuffle.
+      float xr[kRegCrossings];
+      int wr[kRegCrossings];
+      unsigned rest = hits;
+#pragma unroll
+      for (int i = 0; i < kRegCrossings; ++i) {
+        const int src = rest ? __ffs(rest) - 1 : 0;
+        xr[i] = __shfl_sync(kFull, xi, src);
+        wr[i] = rest ? __shfl_sync(kFull, wgt, src) : 0;
+        rest &= rest - 1u;
+      }
+      for (int c = c0 + lane; c <= c1; c += 32) {
+        const float cf = static_cast<float>(c);
+        const float cm = cf - 0.5f, cp = cf + 0.5f;
+        int le = 0, win = 0;
+#pragma unroll
+        for (int i = 0; i < kRegCrossings; ++i) {
+          le += xr[i] <= cm ? wr[i] : 0;
+          win += (!(xr[i] <= cm) && xr[i] < cp) ? wr[i] : 0;
+        }
+        if ((le & 1) || win > 0 || on_feature(feat, f_lo, f_hi, cf))
+          crow[c] = value;
+      }
+      continue;
+    }
+    __syncwarp();
+    if (wgt > 0) {
+      const int i = __popc(hits & below);
+      wx[i] = xi;
+      ww[i] = wgt;
+    }
+    __syncwarp();
     for (int c = c0 + lane; c <= c1; c += 32) {
       const float cf = static_cast<float>(c);
       const float cm = cf - 0.5f, cp = cf + 0.5f;
       int le = 0, win = 0;
-      for (int e = 0; e < count; ++e) {
+      for (int e = 0; e < n; ++e) {
         const float x = wx[e];
         if (x <= cm) le += ww[e];
         else if (x < cp) win += ww[e];
       }
-      bool fill = (le & 1) || win > 0;
-      for (int j = 0; j < nf && !fill; ++j) {
-        const float* f = feat + 3 * j;
-        fill = f[0] == rf && f[1] <= cf && cf <= f[2];
-      }
-      if (fill) crow[c] = value;
+      if ((le & 1) || win > 0 || on_feature(feat, f_lo, f_hi, cf))
+        crow[c] = value;
     }
   }
 }
@@ -119,8 +178,9 @@ __device__ __forceinline__ void fill_sprite(
 // when c + 0.5 < x. Edges past the vertex count and dead slots have y1 ==
 // y0 and never straddle. Same ownership as fill_sprite: canvas row r
 // belongs to warp r % num_warps, lane e computes edge e's crossing, and the
-// warp compacts the straddling crossings into `wx` (a row crosses a simple
-// polygon at two of them, mostly) before its lanes test the columns.
+// warp compacts the straddling crossings (a row crosses a simple polygon at
+// two of them, mostly) into its lanes' registers by shuffle, or into `wx`
+// past kRegCrossings, before its lanes test the columns.
 __device__ __forceinline__ void fill_sprite_centroid(
     const float* st, int V, uint8_t value, int r0, int r1, int c0, int c1,
     int row_base, uint8_t* canvas, int wc, float* wx, int warp,
@@ -143,12 +203,29 @@ __device__ __forceinline__ void fill_sprite_centroid(
     if (hits == 0u) continue;  // uniform across the warp
     const float x =
         __fadd_rn(x0, __fmul_rn(__fdiv_rn(__fsub_rn(py, y0), dy), dx));
+    const int n = __popc(hits);
+    uint8_t* crow = canvas + size_t(r - row_base) * wc;
+    if (n <= kRegCrossings) {  // in every lane's registers, by shuffle
+      float xr[kRegCrossings];
+      unsigned rest = hits;
+#pragma unroll
+      for (int i = 0; i < kRegCrossings; ++i) {
+        const float xs = __shfl_sync(kFull, x, rest ? __ffs(rest) - 1 : 0);
+        xr[i] = rest ? xs : -kBig;  // never right of a pixel centre
+        rest &= rest - 1u;
+      }
+      for (int c = c0 + lane; c <= c1; c += 32) {
+        const float px = __fadd_rn(static_cast<float>(c), 0.5f);
+        int inside = 0;
+#pragma unroll
+        for (int i = 0; i < kRegCrossings; ++i) inside ^= px < xr[i];
+        if (inside) crow[c] = value;
+      }
+      continue;
+    }
     __syncwarp();
     if (straddle) wx[__popc(hits & below)] = x;
     __syncwarp();
-
-    const int n = __popc(hits);
-    uint8_t* crow = canvas + size_t(r - row_base) * wc;
     for (int c = c0 + lane; c <= c1; c += 32) {
       const float px = __fadd_rn(static_cast<float>(c), 0.5f);
       int inside = 0;

@@ -12,11 +12,10 @@
 //
 // What bounds it. The output is 64*64*3 bytes a scene and the tables ~8 KB,
 // so at 2048 scenes the kernel moves ~40 MB: ~12 us at 3.35 TB/s. The work
-// is scalar arithmetic: per filled-region pixel a test of each of the
-// sprite's <= 30 scanline crossings (the exact fill) or of the row's ~2
-// straddling crossings (the centroid fill), and per output ~31 integer
-// multiply-adds per channel and pass (Lanczos) or aa*aa adds (box). The
-// kernel is bound by operations.
+// is per filled-region pixel a test of the row's compacted crossings (~2)
+// and per output ~31 multiply-adds per channel and pass (Lanczos) or aa*aa
+// adds (box). The Lanczos multiply-adds run on the int8 tensor cores; the
+// fill's serial per-row warp reductions are what the kernel pays most.
 //
 // Design.
 // * The TPU kernel keeps an f32 packed-RGB canvas (400 KiB at 320x320) and
@@ -26,204 +25,298 @@
 //   k + 1 = sprite k): 100 KiB at 320x320. Later sprites overwrite earlier
 //   ones (painter's order); colours stay in a K + 1 entry table.
 // * Crossings are recomputed per (row, edge) instead of stored, one warp per
-//   canvas row and one lane per edge: the fills are `sw::fill_sprite` and
-//   `sw::fill_sprite_centroid` of raster_fill.cuh, which the row-strip and
-//   anti_aliasing=1 kernels share. The centroid crossing is computed with
-//   ops/geometry.py's roundings, not the TPU kernel's x0 + (row - y0) * m,
-//   so the kernel equals the port's CPU centroid fill bit for bit.
-// * The Lanczos filter runs in Pillow's own int32 fixed point with the
-//   integer taps q (tap = q / 2^22): acc = 2^21 + sum(q * p), out =
-//   clip(acc >> 22, 0, 255). Integer sums are exact in any order, so the
-//   result equals Pillow's and the plain version's on every value. The
-//   h-pass reads the index canvas through the colour table into a
-//   u8[hc][w][3] buffer (60 KiB at 320x64); the v-pass writes the output
-//   already flipped.
+//   canvas row and one lane per edge, and compacted to the row's few by
+//   ballot: the fills are `sw::fill_sprite` and `sw::fill_sprite_centroid`
+//   of raster_fill.cuh, which the row-strip and anti_aliasing=1 kernels
+//   share. The centroid crossing is computed with ops/geometry.py's
+//   roundings, not the TPU kernel's x0 + (row - y0) * m, so the kernel
+//   equals the port's CPU centroid fill bit for bit.
+// * The Lanczos filter runs in Pillow's own fixed point, exactly, on the
+//   int8 tensor cores (lanczos_mma.cuh): each pass is a banded product of
+//   the taps, split into u8/u8/s8 limbs, by u8 pixels, three mma.sync a K
+//   step. The h-pass resolves slot bytes to one channel with byte permutes
+//   and writes the transposed, channel-planar buffer hpT[3][wp][hp] (64 KiB
+//   at 320x64), whose rows are the v-pass's K-contiguous operand; a window
+//   of one slot throughout skips the products (colour times tap sum). The
+//   v-pass writes the output already flipped.
+// * With Lanczos the canvas is filled and h-passed in bands of kBandRows
+//   rows, so only a band (26 KiB at 320 wide) sits beside hpT, and the
+//   instantiation runs 8 warps a block: at 64x64, anti_aliasing=5 its ~100
+//   KiB of shared memory and ~100 registers a thread let two blocks share an
+//   SM, so one block's fill overlaps the other's tensor-core passes. The
+//   identity and box modes (a separate instantiation, without the passes'
+//   registers) keep the whole canvas and 16 warps.
 // * The box filter (`sw::box_pixel`) sums each channel over the aa x aa
-//   block in integers and divides once, so it needs neither tap tables nor
-//   the h-pass buffer: its layout is the identity's, and 64x64 at
-//   anti_aliasing=6 fits a block in box mode where it does not with Lanczos.
-//   The TPU kernel multiplied by 1/aa matrices on the MXU instead.
-// * Shared memory at 64x64, anti_aliasing=5: ~190 KiB with Lanczos, ~110
-//   KiB with the box filter (opted in with cudaFuncSetAttribute), so one
-//   block per SM. A canvas whose layout does not fit one block's shared
-//   memory goes to the row-strip kernel instead.
+//   block in integers and divides once, so it needs neither taps nor the
+//   h-pass buffer. The TPU kernel multiplied by 1/aa matrices on the MXU
+//   instead.
+// * A canvas whose layout does not fit one block's shared memory goes to
+//   the row-strip kernel instead.
 // * Left out: the TPU kernel's single-interval fast path for convex sprites
 //   (`_scene_fastok`), a speed trick with the same output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanczos_mma.cuh"
 #include "raster_fill.cuh"
 
 namespace {
 
 using namespace sw;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+// Threads a block: 512 for the fill-only modes (identity, box); 256 with
+// DS_LANCZOS, whose tensor-core passes take ~100 registers a thread, so
+// that two of its blocks share an SM's 64 Ki registers.
+__host__ __device__ constexpr int threads_of(bool lanczos) {
+  return lanczos ? 256 : 512;
+}
+// With DS_LANCZOS the canvas is filled and h-passed in bands of at most
+// this many rows (a multiple of 8), so that at 64x64, anti_aliasing=5 the
+// band, the h-pass buffer and the tables fit two blocks on one SM.
+constexpr int kBandRows = 80;
 
 struct Layout {
   // Word offsets (4 bytes) of the small tables, byte offsets of the u8 ones.
-  int tab, ctab, xi, wgt, hx0, hq, vy0, vq;
-  size_t canvas, hpass, bytes;
+  int tab, ctab, xi, wgt;
+  size_t canvas, chan, hpass, bytes;
 };
 
-__host__ __device__ inline Layout layout(int K, int NT, int hc, int wc, int h,
-                                         int w, int ht, int vt) {
+__host__ __device__ inline int band_rows(int hc) {
+  return min((hc + 7) & ~7, kBandRows);
+}
+
+// `cp` is the canvas pitch: wc outside DS_LANCZOS, else the h-pass taps'.
+// With DS_LANCZOS (hp > 0) the canvas holds one band of band_rows(hc) rows,
+// and the channel tables and the h-pass buffer hpT[3][wp][hp] follow.
+__host__ __device__ inline Layout layout(int K, int NT, int hc, int cp,
+                                         int wp, int hp) {
   Layout L;
   L.tab = 0;
   L.ctab = L.tab + K * NT;
   L.xi = L.ctab + K + 1;
-  L.wgt = L.xi + kWarps * 32;
-  L.hx0 = L.wgt + kWarps * 32;
-  L.hq = L.hx0 + (ht ? w : 0);
-  L.vy0 = L.hq + w * ht;
-  L.vq = L.vy0 + (vt ? h : 0);
-  L.canvas = round16(size_t(L.vq + h * vt) * 4);
-  L.hpass = L.canvas + round16(size_t(hc) * wc);
-  L.bytes = L.hpass + (ht ? round16(size_t(hc) * w * 3) : 0);
+  const int warps = threads_of(hp > 0) / 32;
+  L.wgt = L.xi + warps * 32;
+  L.canvas = round16(size_t(L.wgt + warps * 32) * 4);
+  const int rows = hp ? band_rows(hc) : hc;
+  L.chan = L.canvas + round16(size_t(rows) * cp);
+  L.hpass = L.chan + (hp ? round16(size_t(3) * chan_stride(K)) : 0);
+  L.bytes = L.hpass + (hp ? round16(size_t(3) * wp * hp) : 0);
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Paints canvas rows [row0, row0 + rows) of every live sprite, back to
+// front, into `canvas` (which holds those rows, `cp` bytes each).
+__device__ __forceinline__ void fill_rows(const float* s_tab, int K, int V,
+                                          int NT, int row0, int rows, int wc,
+                                          int centroid, uint8_t* canvas,
+                                          int cp, float* wx, int* ww,
+                                          int warp, int num_warps,
+                                          int lane) {
+  for (int k = 0; k < K; ++k) {
+    const float* st = s_tab + k * NT;
+    if (static_cast<int>(st[T_COUNT]) <= 0) continue;
+    const int r0 = max(static_cast<int>(st[T_ROW0]), row0);
+    const int r1 = min(static_cast<int>(st[T_ROW1]), row0 + rows - 1);
+    if (r0 > r1) continue;  // the sprite misses these rows
+    const uint8_t value = static_cast<uint8_t>(k + 1);
+    const int c0 = max(static_cast<int>(st[T_COL0]), 0);
+    const int c1 = min(static_cast<int>(st[T_COL1]), wc - 1);
+    if (centroid)
+      fill_sprite_centroid(st, V, value, r0, r1, c0, c1, row0, canvas, cp,
+                           wx, warp, num_warps, lane);
+    else
+      fill_sprite(st, V, value, r0, r1, c0, c1, row0, canvas, cp, wx, ww,
+                  warp, num_warps, lane);
+  }
+}
+
+// h-pass of canvas rows [row0, row0 + round8(rows)) held in `canvas`:
+// units of 16 output columns by 8 rows, into hpT[3][wp][hp] (canvas row y
+// at byte y of a row). Row tiles vary fastest, so the block's warps share
+// an m-tile's taps in the L1 cache.
+template <int kRoute>
+__device__ void hpass_rows(const uint8_t* canvas, int cp, int row0,
+                           int rows, const Taps& ht, int mt,
+                           const uint8_t* chan, int kc, uint8_t* hpT,
+                           size_t plane, int hp, int warp, int num_warps,
+                           int lane) {
+  ChanRegs regs;
+  if (kRoute != kRouteTable) load_chan_regs(regs, chan, kc);
+  const int nt = (rows + 7) >> 3;
+  for (int u = warp; u < mt * nt; u += num_warps) {
+    const int m = u / nt, n = u % nt;
+    hpass_unit<kRoute>(canvas, cp, 8 * n, ht, m, regs, chan, kc, hpT, plane,
+                       hp, row0 + 8 * n, hp, lane);
+  }
+}
+
+__device__ __forceinline__ void zero(uint8_t* p, size_t bytes, int tid,
+                                     int threads) {
+  uint32_t* p32 = reinterpret_cast<uint32_t*>(p);
+  for (size_t i = tid; i < (bytes + 3) / 4; i += threads) p32[i] = 0u;
+}
+
+// kLanczos: the DS_LANCZOS instantiation. The others (identity, box) leave
+// out the tensor-core passes and so keep the fill's small register count,
+// which lets two blocks share an SM where their shared memory allows.
+template <bool kLanczos>
+__global__ void __launch_bounds__(threads_of(kLanczos))
 scene_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
                     int hc, int wc, int h, int w, int centroid, int ds,
-                    const int* __restrict__ hx0, const int* __restrict__ hq,
-                    int ht, const int* __restrict__ vy0,
-                    const int* __restrict__ vq, int vt, int bg_packed,
+                    Taps ht, int cp, Taps vt, int hp, int bg_packed,
                     uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(K, NT, hc, wc, h, w, ht, vt);
+  const int mt_h = (w + 15) >> 4, wp = 16 * mt_h;
+  const Layout L = layout(K, NT, hc, cp, wp, kLanczos ? hp : 0);
   float* s_tab = reinterpret_cast<float*>(smem) + L.tab;
   int* s_ctab = reinterpret_cast<int*>(smem) + L.ctab;
   float* s_xi = reinterpret_cast<float*>(smem) + L.xi;
   int* s_wgt = reinterpret_cast<int*>(smem) + L.wgt;
-  int* s_hx0 = reinterpret_cast<int*>(smem) + L.hx0;
-  int* s_hq = reinterpret_cast<int*>(smem) + L.hq;
-  int* s_vy0 = reinterpret_cast<int*>(smem) + L.vy0;
-  int* s_vq = reinterpret_cast<int*>(smem) + L.vq;
   uint8_t* canvas = smem + L.canvas;
-  uint8_t* hpass = smem + L.hpass;
 
+  constexpr int kThreads = threads_of(kLanczos), kWarps = kThreads / 32;
   const int tid = threadIdx.x;
-  const float* scene = tab + size_t(blockIdx.x) * K * NT;
-  for (int i = tid; i < K * NT; i += kThreads) s_tab[i] = scene[i];
-  for (int i = tid; i <= K; i += kThreads)
-    s_ctab[i] = i == 0 ? bg_packed : static_cast<int>(scene[(i - 1) * NT + T_COLOR]);
-  for (int i = tid; i < w * ht; i += kThreads) s_hq[i] = hq[i];
-  for (int i = tid; i < h * vt; i += kThreads) s_vq[i] = vq[i];
-  if (ht)
-    for (int i = tid; i < w; i += kThreads) s_hx0[i] = hx0[i];
-  if (vt)
-    for (int i = tid; i < h; i += kThreads) s_vy0[i] = vy0[i];
-  uint32_t* canvas32 = reinterpret_cast<uint32_t*>(canvas);
-  for (int i = tid; i < (hc * wc + 3) / 4; i += kThreads) canvas32[i] = 0u;
-  __syncthreads();
-
-  // ---- fill, sprite by sprite, one warp per canvas row ----------------- //
   const int warp = tid >> 5, lane = tid & 31;
   float* wx = s_xi + warp * 32;
   int* ww = s_wgt + warp * 32;
-  for (int k = 0; k < K; ++k) {
-    const float* st = s_tab + k * NT;
-    if (static_cast<int>(st[T_COUNT]) <= 0) continue;
-    const uint8_t value = static_cast<uint8_t>(k + 1);
-    const int r0 = max(static_cast<int>(st[T_ROW0]), 0);
-    const int r1 = min(static_cast<int>(st[T_ROW1]), hc - 1);
-    const int c0 = max(static_cast<int>(st[T_COL0]), 0);
-    const int c1 = min(static_cast<int>(st[T_COL1]), wc - 1);
-    if (centroid)
-      fill_sprite_centroid(st, V, value, r0, r1, c0, c1, 0, canvas, wc, wx,
-                           warp, kWarps, lane);
-    else
-      fill_sprite(st, V, value, r0, r1, c0, c1, 0, canvas, wc, wx, ww, warp,
-                  kWarps, lane);
-  }
-  __syncthreads();
-
-  // ---- downsample and flip --------------------------------------------- //
+  const float* scene = tab + size_t(blockIdx.x) * K * NT;
+  for (int i = tid; i < K * NT; i += kThreads) s_tab[i] = scene[i];
+  for (int i = tid; i <= K; i += kThreads)
+    s_ctab[i] = i == 0 ? bg_packed
+                       : static_cast<int>(scene[(i - 1) * NT + T_COLOR]);
   uint8_t* img = out + size_t(blockIdx.x) * h * w * 3;
-  if (ds != DS_LANCZOS) {  // identity (anti_aliasing=1) or box
+
+  if constexpr (!kLanczos) {
+    // ---- fill, then the identity (anti_aliasing=1) or box downsample --- //
+    zero(canvas, size_t(hc) * cp, tid, kThreads);
+    __syncthreads();
+    fill_rows(s_tab, K, V, NT, 0, hc, wc, centroid, canvas, cp, wx, ww,
+              warp, kWarps, lane);
+    __syncthreads();
     const int aa = hc / h;
     for (int i = tid; i < h * w; i += kThreads) {
       const int y = i / w, x = i - y * w;
       uint8_t* o = img + ((h - 1 - y) * w + x) * 3;
       if (ds == DS_BOX)
-        box_pixel(canvas + (y * aa) * wc + x * aa, wc, aa, s_ctab, o);
+        box_pixel(canvas + (y * aa) * cp + x * aa, cp, aa, s_ctab, o);
       else
-        slot_pixel(s_ctab[canvas[y * wc + x]], o);
+        slot_pixel(s_ctab[canvas[y * cp + x]], o);
     }
-    return;
-  }
-  // Horizontal pass: canvas row y, output column ox.
-  for (int i = tid; i < hc * w; i += kThreads) {
-    const int y = i / w, ox = i - y * w;
-    const uint8_t* src = canvas + y * wc + s_hx0[ox];
-    const int* q = s_hq + ox * ht;
-    int ar = 1 << 21, ag = 1 << 21, ab = 1 << 21;
-    for (int t = 0; t < ht; ++t) {
-      const int c = s_ctab[src[t]];
-      const int qt = q[t];
-      ar += qt * (c >> 16);
-      ag += qt * ((c >> 8) & 255);
-      ab += qt * (c & 255);
+  } else {
+    uint8_t* chan = smem + L.chan;
+    uint8_t* hpT = smem + L.hpass;
+    const int kc = chan_stride(K);
+    __syncthreads();  // s_ctab
+    for (int i = tid; i < 3 * kc; i += kThreads) {
+      const int ch = i / kc, slot = i - ch * kc;
+      const int c = slot <= K ? s_ctab[slot] : 0;
+      chan[i] = static_cast<uint8_t>(c >> (16 - 8 * ch));
     }
-    uint8_t* o = hpass + i * 3;
-    o[0] = clip8(ar);
-    o[1] = clip8(ag);
-    o[2] = clip8(ab);
-  }
-  __syncthreads();
-  // Vertical pass: output row oy, written flipped.
-  for (int i = tid; i < h * w; i += kThreads) {
-    const int oy = i / w, ox = i - oy * w;
-    const uint8_t* src = hpass + (s_vy0[oy] * w + ox) * 3;
-    const int* q = s_vq + oy * vt;
-    int ar = 1 << 21, ag = 1 << 21, ab = 1 << 21;
-    for (int t = 0; t < vt; ++t) {
-      const uint8_t* p = src + t * w * 3;
-      const int qt = q[t];
-      ar += qt * p[0];
-      ag += qt * p[1];
-      ab += qt * p[2];
+    // ---- fill and h-pass, band by band ---------------------------------- //
+    const size_t plane = size_t(wp) * hp;
+    const int band = band_rows(hc), route = route_of(K);
+    for (int row0 = 0; row0 < hc; row0 += band) {
+      const int rows = min(band, hc - row0);
+      zero(canvas, size_t((rows + 7) & ~7) * cp, tid, kThreads);
+      __syncthreads();  // also: the previous band's h-pass is done
+      fill_rows(s_tab, K, V, NT, row0, rows, wc, centroid, canvas, cp, wx,
+                ww, warp, kWarps, lane);
+      __syncthreads();
+      if (route == kRoute8)
+        hpass_rows<kRoute8>(canvas, cp, row0, rows, ht, mt_h, chan, kc, hpT,
+                            plane, hp, warp, kWarps, lane);
+      else if (route == kRoute16)
+        hpass_rows<kRoute16>(canvas, cp, row0, rows, ht, mt_h, chan, kc, hpT,
+                             plane, hp, warp, kWarps, lane);
+      else
+        hpass_rows<kRouteTable>(canvas, cp, row0, rows, ht, mt_h, chan, kc,
+                                hpT, plane, hp, warp, kWarps, lane);
+      __syncthreads();
     }
-    uint8_t* o = img + ((h - 1 - oy) * w + ox) * 3;
-    o[0] = clip8(ar);
-    o[1] = clip8(ag);
-    o[2] = clip8(ab);
+    // ---- vertical pass: 16 output rows by 8 output columns a unit,
+    // written flipped ---------------------------------------------------- //
+    const int mt_v = (h + 15) >> 4, nt_v = (w + 7) >> 3;
+    for (int u = warp; u < mt_v * nt_v; u += kWarps) {
+      const int m = u % mt_v, n = u / mt_v;
+      vpass_unit(hpT, plane, hp, vt, m, 8 * n, h, w, img, lane);
+    }
   }
+}
+
+template <bool kLanczos>
+int launch(const float* tab, int B, int K, int V, int NT, int hc, int wc,
+           int h, int w, int centroid, int ds, const Taps& ht, int cp,
+           const Taps& vt, int hp, int bg_packed, uint8_t* out,
+           cudaStream_t stream) {
+  const int wp = 16 * ((w + 15) >> 4);
+  const Layout L = layout(K, NT, hc, cp, wp, kLanczos ? hp : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      scene_raster_kernel<kLanczos>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scene_raster_kernel<kLanczos><<<B, threads_of(kLanczos), L.bytes,
+                                  stream>>>(
+      tab, K, V, NT, hc, wc, h, w, centroid, ds, ht, cp, vt, hp, bg_packed,
+      out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream`; returns the CUDA error code (0 on success).
 // `centroid` selects the fill (tables of prepare(pil_exact=False)), `ds` the
-// downsample (DS_IDENTITY, DS_LANCZOS or DS_BOX). Outside DS_LANCZOS, ht and
-// vt are 0 and the tap pointers may be null.
+// downsample (DS_IDENTITY, DS_LANCZOS or DS_BOX). With DS_LANCZOS the taps
+// are the h-pass's (wc -> w) and the v-pass's (hc -> h) tiles of
+// rasterize_cuda.lanczos_tiles, `cp` the h-pass's input pitch and `hp` the
+// v-pass's; otherwise cp = wc, hp = 0 and the tap pointers may be null.
 extern "C" int scene_raster_launch(const float* tab, int B, int K, int V,
                                    int NT, int hc, int wc, int h, int w,
-                                   int centroid, int ds, const int* hx0, const int* hq, int ht,
-                                   const int* vy0, const int* vq, int vt,
-                                   int bg_packed, uint8_t* out, void* stream) {
-  const Layout L = layout(K, NT, hc, wc, h, w, ht, vt);
-  cudaError_t err = cudaFuncSetAttribute(
-      scene_raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scene_raster_kernel<<<B, kThreads, L.bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      tab, K, V, NT, hc, wc, h, w, centroid, ds, hx0, hq, ht, vy0, vq, vt,
-      bg_packed, out);
-  return static_cast<int>(cudaGetLastError());
+                                   int centroid, int ds, const void* hfrags,
+                                   const int* hkstart, const int* hqsum,
+                                   int hks, int cp,
+                                   const void* vfrags, const int* vkstart,
+                                   int vks, int hp, int bg_packed,
+                                   uint8_t* out, void* stream) {
+  const Taps ht{static_cast<const int4*>(hfrags), hkstart, hqsum, hks};
+  const Taps vt{static_cast<const int4*>(vfrags), vkstart, nullptr, vks};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return ds == DS_LANCZOS
+             ? launch<true>(tab, B, K, V, NT, hc, wc, h, w, centroid, ds, ht,
+                            cp, vt, hp, bg_packed, out, s)
+             : launch<false>(tab, B, K, V, NT, hc, wc, h, w, centroid, ds,
+                             ht, cp, vt, hp, bg_packed, out, s);
 }
 
-// Dynamic shared memory the kernel needs for these sizes (ht = vt = 0 for
-// the identity and box modes); the renderer's dispatch compares its Python
-// mirror (rasterize_cuda.scene_smem_bytes) with the card's per-block limit
-// before launching.
-extern "C" long long scene_raster_smem_bytes(int K, int NT, int hc, int wc,
-                                             int h, int w, int ht, int vt) {
-  return static_cast<long long>(layout(K, NT, hc, wc, h, w, ht, vt).bytes);
+// Dynamic shared memory the kernel needs for these sizes: `cp` the canvas
+// pitch, `wp` and `hp` the h-pass buffer's rows and pitch (hp = 0 outside
+// DS_LANCZOS); the renderer's dispatch compares its Python mirror
+// (rasterize_cuda.scene_smem_bytes) with the card's per-block limit before
+// launching.
+extern "C" long long scene_raster_smem_bytes(int K, int NT, int hc, int cp,
+                                             int wp, int hp) {
+  return static_cast<long long>(layout(K, NT, hc, cp, wp, hp).bytes);
+}
+
+template <bool kLanczos>
+int blocks_per_sm(long long smem_bytes) {
+  int blocks = 0;
+  cudaFuncSetAttribute(scene_raster_kernel<kLanczos>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem_bytes));
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, scene_raster_kernel<kLanczos>, threads_of(kLanczos),
+          static_cast<size_t>(smem_bytes)) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Blocks of the kernel's DS_LANCZOS (`lanczos`) or other instantiation
+// resident on one SM at this shared memory.
+extern "C" int scene_raster_blocks_per_sm(long long smem_bytes,
+                                          int lanczos) {
+  return lanczos ? blocks_per_sm<true>(smem_bytes)
+                 : blocks_per_sm<false>(smem_bytes);
 }
 
 extern "C" const char* sw_cuda_error_string(int err) {

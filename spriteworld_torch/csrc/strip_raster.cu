@@ -17,37 +17,45 @@
 // * strip_raster_kernel: per (scene, strip), cull sprites by row bounds,
 //   fill them with `sw::fill_sprite` or `sw::fill_sprite_centroid`
 //   (raster_fill.cuh, shared with the scene kernel) into a u8 top-slot
-//   canvas of strip_rows x wc bytes in shared memory, then run the
-//   horizontal Lanczos pass in Pillow's int32 fixed point with its
-//   intermediate u8 rounding, writing u8[B][hc][w][3] in Pillow's row
-//   order. At anti_aliasing=1 it writes the strip straight out as the
-//   flipped image instead. With the box filter the strips hold a multiple
-//   of aa rows, so every output pixel's aa x aa block lies in one strip: the
-//   kernel writes its rows of the flipped image directly (`sw::box_pixel`),
-//   and no second kernel runs.
-// * strip_vpass_kernel: the vertical Lanczos pass over that buffer, one
-//   thread per output pixel, in the same fixed point, writing u8[B][h][w][3]
-//   already flipped. Its support (3 * anti_aliasing canvas rows each side)
-//   crosses strip boundaries, hence the second kernel.
+//   canvas of strip_rows rows in shared memory, then run the horizontal
+//   Lanczos pass on the int8 tensor cores (lanczos_mma.cuh), exactly, with
+//   Pillow's intermediate u8 rounding, into the scene's transposed,
+//   channel-planar buffer hpT u8[B][3][wp][hp] (output column x's canvas
+//   rows at bytes 0..hc-1 of row x). At anti_aliasing=1 it writes the strip
+//   straight out as the flipped image instead. With the box filter the
+//   strips hold a multiple of aa rows, so every output pixel's aa x aa block
+//   lies in one strip: the kernel writes its rows of the flipped image
+//   directly (`sw::box_pixel`), and no second kernel runs.
+// * strip_vpass_kernel: the vertical Lanczos pass over that buffer on the
+//   tensor cores, one warp per (scene, 8 output columns), writing
+//   u8[B][h][w][3] already flipped. Its support (3 * anti_aliasing canvas
+//   rows each side) crosses strip boundaries, hence the second kernel.
 //
 // What bounds it. At 256x256, anti_aliasing=10 a scene's canvas is
 // 2560x2560. The h-pass reads ~61 taps for each of 2560 x 256 outputs and 3
-// channels (~120 M integer multiply-adds a scene) and outweighs the fill
-// (~4 sprites x ~0.2 M pixels of bounds x a compare and an add per edge).
-// The h-pass buffer is 1.9 MB a scene, written once and read by the v-pass.
-// Both kernels are bound by operations. With the box filter the strip
-// kernel alone runs: aa * aa adds per output channel (~20 M a scene at
-// anti_aliasing=10) and the fill, still operations against ~0.2 MB of
-// output a scene.
+// channels (~120 M multiply-adds a scene): on the int8 tensor cores that is
+// less than the fill's work (~4 sprites x ~0.2 M pixels of bounds, each
+// tested against the row's ~2 compacted crossings). The h-pass buffer is
+// ~2 MB a scene, written once and read by the v-pass, which is bound by
+// those bytes. With the box filter the strip kernel alone runs: aa * aa
+// adds per output channel (~20 M a scene at anti_aliasing=10) and the
+// fill, operations against ~0.2 MB of output a scene.
 //
 // Design.
 // * Shared memory holds only the strip's canvas (one byte per pixel: 0 =
-//   background, k + 1 = sprite k), the K + 1 colour table and the per-warp
-//   crossing scratch. The sprite tables are read from device memory through
-//   the L1 cache, and the h-pass taps through the read-only cache, stored
-//   transposed (tap t of output ox at t * w + ox) so a warp's 32 outputs
-//   read 32 neighbouring words. So a block's shared memory does not grow
-//   with K or with the tap count, and strip_rows (a launch argument) sets it.
+//   background, k + 1 = sprite k; with Lanczos rows at the h-pass taps'
+//   pitch, rounded up to whole 8-row tiles), the K + 1 colour and channel
+//   tables and the per-warp crossing scratch. The sprite tables are read
+//   from device memory through the L1 cache, and the taps' mma fragments
+//   through the read-only cache, so a block's shared memory does not grow
+//   with K or with the tap count, and strip_rows (a launch argument) sets
+//   it. The Lanczos instantiation is held to 80 registers, so three blocks
+//   of the default 64 KiB canvas share an SM.
+// * h-pass units run row tiles fastest, so the block's warps share an
+//   m-tile's taps in the L1 cache; the v-pass's warps walk the m-tiles top
+//   to bottom, so neighbouring windows meet there too. At anti_aliasing=10
+//   most h-pass windows are one slot throughout (background or a sprite's
+//   inside) and skip the products: colour times the output's tap sum.
 // * Canvas row r belongs to warp r % 8 for every sprite (fill_sprite), so
 //   the painter's order needs no block barrier between sprites.
 // * Integer sums are exact in any order, so both passes equal Pillow's and
@@ -56,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanczos_mma.cuh"
 #include "raster_fill.cuh"
 
 namespace {
@@ -65,37 +74,65 @@ using namespace sw;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVpassThreads = 256;
+constexpr int kVpassWarps = kVpassThreads / 32;
 
 struct Layout {
-  // Word offsets of the colour table and crossing scratch, byte offset of
-  // the canvas.
+  // Word offsets of the colour table and crossing scratch, byte offsets of
+  // the canvas and the channel tables.
   int ctab, xi, wgt;
-  size_t canvas, bytes;
+  size_t canvas, chan, bytes;
 };
 
-__host__ __device__ inline Layout layout(int K, int strip_rows, int wc) {
+// `rows` x `cp` bytes of canvas (with the Lanczos filter, `lanczos`:
+// round8(strip_rows) rows at the h-pass taps' pitch, then the channel
+// tables).
+__host__ __device__ inline Layout layout(int K, int rows, int cp,
+                                         int lanczos) {
   Layout L;
   L.ctab = 0;
   L.xi = L.ctab + K + 1;
   L.wgt = L.xi + kWarps * 32;
   L.canvas = round16(size_t(L.wgt + kWarps * 32) * 4);
-  L.bytes = L.canvas + round16(size_t(strip_rows) * wc);
+  L.chan = L.canvas + round16(size_t(rows) * cp);
+  L.bytes = L.chan + (lanczos ? round16(size_t(3) * chan_stride(K)) : 0);
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Slots resolve through the shared channel table for every K: held to 80
+// registers, this kernel ran slower with the register routes' tables.
+__device__ void strip_hpass(const uint8_t* canvas, int cp, int rows,
+                            int row_begin, const Taps& ht, int mt,
+                            const uint8_t* chan, int kc, uint8_t* hpT,
+                            size_t plane, int hp, int warp, int lane) {
+  const ChanRegs unused{};
+  // Row tiles vary fastest, so the block's warps share an m-tile's taps in
+  // the L1 cache.
+  const int nt = (rows + 7) >> 3;
+  for (int u = warp; u < mt * nt; u += kWarps) {
+    const int m = u / nt, n = u % nt;
+    hpass_unit<kRouteTable>(canvas, cp, 8 * n, ht, m, unused, chan, kc, hpT,
+                            plane, hp, row_begin + 8 * n, row_begin + rows,
+                            lane);
+  }
+}
+
+// kLanczos: the DS_LANCZOS instantiation, held to three blocks an SM (the
+// default 64 KiB canvas allows three). The others (identity, box) leave out
+// the tensor-core pass and keep the fill's small register count.
+template <bool kLanczos>
+__global__ void __launch_bounds__(kThreads, kLanczos ? 3 : 1)
 strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
                     int hc, int wc, int h, int w, int centroid, int ds,
-                    int strip_rows, int num_strips,
-                    const int* __restrict__ hx0,
-                    const int* __restrict__ hqt, int ht, int bg_packed,
-                    uint8_t* __restrict__ out) {
+                    int strip_rows, int num_strips, int cp, Taps ht, int hp,
+                    int bg_packed, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(K, strip_rows, wc);
+  const int canvas_rows = kLanczos ? (strip_rows + 7) & ~7 : strip_rows;
+  const Layout L = layout(K, canvas_rows, cp, kLanczos);
   int* s_ctab = reinterpret_cast<int*>(smem) + L.ctab;
   float* s_xi = reinterpret_cast<float*>(smem) + L.xi;
   int* s_wgt = reinterpret_cast<int*>(smem) + L.wgt;
   uint8_t* canvas = smem + L.canvas;
+  uint8_t* chan = smem + L.chan;
 
   const int tid = threadIdx.x;
   const int scene = blockIdx.x / num_strips;
@@ -105,8 +142,20 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
   for (int i = tid; i <= K; i += kThreads)
     s_ctab[i] = i == 0 ? bg_packed
                        : static_cast<int>(scene_tab[(i - 1) * NT + T_COLOR]);
+  const int kc = chan_stride(K);
+  if (kLanczos)
+    for (int i = tid; i < 3 * kc; i += kThreads) {
+      const int ch = i / kc, slot = i - ch * kc;
+      const int c = slot == 0 ? bg_packed
+                    : slot <= K ? static_cast<int>(
+                                      scene_tab[(slot - 1) * NT + T_COLOR])
+                                : 0;
+      chan[i] = static_cast<uint8_t>(c >> (16 - 8 * ch));
+    }
   uint32_t* canvas32 = reinterpret_cast<uint32_t*>(canvas);
-  for (int i = tid; i < (rows * wc + 3) / 4; i += kThreads) canvas32[i] = 0u;
+  const int zero_rows = kLanczos ? (rows + 7) & ~7 : rows;
+  for (int i = tid; i < (zero_rows * cp + 3) / 4; i += kThreads)
+    canvas32[i] = 0u;
   __syncthreads();
 
   // ---- fill of the sprites that reach this strip ------------------------ //
@@ -124,14 +173,14 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
     const int c1 = min(static_cast<int>(st[T_COL1]), wc - 1);
     if (centroid)
       fill_sprite_centroid(st, V, value, r0, r1, c0, c1, row_begin, canvas,
-                           wc, wx, warp, kWarps, lane);
+                           cp, wx, warp, kWarps, lane);
     else
-      fill_sprite(st, V, value, r0, r1, c0, c1, row_begin, canvas, wc, wx,
+      fill_sprite(st, V, value, r0, r1, c0, c1, row_begin, canvas, cp, wx,
                   ww, warp, kWarps, lane);
   }
   __syncthreads();
 
-  if (ds != DS_LANCZOS) {  // identity or box: this strip's image rows
+  if constexpr (!kLanczos) {  // identity or box: this strip's image rows
     const int aa = hc / h;  // 1 for the identity
     const int out_begin = row_begin / aa;
     uint8_t* img = out + size_t(scene) * h * w * 3;
@@ -139,103 +188,131 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
       const int y = i / w, x = i - y * w;
       uint8_t* o = img + (size_t(h - 1 - out_begin - y) * w + x) * 3;
       if (ds == DS_BOX)
-        box_pixel(canvas + (y * aa) * wc + x * aa, wc, aa, s_ctab, o);
+        box_pixel(canvas + (y * aa) * cp + x * aa, cp, aa, s_ctab, o);
       else
-        slot_pixel(s_ctab[canvas[y * wc + x]], o);
+        slot_pixel(s_ctab[canvas[y * cp + x]], o);
     }
-    return;
-  }
-  // ---- horizontal Lanczos pass: canvas row y, output column ox ---------- //
-  uint8_t* hp = out + (size_t(scene) * hc + row_begin) * w * 3;
-  for (int i = tid; i < rows * w; i += kThreads) {
-    const int y = i / w, ox = i - y * w;
-    const uint8_t* src = canvas + y * wc + __ldg(hx0 + ox);
-    int ar = 1 << 21, ag = 1 << 21, ab = 1 << 21;
-    for (int t = 0; t < ht; ++t) {
-      const int c = s_ctab[src[t]];
-      const int qt = __ldg(hqt + t * w + ox);
-      ar += qt * (c >> 16);
-      ag += qt * ((c >> 8) & 255);
-      ab += qt * (c & 255);
-    }
-    uint8_t* o = hp + size_t(i) * 3;
-    o[0] = clip8(ar);
-    o[1] = clip8(ag);
-    o[2] = clip8(ab);
+  } else {
+    // ---- horizontal Lanczos pass on the tensor cores -------------------- //
+    // Units of 16 output columns by 8 canvas rows, into this scene's
+    // hpT[3][wp][hp] (canvas row y at byte y of a row), rows of this strip
+    // only.
+    const int mt = (w + 15) >> 4;
+    const size_t plane = size_t(16 * mt) * hp;
+    uint8_t* hpT = out + size_t(scene) * 3 * plane;
+    strip_hpass(canvas, cp, rows, row_begin, ht, mt, chan, kc, hpT, plane, hp,
+                warp, lane);
   }
 }
 
+// One warp a (scene, 8 output columns): every 16-row m-tile, top to bottom,
+// so that neighbouring m-tiles' overlapping windows meet in the L1 cache.
 __global__ void __launch_bounds__(kVpassThreads)
-strip_vpass_kernel(const uint8_t* __restrict__ hp, long long total, int hc,
-                   int w, int h, const int* __restrict__ vy0,
-                   const int* __restrict__ vq, int vt,
-                   uint8_t* __restrict__ out) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (i >= total) return;
-  const int ox = static_cast<int>(i % w);
-  const long long r = i / w;
-  const int oy = static_cast<int>(r % h);
-  const long long scene = r / h;
-  const uint8_t* src = hp + ((scene * hc + __ldg(vy0 + oy)) * w + ox) * 3;
-  const int* q = vq + oy * vt;
-  int ar = 1 << 21, ag = 1 << 21, ab = 1 << 21;
-  for (int t = 0; t < vt; ++t) {
-    const uint8_t* p = src + size_t(t) * w * 3;
-    const int qt = __ldg(q + t);
-    ar += qt * p[0];
-    ag += qt * p[1];
-    ab += qt * p[2];
-  }
-  uint8_t* o = out + ((scene * h + (h - 1 - oy)) * w + ox) * 3;
-  o[0] = clip8(ar);
-  o[1] = clip8(ag);
-  o[2] = clip8(ab);
+strip_vpass_kernel(const uint8_t* __restrict__ hpT, int blocks_per_scene,
+                   int hp, int w, int h, Taps vt, uint8_t* __restrict__ out) {
+  const int scene = blockIdx.x / blocks_per_scene;
+  const int n = (blockIdx.x - scene * blocks_per_scene) * kVpassWarps
+                + (threadIdx.x >> 5);
+  if (8 * n >= w) return;  // whole warps only
+  const int mt_h = (w + 15) >> 4;
+  const size_t plane = size_t(16 * mt_h) * hp;
+  const uint8_t* src = hpT + size_t(scene) * 3 * plane;
+  uint8_t* img = out + size_t(scene) * h * w * 3;
+  const int mt_v = (h + 15) >> 4;
+  for (int m = 0; m < mt_v; ++m)
+    vpass_unit(src, plane, hp, vt, m, 8 * n, h, w, img, threadIdx.x & 31);
+}
+
+template <bool kLanczos>
+int launch(const float* tab, int B, int K, int V, int NT, int hc, int wc,
+           int h, int w, int centroid, int ds, int strip_rows, int cp,
+           const Taps& ht, int hp, int bg_packed, uint8_t* out,
+           cudaStream_t stream) {
+  const Layout L = layout(K, kLanczos ? (strip_rows + 7) & ~7 : strip_rows,
+                          cp, kLanczos);
+  cudaError_t err = cudaFuncSetAttribute(
+      strip_raster_kernel<kLanczos>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int num_strips = (hc + strip_rows - 1) / strip_rows;
+  strip_raster_kernel<kLanczos><<<B * num_strips, kThreads, L.bytes,
+                                  stream>>>(
+      tab, K, V, NT, hc, wc, h, w, centroid, ds, strip_rows, num_strips, cp,
+      ht, hp, bg_packed, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kLanczos>
+int blocks_per_sm(long long smem_bytes) {
+  int blocks = 0;
+  cudaFuncSetAttribute(strip_raster_kernel<kLanczos>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem_bytes));
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, strip_raster_kernel<kLanczos>, kThreads,
+          static_cast<size_t>(smem_bytes)) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
 
-// Shared memory a strip_raster block needs; the renderer's dispatch checks
-// its Python mirror (rasterize_cuda.strip_smem_bytes) against this.
-extern "C" long long strip_raster_smem_bytes(int K, int strip_rows, int wc) {
-  return static_cast<long long>(layout(K, strip_rows, wc).bytes);
+// Shared memory a strip_raster block needs for `rows` canvas rows of `cp`
+// bytes (with the Lanczos filter, `lanczos`: round8(strip_rows) rows at the
+// h-pass taps' pitch); the renderer's dispatch checks its Python mirror
+// (rasterize_cuda.strip_smem_bytes) against this.
+extern "C" long long strip_raster_smem_bytes(int K, int rows, int cp,
+                                             int lanczos) {
+  return static_cast<long long>(layout(K, rows, cp, lanczos).bytes);
 }
 
-// Fill and h-pass (ds == DS_LANCZOS) or the flipped image (DS_IDENTITY, or
-// DS_BOX with strip_rows a multiple of anti_aliasing) of B scenes in strips
-// of `strip_rows` canvas rows; `centroid` selects the fill. Outside
-// DS_LANCZOS ht is 0 and the tap pointers may be null. Launches on `stream`;
-// returns the CUDA error code (0 on success).
+// Fill and h-pass (ds == DS_LANCZOS: into hpT u8[B][3][wp][hp], wp = w
+// rounded up to 16, canvas row y at byte y of each row, with the h-pass tiles
+// of rasterize_cuda.lanczos_tiles and `cp` their input pitch) or the flipped
+// image (DS_IDENTITY, or DS_BOX with strip_rows a multiple of
+// anti_aliasing; cp = wc, taps null) of B scenes in strips of `strip_rows`
+// canvas rows; `centroid` selects the fill. Launches on `stream`; returns
+// the CUDA error code (0 on success).
 extern "C" int strip_raster_launch(const float* tab, int B, int K, int V,
                                    int NT, int hc, int wc, int h, int w,
                                    int centroid, int ds, int strip_rows,
-                                   const int* hx0,
-                                   const int* hqt, int ht, int bg_packed,
-                                   uint8_t* out, void* stream) {
-  const Layout L = layout(K, strip_rows, wc);
-  cudaError_t err = cudaFuncSetAttribute(
-      strip_raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int num_strips = (hc + strip_rows - 1) / strip_rows;
-  strip_raster_kernel<<<B * num_strips, kThreads, L.bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      tab, K, V, NT, hc, wc, h, w, centroid, ds, strip_rows, num_strips, hx0,
-      hqt, ht, bg_packed, out);
+                                   int cp, const void* hfrags,
+                                   const int* hkstart, const int* hqsum,
+                                   int hks, int hp,
+                                   int bg_packed, uint8_t* out,
+                                   void* stream) {
+  const Taps ht{static_cast<const int4*>(hfrags), hkstart, hqsum, hks};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return ds == DS_LANCZOS
+             ? launch<true>(tab, B, K, V, NT, hc, wc, h, w, centroid, ds,
+                            strip_rows, cp, ht, hp, bg_packed, out, s)
+             : launch<false>(tab, B, K, V, NT, hc, wc, h, w, centroid, ds,
+                             strip_rows, cp, ht, hp, bg_packed, out, s);
+}
+
+// Vertical pass of B h-pass buffers hpT u8[B][3][wp][hp] (as
+// strip_raster_launch writes them) into flipped images u8[B][h][w][3], with
+// the v-pass tiles (hc -> h) of rasterize_cuda.lanczos_tiles. Launches on
+// `stream`; returns the CUDA error code.
+extern "C" int strip_vpass_launch(const uint8_t* hpT, int B, int hp, int w,
+                                  int h, const void* vfrags,
+                                  const int* vkstart, int vks, uint8_t* out,
+                                  void* stream) {
+  const int nt = (w + 7) >> 3;
+  const int blocks_per_scene = (nt + kVpassWarps - 1) / kVpassWarps;
+  const Taps vt{static_cast<const int4*>(vfrags), vkstart, nullptr, vks};
+  strip_vpass_kernel<<<B * blocks_per_scene, kVpassThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      hpT, blocks_per_scene, hp, w, h, vt, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Vertical pass of B h-pass buffers u8[B][hc][w][3] into flipped images
-// u8[B][h][w][3]. Launches on `stream`; returns the CUDA error code.
-extern "C" int strip_vpass_launch(const uint8_t* hp, int B, int hc, int w,
-                                  int h, const int* vy0, const int* vq,
-                                  int vt, uint8_t* out, void* stream) {
-  const long long total = static_cast<long long>(B) * h * w;
-  const long long blocks = (total + kVpassThreads - 1) / kVpassThreads;
-  strip_vpass_kernel<<<static_cast<unsigned>(blocks), kVpassThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      hp, total, hc, w, h, vy0, vq, vt, out);
-  return static_cast<int>(cudaGetLastError());
+// Blocks of strip_raster_kernel's DS_LANCZOS (`lanczos`) or other
+// instantiation resident on one SM at this shared memory.
+extern "C" int strip_raster_blocks_per_sm(long long smem_bytes,
+                                          int lanczos) {
+  return lanczos ? blocks_per_sm<true>(smem_bytes)
+                 : blocks_per_sm<false>(smem_bytes);
 }
 
 extern "C" const char* sw_cuda_error_string(int err) {

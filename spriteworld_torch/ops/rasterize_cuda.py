@@ -32,6 +32,10 @@ The work splits in five:
 * `packed_raster` launches the anti_aliasing=1 kernel for small canvases
   (`csrc/packed_raster.cu`), where the JAX package takes its packed mode
   (`uses_packed`).
+* `lanczos_tiles` builds, in numpy and cached by size, the banded tap tiles
+  the scene and strip kernels' Lanczos passes multiply on the int8 tensor
+  cores (`csrc/lanczos_mma.cuh`): each tap split into u8/u8/s8 limbs, laid
+  out as mma.sync fragments.
 * `render_rgb_batch_plain` computes the same function from the same table
   with torch operations. CPU tensors take it; on the card every kernel is
   held against it, bit for bit (`hpass_plain` and `vpass_plain` are its two
@@ -41,7 +45,8 @@ All evaluate the exact fill's crossing as the float32 multiply-then-add
 ``x0 + (row - y0) * m`` and the centroid fill's as ``x0 + ((py - y0) / dy)
 * dx``, each operation rounded once; all downsample with Pillow's integer
 Lanczos taps, or with the box filter's integer sums divided once and
-rounded half to even. So the kernels and the plain version agree on every
+rounded half to even (the kernels' limb products are exact int32 sums of
+the same integers). So the kernels and the plain version agree on every
 value, and agree with Pillow and with `ops/rasterize.py`.
 """
 
@@ -187,39 +192,97 @@ def prepare(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
                        pil_exact=bool(pil_exact))
 
 
-@functools.lru_cache(maxsize=None)
-def _lanczos_taps_host(in_size: int, out_size: int):
-    """(start i32[out], q i32[out, T]) with every read inside [0, in_size).
+# The tensor-core Lanczos passes (csrc/lanczos_mma.cuh): m-tiles of 16
+# outputs, K steps of 32 inputs, three limbs a tap.
+MMA_M, MMA_K = 16, 32
+LIMB_SHIFTS = (0, 8, 16)
 
-    Windows are padded with zero taps to one width T; a window near the far
-    edge starts earlier, its taps shifted right, so the kernel reads T
-    inputs from `start` without bounds checks.
+
+@dataclasses.dataclass(frozen=True)
+class LanczosTiles:
+    """One Lanczos pass (in_size -> out_size) as banded integer tiles.
+
+    M-tile m holds outputs 16m .. 16m + 15 (past out_size: zero taps) and
+    reads the inputs [kstart[m], kstart[m] + 32 * ksteps), kstart a
+    multiple of 16, every nonzero tap inside; the rest are zero taps. The
+    pass's input rows have `pitch` bytes (>= in_size, and >= every window's
+    end; an odd multiple of 16, so a warp's eight rows of a fragment load
+    fall in distinct shared-memory banks).
+
+    limbs: i64[mt, 3, 16, 32 * ksteps], q = limbs[0] + limbs[1] * 2^8 +
+    limbs[2] * 2^16 with limbs 0 and 1 in [0, 255] and limb 2 in
+    [-128, 127]. frags: the same bytes as the kernels' mma.sync A fragments,
+    i32[mt, ksteps, 3, 32 lanes, 4] (lane = 4 * group + t holds rows group
+    and group + 8, inputs 4t..4t+3 and 16+4t..16+4t+3 of the K step).
+    qsum: i32[16 * mt], each output's sum of taps (a window of one colour c
+    sums to c * qsum).
     """
+
+    kstart: np.ndarray
+    ksteps: int
+    pitch: int
+    limbs: np.ndarray
+    frags: np.ndarray
+    qsum: np.ndarray
+
+
+def _pitch(in_size: int, window: int) -> int:
+    p = max(_round16(in_size), window)
+    return p if (p // 16) % 2 else p + 16
+
+
+@functools.lru_cache(maxsize=None)
+def lanczos_tiles(in_size: int, out_size: int) -> LanczosTiles:
+    """The tiles of Pillow's Lanczos pass in_size -> out_size (a function of
+    the sizes alone, cached)."""
     xmins, taps = resample.pil_lanczos_fixed(in_size, out_size)
-    width = max(len(q) for q in taps)
-    start = np.minimum(xmins, in_size - width).astype(np.int32)
-    q = np.zeros((out_size, width), np.int64)
+    ends = xmins + np.array([len(t) for t in taps])
+    mt = -(-out_size // MMA_M)
+    first = np.array([xmins[MMA_M * m:MMA_M * (m + 1)].min()
+                      for m in range(mt)])
+    last = np.array([ends[MMA_M * m:MMA_M * (m + 1)].max()
+                     for m in range(mt)])
+    kstart = first // 16 * 16
+    ksteps = int((-(-(last - kstart) // MMA_K)).max())
+    window = MMA_K * ksteps
+    pitch = _pitch(in_size, window)
+    # Windows past the pitch start earlier (still multiples of 16): every
+    # tap ends by in_size <= pitch.
+    kstart = np.minimum(kstart, pitch - window).astype(np.int32)
+    q = np.zeros((mt * MMA_M, window), np.int64)
     for o, (xmin, t) in enumerate(zip(xmins, taps)):
-        off = xmin - start[o]
+        off = xmin - kstart[o // MMA_M]
         q[o, off:off + len(t)] = t
-    # The kernel sums 2^21 + q * p (p <= 255) in int32, as Pillow does.
+    # The kernels' sum 2^21 + sum(q * p), p <= 255, must fit int32, as
+    # Pillow's does.
     if np.abs(q).sum(1).max() * 255 + (1 << 21) >= 1 << 31:
         raise ValueError("Lanczos taps overflow an int32 accumulator")
-    return start, q.astype(np.int32)
+    limbs = np.stack([q & 255, (q >> 8) & 255, q >> 16], 1).reshape(
+        mt, MMA_M, 3, window).transpose(0, 2, 1, 3)
+    if limbs[:, 2].min() < -128 or limbs[:, 2].max() > 127:
+        raise ValueError("a Lanczos tap's high limb exceeds int8")
+    # A fragment register r of lane (group, t): row group + 8 * (r & 1),
+    # inputs 16 * (r >> 1) + 4t + (0..3), little-endian.
+    lane = np.arange(32)
+    r = np.arange(4)
+    rows = (lane >> 2)[:, None] + 8 * (r & 1)[None, :]
+    cols = 16 * (r >> 1)[None, :] + 4 * (lane & 3)[:, None]
+    u8 = (limbs & 255).astype(np.uint8).reshape(mt, 3, MMA_M, ksteps, MMA_K)
+    u8 = u8.transpose(0, 3, 1, 2, 4)  # [mt, ks, 3, 16, 32]
+    frag_bytes = u8[..., rows[..., None], cols[..., None] + np.arange(4)]
+    frags = np.ascontiguousarray(frag_bytes).view("<i4")[..., 0]
+    return LanczosTiles(kstart=kstart, ksteps=ksteps, pitch=pitch,
+                        limbs=limbs, frags=np.ascontiguousarray(frags),
+                        qsum=q.sum(1).astype(np.int32))
 
 
-def lanczos_taps(in_size: int, out_size: int, device):
-    start, q = _lanczos_taps_host(in_size, out_size)
-    return (device_lib.constant(start, device),
-            device_lib.constant(q, device))
-
-
-def lanczos_taps_t(in_size: int, out_size: int, device):
-    """(start, q transposed to i32[T, out]) for the strip kernel's h-pass:
-    a warp's neighbouring outputs read neighbouring words of each tap."""
-    start, q = _lanczos_taps_host(in_size, out_size)
-    return (device_lib.constant(start, device),
-            device_lib.constant(np.ascontiguousarray(q.T), device))
+@functools.lru_cache(maxsize=None)
+def lanczos_tiles_on(in_size: int, out_size: int, device: torch.device):
+    """(tiles, then its frags, kstart and qsum as i32 tensors on
+    `device`), cached by sizes and device."""
+    t = lanczos_tiles(in_size, out_size)
+    return (t,) + tuple(torch.from_numpy(a).to(device)
+                        for a in (t.frags, t.kstart, t.qsum))
 
 
 # Downsample modes of the kernels (csrc/raster_fill.cuh DS_*).
@@ -265,38 +328,62 @@ def _round16(n: int) -> int:
     return (n + 15) & ~15
 
 
-_SCENE_WARPS = 16  # scene_raster.cu kThreads / 32
+_SCENE_WARPS = 16  # scene_raster.cu threads_of(false) / 32
+_SCENE_LANCZOS_WARPS = 8  # threads_of(true) / 32
+_SCENE_BAND_ROWS = 80  # scene_raster.cu kBandRows
 _STRIP_WARPS = 8  # strip_raster.cu kThreads / 32
 _PACKED_WARPS = 4  # packed_raster.cu kThreads / 32
 
 
-def _tap_widths(hc: int, wc: int, h: int, w: int,
-                ds: int) -> Tuple[int, int]:
-    """(h-pass, v-pass) padded tap counts; 0 outside DS_LANCZOS."""
-    if ds != DS_LANCZOS:
-        return 0, 0
-    return (_lanczos_taps_host(wc, w)[1].shape[1],
-            _lanczos_taps_host(hc, h)[1].shape[1])
+def _round8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def _chan_bytes(k: int) -> int:
+    """The kernels' per-block channel tables: 3 x (K + 1 rounded up to
+    16) bytes (csrc/lanczos_mma.cuh chan_stride)."""
+    return _round16(3 * _round16(k + 1))
+
+
+def hpass_geometry(hc: int, h: int, w: int) -> Tuple[int, int]:
+    """(rows wp, pitch hp) of a Lanczos render's h-pass buffer
+    hpT[3][wp][hp]: output column x's canvas rows at bytes 0..hc-1 of row
+    x, w rounded up to whole m-tiles, at the v-pass tiles' pitch. (The
+    canvas rows have the h-pass tiles' pitch.)"""
+    return MMA_M * -(-w // MMA_M), lanczos_tiles(hc, h).pitch
 
 
 def scene_smem_bytes(k: int, num_vertices: int, hc: int, wc: int, h: int,
                      w: int, ds: int) -> int:
     """Shared memory of one scene_raster block in downsample mode `ds`: a
     mirror of `layout` in csrc/scene_raster.cu (chip_smoke.py holds the two
-    equal). The identity and box modes need no taps and no h-pass buffer."""
-    ht, vt = _tap_widths(hc, wc, h, w, ds)
-    words = (k * table_width(num_vertices) + k + 1 + 2 * _SCENE_WARPS * 32
-             + (w if ht else 0) + w * ht + (h if vt else 0) + h * vt)
-    canvas = _round16(words * 4)
-    hpass = canvas + _round16(hc * wc)
-    return hpass + (_round16(hc * w * 3) if ht else 0)
+    equal). With the Lanczos filter the canvas holds one band of rows at
+    the h-pass tiles' pitch, and the channel tables and the h-pass buffer
+    follow; the identity and box modes hold the whole canvas, rows of wc
+    bytes, and nothing else."""
+    warps = _SCENE_LANCZOS_WARPS if ds == DS_LANCZOS else _SCENE_WARPS
+    words = k * table_width(num_vertices) + k + 1 + 2 * warps * 32
+    head = _round16(words * 4)
+    if ds != DS_LANCZOS:
+        return head + _round16(hc * wc)
+    cp = lanczos_tiles(wc, w).pitch
+    wp, hp = hpass_geometry(hc, h, w)
+    band = min(_round8(hc), _SCENE_BAND_ROWS)
+    return (head + _round16(band * cp) + _chan_bytes(k)
+            + _round16(3 * wp * hp))
 
 
-def strip_smem_bytes(k: int, strip_rows: int, wc: int) -> int:
+def strip_smem_bytes(k: int, strip_rows: int, wc: int,
+                     w: Optional[int] = None) -> int:
     """Shared memory of one strip_raster block: a mirror of `layout` in
-    csrc/strip_raster.cu."""
-    return (_round16((k + 1 + 2 * _STRIP_WARPS * 32) * 4)
-            + _round16(strip_rows * wc))
+    csrc/strip_raster.cu. With the Lanczos filter pass the output width
+    `w`: the canvas then has round8(strip_rows) rows at the h-pass tiles'
+    pitch, and the channel tables follow."""
+    head = _round16((k + 1 + 2 * _STRIP_WARPS * 32) * 4)
+    if w is None:
+        return head + _round16(strip_rows * wc)
+    return (head + _round16(_round8(strip_rows) * lanczos_tiles(wc, w).pitch)
+            + _chan_bytes(k))
 
 
 def packed_smem_bytes(k: int, tile_rows: int, w: int) -> int:
@@ -366,8 +453,9 @@ _PACKED_CANVAS_BYTES = 32 * 1024
 
 
 def default_strip_rows(hc: int, wc: int, multiple: int = 1) -> int:
-    """Canvas rows per strip: as many as fit `_STRIP_CANVAS_BYTES`, rounded
-    down to a multiple of `multiple` (the box filter's anti_aliasing), and
+    """Canvas rows per strip of `wc` bytes: as many as fit
+    `_STRIP_CANVAS_BYTES`, rounded down to a multiple of `multiple` (the
+    box filter's anti_aliasing, or the Lanczos h-pass's 8-row tiles), and
     at least `multiple`."""
     rows = min(hc, _STRIP_CANVAS_BYTES // wc) // multiple * multiple
     return max(multiple, rows)
@@ -428,11 +516,15 @@ def _scene_launcher():
     lib = _build.load("scene_raster")
     fn = lib.scene_raster_launch
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] * 2
-                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.scene_raster_smem_bytes.argtypes = [ctypes.c_int] * 8
+    lib.scene_raster_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.scene_raster_smem_bytes.restype = ctypes.c_longlong
+    lib.scene_raster_blocks_per_sm.argtypes = [ctypes.c_longlong,
+                                               ctypes.c_int]
+    lib.scene_raster_blocks_per_sm.restype = ctypes.c_int
     return lib, fn
 
 
@@ -441,17 +533,20 @@ def _strip_launchers():
     """(library, strip_raster_launch, strip_vpass_launch), typed."""
     lib = _build.load("strip_raster")
     fill = lib.strip_raster_launch
-    fill.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 11
-                     + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    fill.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 12
+                     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p, ctypes.c_void_p])
     fill.restype = ctypes.c_int
     vpass = lib.strip_vpass_launch
     vpass.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_void_p])
     vpass.restype = ctypes.c_int
-    lib.strip_raster_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.strip_raster_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.strip_raster_smem_bytes.restype = ctypes.c_longlong
+    lib.strip_raster_blocks_per_sm.argtypes = [ctypes.c_longlong,
+                                               ctypes.c_int]
+    lib.strip_raster_blocks_per_sm.restype = ctypes.c_int
     return lib, fill, vpass
 
 
@@ -527,20 +622,21 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
     if b == 0:
         return out
     if ds == DS_LANCZOS:
-        hx0, hq = lanczos_taps(wc, w, tab.device)
-        vy0, vq = lanczos_taps(hc, h, tab.device)
-        ht, vt = hq.shape[1], vq.shape[1]
+        htl, hfr, hks, hqs = lanczos_tiles_on(wc, w, tab.device)
+        vtl, vfr, vks, _ = lanczos_tiles_on(hc, h, tab.device)
+        cp, hp = htl.pitch, vtl.pitch
+        hsteps, vsteps = htl.ksteps, vtl.ksteps
     else:
-        hx0 = hq = vy0 = vq = None
-        ht = vt = 0
+        hfr = hks = hqs = vfr = vks = None
+        cp, hp, hsteps, vsteps = wc, 0, 0, 0
 
     lib, launch = _scene_launcher()
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(_ptr(tab), b, k, tables.num_vertices, tab.shape[-1], hc,
-                     wc, h, w, int(not tables.pil_exact), ds, _ptr(hx0),
-                     _ptr(hq), ht, _ptr(vy0), _ptr(vq), vt,
-                     _bg_packed(bg_color), _ptr(out), stream)
+                     wc, h, w, int(not tables.pil_exact), ds, _ptr(hfr),
+                     _ptr(hks), _ptr(hqs), hsteps, cp, _ptr(vfr), _ptr(vks),
+                     vsteps, hp, _bg_packed(bg_color), _ptr(out), stream)
     _check_launch(lib, err, "scene_raster")
     _count_launch(scene_raster, mode_name(tables.pil_exact, ds))
     return out
@@ -551,12 +647,14 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
                  downsample: str = "auto") -> torch.Tensor:
     """Launch the row-strip kernel on prepared tables.
 
-    With the Lanczos filter it returns the h-pass u8[B, hc, W, 3] in
-    Pillow's row order (no flip); with the box filter, or none at
-    anti_aliasing=1, the image u8[B, H, W, 3]. Box strips hold a multiple
-    of anti_aliasing rows. Runs on the current stream; raises when the
-    kernel cannot launch. Each launch adds one to `strip_raster.launches`
-    and to `strip_raster.by_mode[mode_name(...)]`.
+    With the Lanczos filter it returns the h-pass as u8[B, hc, W, 3] in
+    Pillow's row order (no flip): a view of the kernel's buffer (see
+    `hpass_buffer`), which `strip_vpass` reads as it is. With the box
+    filter, or none at anti_aliasing=1, it returns the image u8[B, H, W,
+    3]. Box strips hold a multiple of anti_aliasing rows. Runs on the
+    current stream; raises when the kernel cannot launch. Each launch adds
+    one to `strip_raster.launches` and to
+    `strip_raster.by_mode[mode_name(...)]`.
     """
     b, k = _check_tables(tables, image_size, "strip_raster")
     tab = tables.tab
@@ -564,63 +662,85 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
     hc, wc = tables.hc, tables.wc
     aa = hc // h
     ds = _table_ds(tables, image_size, downsample)
+    lanczos = ds == DS_LANCZOS
+    cp = lanczos_tiles(wc, w).pitch if lanczos else wc
     multiple = aa if ds == DS_BOX else 1
-    rows = (default_strip_rows(hc, wc, multiple) if strip_rows is None
-            else int(strip_rows))
+    rows = (min(hc, default_strip_rows(hc, cp, 8 if lanczos else multiple))
+            if strip_rows is None else int(strip_rows))
     if not 1 <= rows <= hc or rows % multiple:
         raise ValueError(f"strip_rows must lie in [1, {hc}] and be a "
                          f"multiple of {multiple}; got {rows}")
     budget = torch.cuda.get_device_properties(
         tab.device).shared_memory_per_block_optin
-    if strip_smem_bytes(k, rows, wc) > budget:
+    need = strip_smem_bytes(k, rows, wc, w if lanczos else None)
+    if need > budget:
         raise ValueError(
-            f"a strip of {rows} rows of {wc} pixels needs "
-            f"{strip_smem_bytes(k, rows, wc)} bytes of shared memory; the "
-            f"card gives a block {budget}")
-    out_rows = hc if ds == DS_LANCZOS else h
-    out = torch.empty((b, out_rows, w, 3), dtype=torch.uint8,
-                      device=tab.device)
+            f"a strip of {rows} rows of {wc} pixels needs {need} bytes of "
+            f"shared memory; the card gives a block {budget}")
+    if lanczos:
+        buf, out = hpass_buffer(b, hc, h, w, tab.device)
+        _, hfr, hks, hqs = lanczos_tiles_on(wc, w, tab.device)
+        hp = hpass_geometry(hc, h, w)[1]
+        hsteps = lanczos_tiles(wc, w).ksteps
+    else:
+        buf = out = torch.empty((b, h, w, 3), dtype=torch.uint8,
+                                device=tab.device)
+        hfr = hks = hqs = None
+        hp = hsteps = 0
     if b == 0:
         return out
-    if ds == DS_LANCZOS:
-        hx0, hqt = lanczos_taps_t(wc, w, tab.device)
-        ht = hqt.shape[0]
-    else:
-        hx0 = hqt = None
-        ht = 0
     lib, launch, _ = _strip_launchers()
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(_ptr(tab), b, k, tables.num_vertices, tab.shape[-1], hc,
-                     wc, h, w, int(not tables.pil_exact), ds, rows,
-                     _ptr(hx0), _ptr(hqt), ht, _bg_packed(bg_color),
-                     _ptr(out), stream)
+                     wc, h, w, int(not tables.pil_exact), ds, rows, cp,
+                     _ptr(hfr), _ptr(hks), _ptr(hqs), hsteps, hp,
+                     _bg_packed(bg_color), _ptr(buf), stream)
     _check_launch(lib, err, "strip_raster")
     _count_launch(strip_raster, mode_name(tables.pil_exact, ds))
     return out
 
 
+def hpass_buffer(b: int, hc: int, h: int, w: int, device):
+    """(buffer, view) of the strip kernels' h-pass: the buffer is
+    u8[B, 3, wp, hp], channel-planar and transposed (output column x's
+    canvas rows at bytes 0..hc-1 of row x; `hpass_geometry`), so that the
+    v-pass's tensor-core fragments read consecutive canvas rows as words;
+    the view is u8[B, hc, w, 3] in Pillow's row order over it."""
+    wp, hp = hpass_geometry(hc, h, w)
+    buf = torch.empty((b, 3, wp, hp), dtype=torch.uint8, device=device)
+    return buf, buf[:, :, :w, :hc].permute(0, 3, 2, 1)
+
+
 def strip_vpass(hpass: torch.Tensor, h: int) -> torch.Tensor:
     """Launch the vertical Lanczos pass: u8[B, hc, W, 3] (Pillow's row
-    order) -> u8[B, h, W, 3] flipped to math orientation. Each launch adds
-    one to `strip_vpass.launches`."""
+    order) -> u8[B, h, W, 3] flipped to math orientation. `hpass` must be
+    the view of `hpass_buffer` (as `strip_raster` returns it); the kernel
+    reads it in place. Each launch adds one to `strip_vpass.launches`."""
     if not hpass.is_cuda:
         raise ValueError("strip_vpass needs a CUDA tensor; CPU tensors use "
                          "vpass_plain")
     if hpass.dtype != torch.uint8 or hpass.dim() != 4 \
-            or hpass.shape[-1] != 3 or not hpass.is_contiguous():
+            or hpass.shape[-1] != 3:
         raise ValueError(f"bad h-pass buffer {tuple(hpass.shape)} "
                          f"{hpass.dtype}")
     b, hc, w, _ = hpass.shape
+    wp, hp = hpass_geometry(hc, h, w)
+    if (hpass.stride() != (3 * wp * hp, 1, hp, wp * hp)
+            or hpass.storage_offset() != 0
+            or hpass.untyped_storage().nbytes() < b * 3 * wp * hp):
+        raise ValueError("strip_vpass reads the view of hpass_buffer that "
+                         "strip_raster returns; copy another h-pass into "
+                         "such a view first")
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=hpass.device)
     if b == 0:
         return out
-    vy0, vq = lanczos_taps(hc, h, hpass.device)
+    _, vfr, vks, _ = lanczos_tiles_on(hc, h, hpass.device)
     lib, _, launch = _strip_launchers()
     with torch.cuda.device(hpass.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(_ptr(hpass), b, hc, w, h, _ptr(vy0), _ptr(vq),
-                     vq.shape[1], _ptr(out), stream)
+        err = launch(_ptr(hpass), b, hp, w, h, _ptr(vfr), _ptr(vks),
+                     lanczos_tiles(hc, h).ksteps, _ptr(out), stream)
     _check_launch(lib, err, "strip_vpass")
     _count_launch(strip_vpass, "lanczos")
     return out
@@ -780,13 +900,15 @@ def _plain_fill_centroid(tables: SceneTables, k: int) -> torch.Tensor:
     return (crossings & 1) == 1
 
 
-def _plain_fill_exact(tables: SceneTables, k: int) -> torch.Tensor:
-    """bool[B, hc, wc]: Pillow's exact fill from the exact tables."""
-    hc, wc = tables.hc, tables.wc
+def exact_crossings(tables: SceneTables, k: int):
+    """(xi f32[B, hc, V], weight i32[B, hc, V]): sprite k's crossing of each
+    canvas row by each edge and its Pillow weight after the odd-total trim
+    (0 where the edge does not cross the row), from the exact tables."""
     tab = tables.tab[:, k]  # [B, NT]
     dev = tab.device
     v = tables.num_vertices
-    rows = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None]
+    rows = torch.arange(tables.hc, dtype=torch.float32,
+                        device=dev)[None, :, None]
     y0, m, x0, ymn, ymx = _edge_fields(tables, k)
     gymax = tab[:, None, None, T_GYMAX]
     prod = (rows - y0) * m
@@ -801,7 +923,17 @@ def _plain_fill_exact(tables: SceneTables, k: int) -> torch.Tensor:
     ismax = (wgt > 0) & (xi == rmax)
     vidx = torch.arange(v, device=dev)
     fidx = torch.where(ismax, vidx, v).amin(-1, keepdim=True)
-    wgt = wgt - (odd & ismax & (vidx == fidx)).to(torch.int32)
+    return xi, wgt - (odd & ismax & (vidx == fidx)).to(torch.int32)
+
+
+def _plain_fill_exact(tables: SceneTables, k: int) -> torch.Tensor:
+    """bool[B, hc, wc]: Pillow's exact fill from the exact tables."""
+    hc, wc = tables.hc, tables.wc
+    tab = tables.tab[:, k]  # [B, NT]
+    dev = tab.device
+    v = tables.num_vertices
+    rows = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None]
+    xi, wgt = exact_crossings(tables, k)
 
     # Column c counts an edge in `le` when xi <= c - 0.5 and in its window
     # when c - 0.5 < xi < c + 0.5. xi + 0.5 is exact in float64, so the

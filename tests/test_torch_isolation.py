@@ -11,7 +11,7 @@ import pytest
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 _PORT_FILES = sorted(
     [*(_ROOT / "spriteworld_torch").rglob("*.py"), _ROOT / "chip_smoke.py",
-     _ROOT / "bench_torch.py"])
+     _ROOT / "bench_torch.py", _ROOT / "ablate_kernels.py"])
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(
     spriteworld_torch.__path__, "spriteworld_torch.")]
 for name in names:
     importlib.import_module(name)
-import bench_torch, chip_smoke
+import ablate_kernels, bench_torch, chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "spriteworld_tpu")))

@@ -133,7 +133,7 @@ def test_dispatch_picks_strips_exactly_when_the_scene_layout_overflows():
 @pytest.mark.parametrize("size,aa,k,fits", [
     (64, 5, 6, True),  # the image64 main path
     (64, 1, 6, True),
-    (64, 6, 6, False),
+    (64, 6, 6, True),  # the Lanczos canvas is held in bands of rows
     (128, 5, 4, False),
     (256, 10, 4, False),  # the demo
     (1024, 1, 8, False),
