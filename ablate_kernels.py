@@ -1,19 +1,24 @@
-"""Times the two Lanczos kernels with one of their fast paths taken out.
+"""Times the raster kernels with one of their fast paths, or one phase,
+taken out.
 
 Each variant is a copy of spriteworld_torch whose CUDA sources differ from
-the tree's by one textual edit (VARIANTS). Every copy builds its kernels
-anew and, in its own process, checks scene_raster and the strip kernels
-against the plain version at the two paths' inputs and times them:
-chip_smoke.time_split on the paths' scenes (image64/AA=5, B=2048 and
-demo256, B=256, each in exact+lanczos, exact+box and centroid+box) and
-exact+lanczos on seeded 8-sprite batches (K + 1 = 9 slots; the paths have
-K + 1 <= 8). The runs go base, the variants, the variants in reverse, base,
-so that drift across the call shows. The base run also prints the share of
-h-pass units (16 outputs by 8 canvas rows) whose window holds one slot
-throughout, on each path's scenes.
+the tree's by textual edits. VARIANTS take one fast path out each, so their
+output stays bit-exact: every such copy builds its kernels anew and, in its
+own process, checks scene_raster and the strip kernels against the plain
+version on the two paths' scenes (image64/AA=5, B=2048 and demo256, B=256,
+in exact+lanczos and centroid+box) and on seeded 8-sprite batches (K + 1 =
+9 slots; the paths have K + 1 <= 8), then times them: chip_smoke.time_split
+on the paths' scenes (exact+lanczos, exact+box and centroid+box) and
+exact+lanczos on the 8-sprite batches. SPLIT cuts one phase of the
+fill-only (identity and box) instantiations out of both kernels, so its
+copies are timed on the paths' scenes and not checked. The runs go base,
+the variants, the variants in reverse, base, so that drift across the call
+shows. The base run also prints, on each path's scenes, the share of
+h-pass units (16 outputs by 8 canvas rows) whose window holds one slot and
+the share of box blocks (aa x aa canvas pixels) that do.
 
-Usage: python3 ablate_kernels.py [--out PATH]
-(default spriteworld_torch/build/ablation.json)
+Usage: python3 ablate_kernels.py [--out PATH] [--only NAME,NAME...]
+(default spriteworld_torch/build/ablation.json, every variant)
 (needs one CUDA card)
 """
 
@@ -27,18 +32,148 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# (name, file under csrc, text, replacement, occurrences)
+_GROUPS = """\
+    for (int y = warp; y < h; y += kWarps) {
+      uint8_t* group = canvas + size_t(aa == 1 ? y : warp * aa) * cp;
+      const unsigned on =
+          sprites_on_rows(s_tab, K, NT, y * aa, y * aa + aa - 1, lane);
+      if (on != 0u) {  // else the row is background: no canvas is read
+        zero(group, size_t(aa) * cp, lane, 32);
+        __syncwarp();
+        fill_rows(s_tab, K, V, NT, y * aa, aa, wc, centroid, group, cp, wx,
+                  ww, 0, 1, lane);
+        __syncwarp();
+      }
+      uint8_t* orow = img + size_t(h - 1 - y) * w * 3;
+"""
+_BANDS = """\
+    for (int row0 = 0; row0 < hc; row0 += kWarps * aa) {
+      const int rows = min(kWarps * aa, hc - row0);
+      zero(canvas, size_t(rows) * cp, tid, kThreads);
+      __syncthreads();
+      fill_rows(s_tab, K, V, NT, row0, rows, wc, centroid, canvas, cp, wx,
+                ww, warp, kWarps, lane);
+      __syncthreads();
+      for (int y = row0 / aa + warp; y < (row0 + rows) / aa; y += kWarps) {
+      const uint8_t* group = canvas + size_t(y * aa - row0) * cp;
+      const unsigned on =
+          sprites_on_rows(s_tab, K, NT, y * aa, y * aa + aa - 1, lane);
+      uint8_t* orow = img + size_t(h - 1 - y) * w * 3;
+"""
+
+
+# Fast paths: (name, [(file under csrc, text, replacement, occurrences)]).
+# Each variant takes one fast path out; its output stays bit-exact, and
+# the run checks it against the plain version.
 VARIANTS = [
-    ("route16", "lanczos_mma.cuh",
-     "return K + 1 <= 8 ? kRoute8 : (K + 1 <= 16 ? kRoute16 : kRouteTable);",
-     "return K + 1 <= 16 ? kRoute16 : kRouteTable;", 1),
-    ("table_route", "lanczos_mma.cuh",
-     "return K + 1 <= 8 ? kRoute8 : (K + 1 <= 16 ? kRoute16 : kRouteTable);",
-     "return kRouteTable;", 1),
-    ("shared_crossings", "raster_fill.cuh", "if (n <= kRegCrossings) {",
-     "if (false) {", 2),
-    ("no_uniform_skip", "lanczos_mma.cuh", "if (__all_sync(kFull, same)) {",
-     "if (false && __all_sync(kFull, same)) {", 1),
+    ("route16", [("lanczos_mma.cuh",
+      "return K + 1 <= 8 ? kRoute8 : (K + 1 <= 16 ? kRoute16 : kRouteTable);",
+      "return K + 1 <= 16 ? kRoute16 : kRouteTable;", 1)]),
+    ("table_route", [("lanczos_mma.cuh",
+      "return K + 1 <= 8 ? kRoute8 : (K + 1 <= 16 ? kRoute16 : kRouteTable);",
+      "return kRouteTable;", 1)]),
+    ("shared_crossings", [("raster_fill.cuh", "if (n <= kRegCrossings) {",
+                           "if (false) {", 2)]),
+    ("no_uniform_skip", [("lanczos_mma.cuh", "if (__all_sync(kFull, same)) {",
+                          "if (false && __all_sync(kFull, same)) {", 1)]),
+    # The box filter sums every block, one-slot blocks too.
+    ("no_one_slot_box", [
+        ("raster_fill.cuh", "rest = __ballot_sync(kFull, diff != 0u);",
+         "rest = __ballot_sync(kFull, active);", 1),
+        ("raster_fill.cuh", "if (diff == 0u) {", "if (false) {", 1)]),
+    # Every output reads the canvas, every row is zeroed and filled, also
+    # where no sprite's bounds reach.
+    ("no_bounds_skip", [
+        ("raster_fill.cuh", "  if (on == kFull) return true;",
+         "  if (true) return true;", 1),
+        ("scene_raster.cu", "if (on != 0u) {", "if (true) {", 1),
+        ("strip_raster.cu", "if (kLanczos || on != 0u)", "if (true)", 1)]),
+    # The scene kernel's box mode in bands of 16 output rows, zeroed,
+    # filled and filtered by the whole block between barriers, not each
+    # warp rendering its own output rows.
+    ("block_bands", [
+        ("scene_raster.cu", _GROUPS, _BANDS, 1),
+        ("scene_raster.cu",
+         "      __syncwarp();  // the group read before it is zeroed again\n"
+         "    }\n",
+         "      }\n      __syncthreads();  // the band read before it is "
+         "zeroed again\n    }\n", 1)]),
+    # The strip kernel's box mode without its 64-register cap (three
+    # blocks an SM instead of four).
+    ("strip_three_blocks", [
+        ("strip_raster.cu", "__launch_bounds__(kThreads, kLanczos ? 3 : 4)",
+         "__launch_bounds__(kThreads, kLanczos ? 3 : 1)", 1)]),
+    # The scene kernel's box mode held to 64 registers (two blocks an SM,
+    # no spill) instead of 40 (three blocks).
+    ("scene_two_blocks", [("scene_raster.cu", "kLanczos ? 1 : 3)",
+                           "kLanczos ? 1 : 2)", 1)]),
+    # The box's mixed blocks: the byte-permute route for K + 1 <= 8 in the
+    # scene kernel, the shared table for every K in the strip kernel (the
+    # other way round from the tree).
+    ("scene_box_route8", [
+        ("scene_raster.cu",
+         "      group_row<kRouteTable>(group, cp, aa, ds, w, s_tab, NT, on, "
+         "s_ctab,\n                             chan, kc, orow, lane);",
+         "      if (K + 1 <= 8)\n"
+         "        group_row<kRoute8>(group, cp, aa, ds, w, s_tab, NT, on, "
+         "s_ctab, chan, kc, orow, lane);\n"
+         "      else\n"
+         "        group_row<kRouteTable>(group, cp, aa, ds, w, s_tab, NT, on, "
+         "s_ctab, chan, kc, orow, lane);", 1)]),
+    ("strip_box_table", [
+        ("strip_raster.cu", "    if (K + 1 <= 8)\n      strip_output<kRoute8>",
+         "    if (false)\n      strip_output<kRoute8>", 1)]),
+]
+
+# The phase split of the fill-only (identity and box) instantiations of the
+# two kernels: each variant cuts one phase out, or runs it twice, so its
+# output differs and the run times it without a check. Base minus variant
+# (variant minus base for zero_twice) is that phase's time, as far as the
+# phases do not overlap. (Zeroing cannot be cut alone: the box's one-slot
+# test reads the zeroes.)
+_CUT_ZERO = [
+    ("scene_raster.cu", "zero(group, size_t(aa) * cp, lane, 32);", "", 1),
+    ("strip_raster.cu", "if (kLanczos || on != 0u)", "if (kLanczos)", 1)]
+_CUT_FILL = [
+    ("scene_raster.cu",
+     "fill_rows(s_tab, K, V, NT, y * aa, aa, wc, centroid, group, cp, wx,",
+     "if (false) fill_rows(s_tab, K, V, NT, y * aa, aa, wc, centroid, "
+     "group, cp, wx,", 1),
+    ("strip_raster.cu", "for (int k = 0; k < K; ++k) {",
+     "for (int k = 0; k < (kLanczos ? K : 0); ++k) {", 1)]
+_CUT_OUTPUT = [
+    ("scene_raster.cu", "for (int x0 = 0; x0 < w; x0 += 32) {",
+     "for (int x0 = 0; x0 < 0; x0 += 32) {", 1),
+    ("strip_raster.cu",
+     "for (int u = warp; u < (rows / aa) * xt; u += kWarps) {",
+     "for (int u = warp; u < 0; u += kWarps) {", 1)]
+SPLIT = [
+    # The canvas is first set to ones: a second zeroing's worth of stores.
+    ("zero_twice", [
+        ("scene_raster.cu", "zero(group, size_t(aa) * cp, lane, 32);",
+         "for (int i = lane; i < aa * cp / 16; i += 32)\n"
+         "          reinterpret_cast<uint4*>(group)[i] = "
+         "make_uint4(kFull, kFull, kFull, kFull);\n"
+         "        zero(group, size_t(aa) * cp, lane, 32);", 1),
+        ("strip_raster.cu",
+         "    for (int i = tid; i < zero_rows * cp / 16; i += kThreads)\n"
+         "      canvas16[i] = make_uint4(0u, 0u, 0u, 0u);",
+         "    for (int i = tid; i < zero_rows * cp / 16; i += kThreads)\n"
+         "      canvas16[i] = make_uint4(kFull, kFull, kFull, kFull);\n"
+         "  if (kLanczos || on != 0u)\n"
+         "    for (int i = tid; i < zero_rows * cp / 16; i += kThreads)\n"
+         "      canvas16[i] = make_uint4(0u, 0u, 0u, 0u);", 1)]),
+    ("cut_fill", _CUT_FILL),
+    # Each output reads one canvas byte instead of its block.
+    ("one_sample_box", [
+        ("raster_fill.cuh",
+         "box_words<kRoute>(canvas, cp, aa, by, x * aa, met, ctab, regs, "
+         "chan, kc,\n                      o, lane);",
+         "{ if (met) slot_pixel(ctab[canvas[size_t(by) * cp + x * aa]], o); }",
+         1)]),
+    ("cut_output", _CUT_OUTPUT),
+    # Setup alone: zeroing, fill and output cut.
+    ("setup_only", _CUT_ZERO + _CUT_FILL + _CUT_OUTPUT),
 ]
 
 
@@ -59,8 +194,10 @@ def make_copy(work, name, edits):
     return dest
 
 
-def child(share):
-    """One variant's run, in the copy's directory: prints one JSON line."""
+def child(share, checked):
+    """One variant's run, in the copy's directory: prints one JSON line.
+    A `checked` variant's renders on the paths (and on 8-sprite batches)
+    must equal the plain version's."""
     import torch
 
     import bench_torch
@@ -77,17 +214,28 @@ def child(share):
     out = {}
     for label, state, size, aa, run in (
             ("scene_raster", scene_state, (64, 64), 5,
-             lambda t: rc.scene_raster(t, (64, 64))),
+             lambda t, ds: rc.scene_raster(t, (64, 64), None, ds)),
             ("strip_raster+strip_vpass", demo_state, (256, 256), 10,
-             lambda t: rc.render_strips(t, (256, 256)))):
-        t = rc.prepare(state.factors, state.num_sprites, size[0] * aa,
-                       size[1] * aa, colors.hsv_to_rgb)
-        _, count = cs.compare(run(t), rc.render_rgb_batch_plain(t, size))
-        cs.check(count == 0, f"{label} differs from plain on its path")
-        if share:
-            u, n = cs.uniform_units(torch, t, size[1])
-            out[f"{label} one-slot units"] = [u, n, u / n]
+             lambda t, ds: rc.render_strips(t, (256, 256), None, None, ds))):
+        for pil_exact, ds in ((True, "lanczos"), (False, "box")):
+            t = rc.prepare(state.factors, state.num_sprites, size[0] * aa,
+                           size[1] * aa, colors.hsv_to_rgb, pil_exact)
+            if checked:
+                _, count = cs.compare(run(t, ds),
+                                      rc.render_rgb_batch_plain(t, size,
+                                                                None, ds))
+                cs.check(count == 0, f"{label} differs from plain on its "
+                                     f"path ({ds})")
+            if share and ds == "lanczos":
+                u, n = cs.uniform_units(torch, t, size[1])
+                out[f"{label} one-slot units"] = [u, n, u / n]
+            if share and ds == "box":
+                _, u, n = cs.word_box_ops(torch, t, aa, aa)
+                out[f"{label} one-slot box blocks"] = [u, n, u / n]
     out.update(cs.time_split(torch, rc, colors, scene_state, demo_state))
+    if not checked:
+        print(json.dumps(out))
+        return
     for label, seed, b, size, aa, reps, run in (
             ("scene_raster, 8 sprites", 71, 2048, (64, 64), 5, 20,
              lambda t: rc.scene_raster(t, (64, 64))),
@@ -107,15 +255,22 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=str(ROOT / "spriteworld_torch" / "build"
                                         / "ablation.json"))
+    p.add_argument("--only", default=None,
+                   help="comma-separated variant names (default: all of "
+                        "VARIANTS and SPLIT)")
     args = p.parse_args()
     import bench_torch
 
     card = bench_torch.card_name_and_power_limit()
     print(card)
+    chosen = dict(VARIANTS + SPLIT)
+    if args.only:
+        chosen = {n: chosen[n] for n in args.only.split(",")}
     work = ROOT / "spriteworld_torch" / "build" / "ablate"
     copies = {"base": make_copy(work, "base", [])}
-    for name, *edit in VARIANTS:
-        copies[name] = make_copy(work, name, [edit])
+    for name, edits in chosen.items():
+        copies[name] = make_copy(work, name, edits)
+    checked = {"base"} | {n for n, _ in VARIANTS}
     names = list(copies)
     order = names + names[::-1]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -123,7 +278,7 @@ def main():
     runs = []
     for i, name in enumerate(order):
         code = (f"import ablate_kernels; "
-                f"ablate_kernels.child({i == 0})")
+                f"ablate_kernels.child({i == 0}, {name in checked})")
         proc = subprocess.run([sys.executable, "-c", code], cwd=copies[name],
                               env=env, capture_output=True, text=True)
         if proc.returncode != 0:

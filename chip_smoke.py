@@ -59,8 +59,11 @@ Phases:
      float32 rate; `bound_tc_ms`, the work as the kernels do it: the
      compacted fill at the float32 rate, the Lanczos multiply-adds of the
      h-pass units that hold more than one slot and of the v-pass at the
-     int8 tensor-core rate), as one JSON `kernels` line, and the scene
-     kernel's time at image64/AA=1 beside packed_raster's;
+     int8 tensor-core rate; for the centroid+box entries the compacted
+     centroid fill and the box by words as those kernels do them, with
+     their share of one-slot box blocks and resident blocks an SM), as one
+     JSON `kernels` line, and the
+     scene kernel's time at image64/AA=1 beside packed_raster's;
   8. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
@@ -196,10 +199,11 @@ def check_layouts(rasterize_cuda):
         for ds in ((rc.DS_IDENTITY,) if aa == 1
                    else (rc.DS_LANCZOS, rc.DS_BOX)):
             lanczos = ds == rc.DS_LANCZOS
-            cp = rc.lanczos_tiles(wc, w).pitch if lanczos else wc
+            cp = (rc.lanczos_tiles(wc, w).pitch if lanczos
+                  else rc._round16(wc))
             wp, hp = rc.hpass_geometry(hc, h, w) if lanczos else (0, 0)
             want = scene_lib.scene_raster_smem_bytes(
-                k, rc.table_width(v), hc, cp, wp, hp)
+                k, rc.table_width(v), hc, aa, cp, wp, hp)
             got = rc.scene_smem_bytes(k, v, hc, wc, h, w, ds)
             check(got == want, f"scene layout mirror {got} != {want} at "
                                f"{h}x{w}/AA={aa}, mode {ds}")
@@ -211,8 +215,7 @@ def check_layouts(rasterize_cuda):
             rows = min(hc, rc.default_strip_rows(
                 hc, cp, 8 if lanczos else (aa if ds == rc.DS_BOX else 1)))
             want = strip_lib.strip_raster_smem_bytes(
-                k, (rows + 7) // 8 * 8 if lanczos else rows, cp,
-                int(lanczos))
+                k, (rows + 7) // 8 * 8 if lanczos else rows, cp)
             got = rc.strip_smem_bytes(k, rows, wc, w if lanczos else None)
             check(got == want, f"strip layout mirror {got} != {want}")
             if (h, w, aa) == (256, 256, 10):
@@ -712,6 +715,20 @@ def uniform_units(torch, tables, w):
     return uniform, total
 
 
+def slot_canvas(torch, tables):
+    """Yields u8[b, hc, wc] slot canvases (0 = background, k + 1 = sprite k
+    on top) of `tables`, a chunk of scenes at a time."""
+    from spriteworld_torch.ops import rasterize_cuda as s
+
+    for _, sub in s._plain_chunks(tables, s._PLAIN_PIXELS):
+        b, k, _ = sub.tab.shape
+        slots = torch.zeros((b, sub.hc, sub.wc), dtype=torch.uint8,
+                            device=sub.tab.device)
+        for i in range(k):
+            slots = torch.where(s._plain_fill(sub, i), i + 1, slots)
+        yield slots
+
+
 def lanczos_ops(resample, in_size, out_size, scenes, lines):
     """A multiply and an add per tap and channel of each output of one
     Lanczos pass over `lines` lines of `scenes` scenes."""
@@ -891,17 +908,66 @@ def centroid_ops(torch, tables):
     return total
 
 
+def word_box_ops(torch, tables, aa, unit_rows):
+    """The box filter's work as the kernels now do it, on centroid or exact
+    tables at anti_aliasing `aa`: (operations, one-slot blocks, blocks).
+    Per output whose columns meet the column bounds of a sprite on its rows
+    (`unit_rows` canvas rows from a multiple of it: the scene kernel's
+    aa-row groups, the strip kernel's strips; every output when K > 32),
+    2 per 32-bit word of its block (the XOR with its first slot and the
+    mask); per block of more than one slot, 6 more a word (a byte permute
+    and a __dp4a for each channel). The other outputs are background and
+    read nothing."""
+    from spriteworld_torch.ops import rasterize_cuda as s
+
+    box = 0.0
+    uniform = total = 0
+    chunks = zip(s._plain_chunks(tables, s._PLAIN_PIXELS),
+                 slot_canvas(torch, tables))
+    for (_, sub), slots in chunks:
+        tab = sub.tab
+        b, k, _ = tab.shape
+        hc, wc = sub.hc, sub.wc
+        dev = tab.device
+        live = tab[..., s.T_COUNT] > 0  # [b, K]
+        pitch = s._round16(wc)
+        canvas = torch.zeros((b, hc, pitch), dtype=torch.uint8, device=dev)
+        canvas[..., :wc] = slots
+        colors = torch.cat([torch.zeros((b, 1), device=dev),
+                            tab[..., s.T_COLOR]], -1).to(torch.int64)
+        h, w = hc // aa, wc // aa
+        _, one_slot = s.box_words(canvas, colors, aa, w)
+        x = torch.arange(w, device=dev)
+        nw = (((x * aa) & 3) + aa + 3) >> 2  # [w]
+        y = torch.arange(h, device=dev)
+        lo = (y * aa) // unit_rows * unit_rows
+        hi = (lo + unit_rows).clamp(max=hc) - 1
+        on = (live[:, None] & (tab[:, None, :, s.T_ROW0] <= hi[None, :, None])
+              & (tab[:, None, :, s.T_ROW1] >= lo[None, :, None]))  # [b,h,K]
+        cols = ((tab[..., s.T_COL0, None] <= (x * aa + aa - 1))
+                & (tab[..., s.T_COL1, None] >= x * aa))  # [b, K, w]
+        met = (on[..., None] & cols[:, None]).any(2)  # [b, h, w]
+        if k > 32:
+            met = torch.ones_like(met)
+        box += float((met * aa * nw * 2).sum()
+                     + (met & ~one_slot).mul(aa * nw * 6).sum())
+        uniform += int(one_slot.sum())
+        total += one_slot.numel()
+    return box, uniform, total
+
+
 def time_modes(torch, rasterize_cuda, colors, workloads):
     """Phase 7, the kernels of this slice's modes at their paths' inputs:
     packed_raster at image64/AA=1 (B=2048) beside the scene kernel on the
     same tables, the scene kernel in centroid+box at image64/AA=5 (B=2048),
     the strip kernel in centroid+box at demo256 (B=256). Returns their
-    `kernels` entries."""
+    `kernels` entries; the two centroid+box ones also carry their share of
+    one-slot box blocks and their resident blocks an SM."""
     rc = rasterize_cuda
     entries = []
 
     def entry(name, replaces, source, key, state, image_size, aa, pil_exact,
-              run, reps, plain_reps, extra_ops):
+              run, reps, plain_reps, extra_ops, fast=None):
         h, w = image_size
         tables = rc.prepare(state.factors, state.num_sprites, h * aa, w * aa,
                             colors.hsv_to_rgb, pil_exact)
@@ -916,20 +982,34 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
         plain_ms = event_ms(
             torch, lambda: rc.render_rgb_batch_plain(tables, image_size),
             plain_reps)
-        # The centroid count is already the compacted fill's.
         if pil_exact:
             f_ops = fill_ops(tables)
-            f_ops_tc = compacted_fill_ops(torch, tables)
         else:
-            f_ops = f_ops_tc = centroid_ops(torch, tables)
+            f_ops = centroid_ops(torch, tables)
         in_bytes = tables.tab.numel() * 4
         bound_ms, bound_by = bound(in_bytes, got.numel(),
                                    f_ops + extra_ops(b))
-        tc_ms, tc_by = bound(in_bytes, got.numel(), f_ops_tc + extra_ops(b))
-        print(f"{name} bound: {in_bytes + got.numel()} bytes, "
-              f"{f_ops:.0f} fill ({f_ops_tc:.0f} compacted) + "
-              f"{extra_ops(b)} downsample operations -> {bound_ms:.6f} ms "
-              f"({bound_by}), {tc_ms:.6f} ms ({tc_by}) compacted")
+        extra = {}
+        if fast is None:  # the compacted exact fill, no downsample
+            tc_ops = compacted_fill_ops(torch, tables)
+            print(f"{name} bound: {in_bytes + got.numel()} bytes, "
+                  f"{f_ops:.0f} fill ({tc_ops:.0f} compacted) operations")
+        else:  # the compacted fill and the word box, as the kernels do them
+            unit_rows, blocks_of = fast
+            blocks_per_sm = blocks_of(tables)
+            box_w, one_slot, blocks = word_box_ops(torch, tables, aa,
+                                                   unit_rows)
+            tc_ops = f_ops + box_w  # the centroid count is the compacted one
+            extra = {"one_slot_blocks": [one_slot, blocks, one_slot / blocks],
+                     "blocks_per_sm": blocks_per_sm}
+            print(f"{name} bound: {in_bytes + got.numel()} bytes, "
+                  f"{f_ops:.0f} fill + {extra_ops(b)} box operations at "
+                  f"every pixel, {box_w:.0f} as the word box does them "
+                  f"({one_slot} of {blocks} box blocks one slot); "
+                  f"{blocks_per_sm} resident blocks an SM")
+        tc_ms, tc_by = bound(in_bytes, got.numel(), tc_ops)
+        print(f"{name} bounds: {bound_ms:.6f} ms ({bound_by}), "
+              f"{tc_ms:.6f} ms ({tc_by}) as the kernel does the work")
         label, kernel, mode = key
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -937,10 +1017,10 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
             "launches": workloads[label][2][kernel].get(mode, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # No Lanczos pass: only the compacted fill changes the count.
+            # No Lanczos pass: the fill and box counts change.
             "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
             # No single PyTorch call fills and filters a scene.
-            "library_ms": None,
+            "library_ms": None, **extra,
         })
         return tables
 
@@ -954,20 +1034,36 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
     scene_ms = event_ms(torch, lambda: rc.scene_raster(tables, (64, 64)), 50)
     print(f"scene_raster at image64/AA=1 on the same tables, B={BATCH}: "
           f"{scene_ms:.4f} ms (packed_raster {entries[-1]['ms']:.4f} ms)")
+    scene_lib = rc._scene_launcher()[0]
+    strip_lib = rc._strip_launchers()[0]
+
+    def scene_blocks(t):
+        return scene_lib.scene_raster_blocks_per_sm(
+            rc.scene_smem_bytes(t.tab.shape[1], t.num_vertices, t.hc, t.wc,
+                                64, 64, rc.DS_BOX), 0)
+
     entry("scene_raster[centroid+box]",
           "spriteworld_tpu/ops/rasterize_pallas.py:312",
           "spriteworld_torch/csrc/scene_raster.cu",
           ("image64 AA=5 fast", "scene_raster", "centroid+box"),
           workloads["image64 AA=5 fast"][1], (64, 64), 5, False,
           lambda t: rc.scene_raster(t, (64, 64)), 20, 2,
-          lambda b: b * 64 * 64 * 3 * 25)
+          lambda b: b * 64 * 64 * 3 * 25, fast=(5, scene_blocks))
+    hc = DEMO_SIZE * DEMO_AA
+    rows = rc.default_strip_rows(hc, rc._round16(hc), DEMO_AA)
+
+    def strip_blocks(t):
+        return strip_lib.strip_raster_blocks_per_sm(
+            rc.strip_smem_bytes(t.tab.shape[1], rows, t.wc), 0)
+
     entry("strip_raster[centroid+box]",
           "spriteworld_tpu/ops/rasterize_pallas.py:761",
           "spriteworld_torch/csrc/strip_raster.cu",
           ("demo256 fast", "strip_raster", "centroid+box"),
           workloads["demo256 fast"][1], (DEMO_SIZE, DEMO_SIZE), DEMO_AA,
           False, lambda t: rc.strip_raster(t, (DEMO_SIZE, DEMO_SIZE)), 10, 1,
-          lambda b: b * DEMO_SIZE * DEMO_SIZE * 3 * DEMO_AA * DEMO_AA)
+          lambda b: b * DEMO_SIZE * DEMO_SIZE * 3 * DEMO_AA * DEMO_AA,
+          fast=(rows, strip_blocks))
     return entries
 
 

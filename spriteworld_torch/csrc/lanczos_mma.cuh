@@ -26,13 +26,12 @@
 //   for consecutive y. The result goes to the flipped u8[h][w][3] image.
 //
 // Slot resolution. The canvas holds slot bytes (0 = background, k + 1 =
-// sprite k); each channel's colour table is `chan[ch * kc + slot]`. With K +
-// 1 <= 8 slots one channel's table sits in two registers and one byte
-// permute maps four slots at once (kRoute8); with K + 1 <= 16, two permutes
-// and a byte blend (kRoute16); above that, one shared-memory load per byte
-// (kRouteTable). The scene kernel picks by K (`route_of`); the strip
-// kernel, held to 80 registers, takes the table route for every K, which
-// ran faster there than the register routes.
+// sprite k), which `resolve` (raster_fill.cuh) turns into one colour
+// channel four at a time: with K + 1 <= 8 slots by one byte permute
+// (kRoute8), with K + 1 <= 16 by two and a byte blend (kRoute16), above that
+// by one shared-memory load per byte (kRouteTable). The scene kernel picks
+// by K (`route_of`); the strip kernel, held to 80 registers, takes the table
+// route for every K, which ran faster there than the register routes.
 
 #pragma once
 
@@ -42,14 +41,6 @@
 #include "raster_fill.cuh"
 
 namespace sw {
-
-enum { kRoute8 = 0, kRoute16 = 1, kRouteTable = 2 };
-
-// Bytes per channel of the colour table `chan`: K + 1 slots rounded up to
-// 16, so the two register routes read whole words.
-__host__ __device__ inline int chan_stride(int K) {
-  return (K + 1 + 15) & ~15;
-}
 
 __device__ __forceinline__ int route_of(int K) {
   return K + 1 <= 8 ? kRoute8 : (K + 1 <= 16 ? kRoute16 : kRouteTable);
@@ -86,41 +77,6 @@ __device__ __forceinline__ uint8_t combine(const int (&acc)[3][4], int i) {
                      + (static_cast<uint32_t>(acc[1][i]) << 8)
                      + (static_cast<uint32_t>(acc[2][i]) << 16);
   return clip8(static_cast<int>(s));
-}
-
-// One channel's colour table in registers: slots 0-15, four a word.
-struct ChanRegs {
-  unsigned w[3][4];
-};
-
-__device__ __forceinline__ void load_chan_regs(ChanRegs& r,
-                                               const uint8_t* chan, int kc) {
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)  // kc >= 16
-      r.w[ch][i] = reinterpret_cast<const unsigned*>(chan + ch * kc)[i];
-}
-
-// Four slot bytes `s` -> their four channel-`ch` bytes.
-template <int kRoute>
-__device__ __forceinline__ unsigned resolve(unsigned s, int ch,
-                                            const ChanRegs& r,
-                                            const uint8_t* chan, int kc) {
-  if (kRoute == kRouteTable) {
-    const uint8_t* c = chan + ch * kc;
-    return c[s & 255u] | (c[(s >> 8) & 255u] << 8)
-           | (c[(s >> 16) & 255u] << 16) | (static_cast<unsigned>(c[s >> 24])
-                                            << 24);
-  }
-  // Selector nibbles b0 | b1 << 4 | b2 << 8 | b3 << 12 of the slot bytes.
-  const unsigned t = s | (s >> 4);
-  const unsigned sel = __byte_perm(t, 0u, 0x0020u) & 0x7777u;
-  if (kRoute == kRoute8) return __byte_perm(r.w[ch][0], r.w[ch][1], sel);
-  const unsigned lo = __byte_perm(r.w[ch][0], r.w[ch][1], sel);
-  const unsigned hi = __byte_perm(r.w[ch][2], r.w[ch][3], sel);
-  const unsigned m = ((s >> 3) & 0x01010101u) * 0xffu;  // slots >= 8
-  return (lo & ~m) | (hi & m);
 }
 
 // The taps of one pass, from the host.

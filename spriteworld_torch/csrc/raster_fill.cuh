@@ -1,7 +1,9 @@
 // The two polygon fills of one sprite, shared by the scene kernel
 // (scene_raster.cu), the row-strip kernel (strip_raster.cu) and the small
-// anti_aliasing=1 kernel (packed_raster.cu), and the box filter those with
-// a downsample share.
+// anti_aliasing=1 kernel (packed_raster.cu); the slot resolution that the
+// box filter and the Lanczos passes (lanczos_mma.cuh) share; and the box
+// filter by words (`box_words`) with the sprite-bounds test that lets the
+// scene and strip kernels skip the canvas where no sprite reaches.
 //
 // Inputs are one sprite's row of the packed table of
 // spriteworld_torch/ops/rasterize_cuda.py (`prepare`): 8 scalars, 5 edge
@@ -53,6 +55,55 @@ __host__ __device__ inline size_t round16(size_t n) {
 __device__ __forceinline__ uint8_t clip8(int acc) {
   const int v = acc >> 22;  // arithmetic shift: floor division by 2^22
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// ---- Slot resolution, shared by the box filter below and the Lanczos
+// passes (lanczos_mma.cuh). Each channel's colour table is
+// `chan[ch * kc + slot]`, kc = chan_stride(K). With K + 1 <= 8 slots one
+// channel's table sits in two registers and one byte permute maps four slots
+// at once (kRoute8); with K + 1 <= 16, two permutes and a byte blend
+// (kRoute16); above that, one shared-memory load per byte (kRouteTable).
+enum { kRoute8 = 0, kRoute16 = 1, kRouteTable = 2 };
+
+// Bytes per channel of the colour table `chan`: K + 1 slots rounded up to
+// 16, so the two register routes read whole words.
+__host__ __device__ inline int chan_stride(int K) {
+  return (K + 1 + 15) & ~15;
+}
+
+// One channel's colour table in registers: slots 0-15, four a word.
+struct ChanRegs {
+  unsigned w[3][4];
+};
+
+__device__ __forceinline__ void load_chan_regs(ChanRegs& r,
+                                               const uint8_t* chan, int kc) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // kc >= 16
+      r.w[ch][i] = reinterpret_cast<const unsigned*>(chan + ch * kc)[i];
+}
+
+// Four slot bytes `s` -> their four channel-`ch` bytes.
+template <int kRoute>
+__device__ __forceinline__ unsigned resolve(unsigned s, int ch,
+                                            const ChanRegs& r,
+                                            const uint8_t* chan, int kc) {
+  if (kRoute == kRouteTable) {
+    const uint8_t* c = chan + ch * kc;
+    return c[s & 255u] | (c[(s >> 8) & 255u] << 8)
+           | (c[(s >> 16) & 255u] << 16) | (static_cast<unsigned>(c[s >> 24])
+                                            << 24);
+  }
+  // Selector nibbles b0 | b1 << 4 | b2 << 8 | b3 << 12 of the slot bytes.
+  const unsigned t = s | (s >> 4);
+  const unsigned sel = __byte_perm(t, 0u, 0x0020u) & 0x7777u;
+  if (kRoute == kRoute8) return __byte_perm(r.w[ch][0], r.w[ch][1], sel);
+  const unsigned lo = __byte_perm(r.w[ch][0], r.w[ch][1], sel);
+  const unsigned hi = __byte_perm(r.w[ch][2], r.w[ch][3], sel);
+  const unsigned m = ((s >> 3) & 0x01010101u) * 0xffu;  // slots >= 8
+  return (lo & ~m) | (hi & m);
 }
 
 // Crossings a row keeps in registers in `fill_sprite`; rows with more use
@@ -235,34 +286,167 @@ __device__ __forceinline__ void fill_sprite_centroid(
   }
 }
 
-// The box filter of one output pixel: the integer sum of each channel over
-// the aa x aa canvas block whose top-left slot is `block` (slots through the
-// colour table `ctab`), divided once, correctly rounded, by aa * aa and
-// rounded half to even; written to `o[0..2]`.
-__device__ __forceinline__ void box_pixel(const uint8_t* block, int wc,
-                                          int aa, const int* ctab,
-                                          uint8_t* o) {
-  int sr = 0, sg = 0, sb = 0;
-  for (int dy = 0; dy < aa; ++dy) {
-    const uint8_t* row = block + dy * wc;
-    for (int dx = 0; dx < aa; ++dx) {
-      const int c = ctab[row[dx]];
-      sr += c >> 16;
-      sg += (c >> 8) & 255;
-      sb += c & 255;
-    }
-  }
-  const float n = static_cast<float>(aa * aa);
-  o[0] = static_cast<uint8_t>(rintf(__fdiv_rn(static_cast<float>(sr), n)));
-  o[1] = static_cast<uint8_t>(rintf(__fdiv_rn(static_cast<float>(sg), n)));
-  o[2] = static_cast<uint8_t>(rintf(__fdiv_rn(static_cast<float>(sb), n)));
+// Bytes 0 .. n - 1 of a little-endian word (n clamped to [0, 4]): the
+// high word of 0x00000000ffffffff shifted left by 8n bits, clamped at 32.
+__device__ __forceinline__ unsigned low_bytes(int n) {
+  return __funnelshift_lc(0xffffffffu, 0u, 8 * max(n, 0));
 }
 
-// One slot's colour, unpacked to `o[0..2]` (the identity downsample).
+// Bit k: sprite k (k < 32) of the table `tab` (rows of NT floats) is live
+// and its row bounds reach canvas rows [row_lo, row_hi]. Every bit when K >
+// 32, which marks every column as met below. Every warp lane calls this.
+__device__ __forceinline__ unsigned sprites_on_rows(const float* tab, int K,
+                                                    int NT, int row_lo,
+                                                    int row_hi, int lane) {
+  if (K > 32) return kFull;
+  const float* st = tab + lane * NT;
+  return __ballot_sync(kFull, lane < K && st[T_COUNT] > 0.f
+                                  && st[T_ROW0] <= row_hi
+                                  && st[T_ROW1] >= row_lo);
+}
+
+// Whether canvas columns [a, b] meet the column bounds of a sprite of `on`
+// (sprites_on_rows). A pixel outside every sprite's bounds is background.
+__device__ __forceinline__ bool columns_meet(const float* tab, int NT,
+                                             unsigned on, int a, int b) {
+  if (on == kFull) return true;
+  for (unsigned m = on; m; m &= m - 1u) {
+    const float* st = tab + (__ffs(m) - 1) * NT;
+    if (st[T_COL0] <= b && st[T_COL1] >= a) return true;
+  }
+  return false;
+}
+
+// One slot's colour (packed r << 16 | g << 8 | b), unpacked to `o[0..2]`.
 __device__ __forceinline__ void slot_pixel(int c, uint8_t* o) {
   o[0] = static_cast<uint8_t>(c >> 16);
   o[1] = static_cast<uint8_t>((c >> 8) & 255);
   o[2] = static_cast<uint8_t>(c & 255);
+}
+
+// The columns of one output's aa x aa box block, from canvas column `bx`,
+// as 32-bit words of the row: the first word's index, the number of words
+// and the byte masks of the first and the last (both, for one word).
+struct BoxCols {
+  int word, nw;
+  unsigned first, last;
+};
+
+__device__ __forceinline__ BoxCols box_cols(int bx, int aa) {
+  const int off = bx & 3;
+  BoxCols b;
+  b.word = bx >> 2;
+  b.nw = (off + aa + 3) >> 2;
+  b.first = ~low_bytes(off);
+  b.last = low_bytes(off + aa - 4 * (b.nw - 1));
+  return b;
+}
+
+__device__ __forceinline__ unsigned box_mask(const BoxCols& b, int q) {
+  return (q == 0 ? b.first : kFull) & (q == b.nw - 1 ? b.last : kFull);
+}
+
+// The box filter of up to 32 output pixels, one a lane (those `active`):
+// each channel's integer sum over the lane's aa x aa canvas block (rows
+// from `by`, columns from `bx` of `canvas`, rows of `pitch` bytes, a
+// multiple of 4), divided once, correctly rounded, by aa * aa and rounded
+// half to even, as the plain version does; written to `o[0..2]`. Every warp
+// lane calls this. The block is read as words: each is compared with the
+// block's first slot byte replicated, masked to the block's columns. A
+// block of one slot throughout (94% of them at 64x64/AA=5, 99% at
+// 256x256/AA=10 on the paths' scenes) is that slot's colour: its sums are
+// aa * aa times the colour, which the division returns exactly. The warp
+// sums the other blocks together, one at a time: lanes take the block's
+// words (up to four a row, eight rows a pass), turn slot bytes into channel
+// bytes (`resolve`), mask them to the block's columns and add four at a
+// time with __dp4a; a warp reduction gives each channel's sum.
+template <int kRoute>
+__device__ __forceinline__ void box_words(const uint8_t* canvas, int pitch,
+                                          int aa, int by, int bx,
+                                          bool active, const int* ctab,
+                                          const ChanRegs& regs,
+                                          const uint8_t* chan, int kc,
+                                          uint8_t* o, int lane) {
+  const unsigned* words = reinterpret_cast<const unsigned*>(canvas);
+  const int pw = pitch >> 2;
+  const BoxCols cols = box_cols(bx, aa);
+  const unsigned slot = active ? canvas[size_t(by) * pitch + bx] : 0u;
+  const unsigned rep = slot * 0x01010101u;
+  unsigned diff = 0u;
+  if (active) {
+    const unsigned* p = words + size_t(by) * pw + cols.word;
+    if (cols.nw == 2) {  // every block at anti_aliasing 5
+      for (int dy = 0; dy < aa; ++dy, p += pw)
+        diff |= ((p[0] ^ rep) & cols.first) | ((p[1] ^ rep) & cols.last);
+    } else if (cols.nw == 3) {  // every block at anti_aliasing 10
+      for (int dy = 0; dy < aa; ++dy, p += pw)
+        diff |= ((p[0] ^ rep) & cols.first) | (p[1] ^ rep)
+                | ((p[2] ^ rep) & cols.last);
+    } else {
+      for (int dy = 0; dy < aa; ++dy, p += pw)
+        for (int q = 0; q < cols.nw; ++q)
+          diff |= (p[q] ^ rep) & box_mask(cols, q);
+    }
+  }
+  unsigned sum[3] = {0u, 0u, 0u};
+  for (unsigned rest = __ballot_sync(kFull, diff != 0u); rest;
+       rest &= rest - 1u) {
+    const int src = __ffs(rest) - 1;
+    const int sby = __shfl_sync(kFull, by, src);
+    const BoxCols sc = box_cols(__shfl_sync(kFull, bx, src), aa);
+    // Lane (dy, q) = (lane / 4, lane % 4) to start: 8 rows of up to 4 words
+    // a pass.
+    unsigned part[3] = {0u, 0u, 0u};
+    for (int dy = lane >> 2; dy < aa; dy += 8) {
+      const unsigned* p = words + size_t(sby + dy) * pw + sc.word;
+      for (int q = lane & 3; q < sc.nw; q += 4) {
+        const unsigned wv = p[q];
+        const unsigned m = box_mask(sc, q);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          part[ch] = __dp4a(resolve<kRoute>(wv, ch, regs, chan, kc) & m,
+                            0x01010101u, part[ch]);
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const unsigned total = __reduce_add_sync(kFull, part[ch]);
+      if (lane == src) sum[ch] = total;
+    }
+  }
+  if (!active) return;
+  if (diff == 0u) {
+    slot_pixel(ctab[slot], o);
+    return;
+  }
+  const float n = static_cast<float>(aa * aa);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    o[ch] = static_cast<uint8_t>(
+        rintf(__fdiv_rn(static_cast<float>(sum[ch]), n)));
+}
+
+// Output pixel x of an image row whose canvas rows start at row `by` of
+// `canvas`, written to `o`: background where its columns meet no sprite of
+// `on` (sprites_on_rows of those rows), else its box filter (DS_BOX) or, at
+// anti_aliasing=1, its slot's colour. Every warp lane calls this, those
+// with x >= w too: box_words holds warp collectives.
+template <int kRoute>
+__device__ __forceinline__ void output_pixel(const uint8_t* canvas, int cp,
+                                             int aa, int ds, int by, int x,
+                                             int w, const float* tab, int NT,
+                                             unsigned on, const int* ctab,
+                                             const ChanRegs& regs,
+                                             const uint8_t* chan, int kc,
+                                             uint8_t* o, int lane) {
+  const bool met =
+      x < w && columns_meet(tab, NT, on, x * aa, x * aa + aa - 1);
+  if (ds == DS_BOX)
+    box_words<kRoute>(canvas, cp, aa, by, x * aa, met, ctab, regs, chan, kc,
+                      o, lane);
+  else if (met)
+    slot_pixel(ctab[canvas[size_t(by) * cp + x]], o);
+  if (x < w && !met) slot_pixel(ctab[0], o);
 }
 
 }  // namespace sw

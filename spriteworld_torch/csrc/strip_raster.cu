@@ -25,7 +25,7 @@
 //   straight out as the flipped image instead. With the box filter the
 //   strips hold a multiple of aa rows, so every output pixel's aa x aa block
 //   lies in one strip: the kernel writes its rows of the flipped image
-//   directly (`sw::box_pixel`), and no second kernel runs.
+//   directly (`sw::box_words`), and no second kernel runs.
 // * strip_vpass_kernel: the vertical Lanczos pass over that buffer on the
 //   tensor cores, one warp per (scene, 8 output columns), writing
 //   u8[B][h][w][3] already flipped. Its support (3 * anti_aliasing canvas
@@ -39,7 +39,10 @@
 // ~2 MB a scene, written once and read by the v-pass, which is bound by
 // those bytes. With the box filter the strip kernel alone runs: aa * aa
 // adds per output channel (~20 M a scene at anti_aliasing=10) and the
-// fill, operations against ~0.2 MB of output a scene.
+// fill, operations against ~0.2 MB of output a scene; as this kernel does
+// it, a compare per 32-bit word of the blocks that meet a sprite's bounds
+// (99% of blocks hold one slot at 256x256, anti_aliasing=10), sums for the
+// rest, and the fill.
 //
 // Design.
 // * Shared memory holds only the strip's canvas (one byte per pixel: 0 =
@@ -58,8 +61,15 @@
 //   inside) and skip the products: colour times the output's tap sum.
 // * Canvas row r belongs to warp r % 8 for every sprite (fill_sprite), so
 //   the painter's order needs no block barrier between sprites.
-// * Integer sums are exact in any order, so both passes equal Pillow's and
-//   the plain version's on every value.
+// * The box filter (`sw::box_words`) reads each aa x aa block as 32-bit
+//   words: a block of one slot throughout is that slot's colour, and the
+//   warp sums the rest together, by words, with byte permutes and __dp4a.
+//   A strip no sprite's bounds reach is not zeroed and reads no canvas, nor
+//   does an output whose columns meet no sprite's bounds: both are
+//   background. That instantiation is held to 64 registers, so four of its
+//   53 KB strips share an SM.
+// * Integer sums are exact in any order, so both passes and the box filter
+//   equal Pillow's and the plain version's on every value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,18 +93,17 @@ struct Layout {
   size_t canvas, chan, bytes;
 };
 
-// `rows` x `cp` bytes of canvas (with the Lanczos filter, `lanczos`:
-// round8(strip_rows) rows at the h-pass taps' pitch, then the channel
-// tables).
-__host__ __device__ inline Layout layout(int K, int rows, int cp,
-                                         int lanczos) {
+// `rows` x `cp` bytes of canvas (with the Lanczos filter round8(strip_rows)
+// rows at the h-pass taps' pitch; otherwise strip_rows rows of wc rounded up
+// to 16), then the channel tables.
+__host__ __device__ inline Layout layout(int K, int rows, int cp) {
   Layout L;
   L.ctab = 0;
   L.xi = L.ctab + K + 1;
   L.wgt = L.xi + kWarps * 32;
   L.canvas = round16(size_t(L.wgt + kWarps * 32) * 4);
   L.chan = L.canvas + round16(size_t(rows) * cp);
-  L.bytes = L.chan + (lanczos ? round16(size_t(3) * chan_stride(K)) : 0);
+  L.bytes = L.chan + round16(size_t(3) * chan_stride(K));
   return L;
 }
 
@@ -116,18 +125,43 @@ __device__ void strip_hpass(const uint8_t* canvas, int cp, int rows,
   }
 }
 
+// This strip's output rows, `rows / aa` of them from output row
+// `out_begin`, written flipped: a warp takes 32 pixels of a row at a time
+// (`output_pixel`; `on`: sprites_on_rows of the strip's rows).
+template <int kRoute>
+__device__ __forceinline__ void strip_output(const uint8_t* canvas, int cp,
+                                             int rows, int aa, int ds,
+                                             int h, int w, int out_begin,
+                                             const float* tab, int NT,
+                                             unsigned on, const int* ctab,
+                                             const uint8_t* chan, int kc,
+                                             uint8_t* img, int warp,
+                                             int lane) {
+  ChanRegs regs;
+  if (kRoute != kRouteTable) load_chan_regs(regs, chan, kc);
+  const int xt = (w + 31) >> 5;
+  for (int u = warp; u < (rows / aa) * xt; u += kWarps) {
+    const int y = u / xt, x = 32 * (u - y * xt) + lane;
+    output_pixel<kRoute>(canvas, cp, aa, ds, y * aa, x, w, tab, NT, on, ctab,
+                         regs, chan, kc,
+                         img + (size_t(h - 1 - out_begin - y) * w + x) * 3,
+                         lane);
+  }
+}
+
 // kLanczos: the DS_LANCZOS instantiation, held to three blocks an SM (the
 // default 64 KiB canvas allows three). The others (identity, box) leave out
-// the tensor-core pass and keep the fill's small register count.
+// the tensor-core pass and are held to four (64 registers), which the box
+// strip's 53 KB of shared memory allows.
 template <bool kLanczos>
-__global__ void __launch_bounds__(kThreads, kLanczos ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, kLanczos ? 3 : 4)
 strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
                     int hc, int wc, int h, int w, int centroid, int ds,
                     int strip_rows, int num_strips, int cp, Taps ht, int hp,
                     int bg_packed, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int canvas_rows = kLanczos ? (strip_rows + 7) & ~7 : strip_rows;
-  const Layout L = layout(K, canvas_rows, cp, kLanczos);
+  const Layout L = layout(K, canvas_rows, cp);
   int* s_ctab = reinterpret_cast<int*>(smem) + L.ctab;
   float* s_xi = reinterpret_cast<float*>(smem) + L.xi;
   int* s_wgt = reinterpret_cast<int*>(smem) + L.wgt;
@@ -135,6 +169,7 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
   uint8_t* chan = smem + L.chan;
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int scene = blockIdx.x / num_strips;
   const int row_begin = (blockIdx.x - scene * num_strips) * strip_rows;
   const int rows = min(strip_rows, hc - row_begin);
@@ -143,23 +178,26 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
     s_ctab[i] = i == 0 ? bg_packed
                        : static_cast<int>(scene_tab[(i - 1) * NT + T_COLOR]);
   const int kc = chan_stride(K);
-  if (kLanczos)
-    for (int i = tid; i < 3 * kc; i += kThreads) {
-      const int ch = i / kc, slot = i - ch * kc;
-      const int c = slot == 0 ? bg_packed
-                    : slot <= K ? static_cast<int>(
-                                      scene_tab[(slot - 1) * NT + T_COLOR])
-                                : 0;
-      chan[i] = static_cast<uint8_t>(c >> (16 - 8 * ch));
-    }
-  uint32_t* canvas32 = reinterpret_cast<uint32_t*>(canvas);
+  for (int i = tid; i < 3 * kc; i += kThreads) {
+    const int ch = i / kc, slot = i - ch * kc;
+    const int c = slot == 0 ? bg_packed
+                  : slot <= K ? static_cast<int>(
+                                    scene_tab[(slot - 1) * NT + T_COLOR])
+                              : 0;
+    chan[i] = static_cast<uint8_t>(c >> (16 - 8 * ch));
+  }
+  // The sprites on this strip's rows: with none, the strip is background
+  // and its canvas is not read.
+  const unsigned on = sprites_on_rows(scene_tab, K, NT, row_begin,
+                                      row_begin + rows - 1, lane);
   const int zero_rows = kLanczos ? (rows + 7) & ~7 : rows;
-  for (int i = tid; i < (zero_rows * cp + 3) / 4; i += kThreads)
-    canvas32[i] = 0u;
+  uint4* canvas16 = reinterpret_cast<uint4*>(canvas);
+  if (kLanczos || on != 0u)
+    for (int i = tid; i < zero_rows * cp / 16; i += kThreads)
+      canvas16[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
 
   // ---- fill of the sprites that reach this strip ------------------------ //
-  const int warp = tid >> 5, lane = tid & 31;
   float* wx = s_xi + warp * 32;
   int* ww = s_wgt + warp * 32;
   for (int k = 0; k < K; ++k) {
@@ -182,16 +220,17 @@ strip_raster_kernel(const float* __restrict__ tab, int K, int V, int NT,
 
   if constexpr (!kLanczos) {  // identity or box: this strip's image rows
     const int aa = hc / h;  // 1 for the identity
-    const int out_begin = row_begin / aa;
     uint8_t* img = out + size_t(scene) * h * w * 3;
-    for (int i = tid; i < (rows / aa) * w; i += kThreads) {
-      const int y = i / w, x = i - y * w;
-      uint8_t* o = img + (size_t(h - 1 - out_begin - y) * w + x) * 3;
-      if (ds == DS_BOX)
-        box_pixel(canvas + (y * aa) * cp + x * aa, cp, aa, s_ctab, o);
-      else
-        slot_pixel(s_ctab[canvas[y * cp + x]], o);
-    }
+    // The box's mixed blocks resolve slots by byte permute for K + 1 <= 8:
+    // faster here than the shared table (which the scene kernel takes).
+    if (K + 1 <= 8)
+      strip_output<kRoute8>(canvas, cp, rows, aa, ds, h, w, row_begin / aa,
+                            scene_tab, NT, on, s_ctab, chan, kc, img, warp,
+                            lane);
+    else
+      strip_output<kRouteTable>(canvas, cp, rows, aa, ds, h, w,
+                                row_begin / aa, scene_tab, NT, on, s_ctab,
+                                chan, kc, img, warp, lane);
   } else {
     // ---- horizontal Lanczos pass on the tensor cores -------------------- //
     // Units of 16 output columns by 8 canvas rows, into this scene's
@@ -228,8 +267,8 @@ int launch(const float* tab, int B, int K, int V, int NT, int hc, int wc,
            int h, int w, int centroid, int ds, int strip_rows, int cp,
            const Taps& ht, int hp, int bg_packed, uint8_t* out,
            cudaStream_t stream) {
-  const Layout L = layout(K, kLanczos ? (strip_rows + 7) & ~7 : strip_rows,
-                          cp, kLanczos);
+  const Layout L =
+      layout(K, kLanczos ? (strip_rows + 7) & ~7 : strip_rows, cp);
   cudaError_t err = cudaFuncSetAttribute(
       strip_raster_kernel<kLanczos>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.bytes));
@@ -258,21 +297,21 @@ int blocks_per_sm(long long smem_bytes) {
 }  // namespace
 
 // Shared memory a strip_raster block needs for `rows` canvas rows of `cp`
-// bytes (with the Lanczos filter, `lanczos`: round8(strip_rows) rows at the
-// h-pass taps' pitch); the renderer's dispatch checks its Python mirror
-// (rasterize_cuda.strip_smem_bytes) against this.
-extern "C" long long strip_raster_smem_bytes(int K, int rows, int cp,
-                                             int lanczos) {
-  return static_cast<long long>(layout(K, rows, cp, lanczos).bytes);
+// bytes (with the Lanczos filter round8(strip_rows) rows at the h-pass taps'
+// pitch, otherwise strip_rows rows of wc rounded up to 16); the renderer's
+// dispatch checks its Python mirror (rasterize_cuda.strip_smem_bytes)
+// against this.
+extern "C" long long strip_raster_smem_bytes(int K, int rows, int cp) {
+  return static_cast<long long>(layout(K, rows, cp).bytes);
 }
 
 // Fill and h-pass (ds == DS_LANCZOS: into hpT u8[B][3][wp][hp], wp = w
 // rounded up to 16, canvas row y at byte y of each row, with the h-pass tiles
 // of rasterize_cuda.lanczos_tiles and `cp` their input pitch) or the flipped
 // image (DS_IDENTITY, or DS_BOX with strip_rows a multiple of
-// anti_aliasing; cp = wc, taps null) of B scenes in strips of `strip_rows`
-// canvas rows; `centroid` selects the fill. Launches on `stream`; returns
-// the CUDA error code (0 on success).
+// anti_aliasing; cp = wc rounded up to 16, taps null) of B scenes in
+// strips of `strip_rows` canvas rows; `centroid` selects the fill. Launches
+// on `stream`; returns the CUDA error code (0 on success).
 extern "C" int strip_raster_launch(const float* tab, int B, int K, int V,
                                    int NT, int hc, int wc, int h, int w,
                                    int centroid, int ds, int strip_rows,

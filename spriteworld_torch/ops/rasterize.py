@@ -288,7 +288,7 @@ def box_filter(pix: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """The box filter of integer-valued pixels [B, h*aa, w*aa, 3] ->
     u8[B, h, w, 3]: each channel's exact sum over its aa x aa block, one
     correctly rounded division by aa * aa, rounded half to even (the CUDA
-    kernels' `box_pixel`). The divisor is a tensor: torch divides by a
+    kernels' `box_words`). The divisor is a tensor: torch divides by a
     scalar through its reciprocal on the card, which rounds differently
     where aa * aa is not a power of two."""
     b, hc, wc, _ = pix.shape

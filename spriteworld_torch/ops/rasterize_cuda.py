@@ -40,6 +40,9 @@ The work splits in five:
   with torch operations. CPU tensors take it; on the card every kernel is
   held against it, bit for bit (`hpass_plain` and `vpass_plain` are its two
   Lanczos passes, for holding the strip kernels against it one at a time).
+  `box_words` repeats the kernels' box filter by words in torch (the
+  one-slot test and the masked sums): the CPU tests hold it against the
+  box filter, and chip_smoke.py counts the kernels' work with it.
 
 All evaluate the exact fill's crossing as the float32 multiply-then-add
 ``x0 + (row - y0) * m`` and the centroid fill's as ``x0 + ((py - y0) / dy)
@@ -359,13 +362,15 @@ def scene_smem_bytes(k: int, num_vertices: int, hc: int, wc: int, h: int,
     mirror of `layout` in csrc/scene_raster.cu (chip_smoke.py holds the two
     equal). With the Lanczos filter the canvas holds one band of rows at
     the h-pass tiles' pitch, and the channel tables and the h-pass buffer
-    follow; the identity and box modes hold the whole canvas, rows of wc
-    bytes, and nothing else."""
+    follow. The box mode holds one group of anti_aliasing rows for each of
+    the block's warps, the identity (anti_aliasing=1) the whole canvas, in
+    rows of wc rounded up to 16 bytes, and the channel tables follow."""
     warps = _SCENE_LANCZOS_WARPS if ds == DS_LANCZOS else _SCENE_WARPS
     words = k * table_width(num_vertices) + k + 1 + 2 * warps * 32
     head = _round16(words * 4)
     if ds != DS_LANCZOS:
-        return head + _round16(hc * wc)
+        rows = hc if ds == DS_IDENTITY else warps * (hc // h)
+        return head + _round16(rows * _round16(wc)) + _chan_bytes(k)
     cp = lanczos_tiles(wc, w).pitch
     wp, hp = hpass_geometry(hc, h, w)
     band = min(_round8(hc), _SCENE_BAND_ROWS)
@@ -376,14 +381,16 @@ def scene_smem_bytes(k: int, num_vertices: int, hc: int, wc: int, h: int,
 def strip_smem_bytes(k: int, strip_rows: int, wc: int,
                      w: Optional[int] = None) -> int:
     """Shared memory of one strip_raster block: a mirror of `layout` in
-    csrc/strip_raster.cu. With the Lanczos filter pass the output width
-    `w`: the canvas then has round8(strip_rows) rows at the h-pass tiles'
-    pitch, and the channel tables follow."""
+    csrc/strip_raster.cu, `strip_rows` canvas rows of wc rounded up to 16
+    bytes, then the channel tables. With the Lanczos filter pass the output
+    width `w`: the canvas then has round8(strip_rows) rows at the h-pass
+    tiles' pitch."""
     head = _round16((k + 1 + 2 * _STRIP_WARPS * 32) * 4)
     if w is None:
-        return head + _round16(strip_rows * wc)
-    return (head + _round16(_round8(strip_rows) * lanczos_tiles(wc, w).pitch)
-            + _chan_bytes(k))
+        canvas = strip_rows * _round16(wc)
+    else:
+        canvas = _round8(strip_rows) * lanczos_tiles(wc, w).pitch
+    return head + _round16(canvas) + _chan_bytes(k)
 
 
 def packed_smem_bytes(k: int, tile_rows: int, w: int) -> int:
@@ -520,7 +527,7 @@ def _scene_launcher():
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.scene_raster_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.scene_raster_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.scene_raster_smem_bytes.restype = ctypes.c_longlong
     lib.scene_raster_blocks_per_sm.argtypes = [ctypes.c_longlong,
                                                ctypes.c_int]
@@ -542,7 +549,7 @@ def _strip_launchers():
                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_void_p])
     vpass.restype = ctypes.c_int
-    lib.strip_raster_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.strip_raster_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.strip_raster_smem_bytes.restype = ctypes.c_longlong
     lib.strip_raster_blocks_per_sm.argtypes = [ctypes.c_longlong,
                                                ctypes.c_int]
@@ -628,7 +635,7 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
         hsteps, vsteps = htl.ksteps, vtl.ksteps
     else:
         hfr = hks = hqs = vfr = vks = None
-        cp, hp, hsteps, vsteps = wc, 0, 0, 0
+        cp, hp, hsteps, vsteps = _round16(wc), 0, 0, 0
 
     lib, launch = _scene_launcher()
     with torch.cuda.device(tab.device):
@@ -663,7 +670,7 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
     aa = hc // h
     ds = _table_ds(tables, image_size, downsample)
     lanczos = ds == DS_LANCZOS
-    cp = lanczos_tiles(wc, w).pitch if lanczos else wc
+    cp = lanczos_tiles(wc, w).pitch if lanczos else _round16(wc)
     multiple = aa if ds == DS_BOX else 1
     rows = (min(hc, default_strip_rows(hc, cp, 8 if lanczos else multiple))
             if strip_rows is None else int(strip_rows))
@@ -898,6 +905,61 @@ def _plain_fill_centroid(tables: SceneTables, k: int) -> torch.Tensor:
     total = straddle.sum(-1, keepdim=True, dtype=torch.int32)
     crossings = total - below[..., :wc].cumsum(-1)
     return (crossings & 1) == 1
+
+
+def _low_bytes(n: torch.Tensor) -> torch.Tensor:
+    """i64 mask of bytes 0 .. n - 1 of a 32-bit word (n clamped to [0, 4])."""
+    return (1 << (8 * n.clamp(0, 4))) - 1
+
+
+def box_words(slots: torch.Tensor, colors: torch.Tensor, aa: int, w: int):
+    """The kernels' box filter by words (raster_fill.cuh `box_words`), in
+    torch: slots u8[B, h * aa, pitch] (slot bytes, pitch a multiple of 4 and
+    at least w * aa; bytes past the w * aa columns are ignored), colors
+    i64[B, S]
+    packed r << 16 | g << 8 | b by slot, -> (u8[B, h, w, 3] in canvas row
+    order, one_slot bool[B, h, w]).
+
+    Each output reads the 32-bit words that hold its aa columns, masked to
+    them; its block is one slot when every masked word equals its first
+    slot byte replicated, and its colour is then that slot's. Otherwise its
+    channel sums are the sums of the masked channel bytes, divided once by
+    aa * aa and rounded half to even (`ops.rasterize.box_filter`)."""
+    b, hc, pitch = slots.shape
+    h = hc // aa
+    dev = slots.device
+    words = slots.contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
+    x = torch.arange(w, device=dev)
+    off = (x * aa) & 3
+    nw = (off + aa + 3) >> 2
+    nmax = int(nw.max())
+    q = torch.arange(nmax, device=dev)[:, None]  # [nmax, w]
+    full = 0xffffffff
+    mask = torch.where(q == 0, full & ~_low_bytes(off)[None], full)
+    mask = mask & torch.where(q == nw - 1,
+                              _low_bytes(off + aa - 4 * (nw - 1)), full)
+    mask = torch.where(q < nw, mask, 0)
+    idx = ((x * aa) >> 2)[None] + torch.where(q < nw, q, 0)  # [nmax, w]
+    blocks = words.reshape(b, h, aa, pitch // 4)[..., idx]  # [b,h,aa,nmax,w]
+    first = slots.reshape(b, h, aa, pitch)[:, :, 0, x * aa].to(torch.int64)
+    rep = first * 0x01010101  # [b, h, w]
+    diff = ((blocks ^ rep[:, :, None, None]) & mask).amax((2, 3))
+    one_slot = diff == 0
+    chans = torch.stack([colors >> 16, (colors >> 8) & 255, colors & 255],
+                        -1)  # [B, S, 3]
+    sums = torch.zeros((b, h, w, 3), dtype=torch.int64, device=dev)
+    for j in range(4):
+        keep = ((mask >> (8 * j)) & 255) == 255
+        slot_j = torch.where(keep, (blocks >> (8 * j)) & 255, 0)
+        c = chans.gather(1, slot_j.reshape(b, -1, 1).expand(-1, -1, 3))
+        c = c.reshape(slot_j.shape + (3,))
+        sums += (c * keep[..., None]).sum((2, 3))
+    sums = sums.to(torch.float32)
+    mean = torch.round(sums / torch.full_like(sums, aa * aa))
+    colour = chans.gather(1, first.reshape(b, -1, 1).expand(-1, -1, 3))
+    out = torch.where(one_slot[..., None],
+                      colour.reshape(b, h, w, 3).to(torch.float32), mean)
+    return out.to(torch.uint8), one_slot
 
 
 def exact_crossings(tables: SceneTables, k: int):

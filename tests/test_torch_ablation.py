@@ -11,14 +11,17 @@ import chip_smoke
 from spriteworld_torch.ops import rasterize_cuda as tcuda
 
 
-@pytest.mark.parametrize("variant", ablate_kernels.VARIANTS,
+@pytest.mark.parametrize("variant",
+                         ablate_kernels.VARIANTS + ablate_kernels.SPLIT,
                          ids=lambda v: v[0])
 def test_ablation_variant_applies_to_the_sources(variant, tmp_path):
-    name, fname, old, new, times = variant
-    copy = ablate_kernels.make_copy(tmp_path, name, [(fname, old, new,
-                                                      times)])
-    text = (copy / "spriteworld_torch" / "csrc" / fname).read_text()
-    assert old not in text and text.count(new) == times
+    name, edits = variant
+    copy = ablate_kernels.make_copy(tmp_path, name, edits)
+    for fname, old, new, times in edits:
+        text = (copy / "spriteworld_torch" / "csrc" / fname).read_text()
+        # Where the edit wraps the text (new holds old), it stays wrapped.
+        assert text.count(old) == times * new.count(old)
+        assert text.count(new) >= times
 
 
 def _tables(seed, b, n=None, pil_exact=True, size=64, aa=5):

@@ -213,28 +213,31 @@ def test_packed_rule_equals_jax():
 
 
 def test_scene_layout_in_box_mode():
-    """The box filter needs no taps, no channel tables and no h-pass
-    buffer: its layout is the identity's, the whole canvas in rows of wc
-    bytes, for 16 warps. The Lanczos layout, for 8 warps, holds one band of
-    80 canvas rows at the h-pass tiles' pitch beside the h-pass buffer,
-    which is smaller at 64x64/AA=5 and lets two blocks share an H100 SM
-    (228 KiB of shared memory, 1 KiB of it reserved per block);
-    64x64/AA=6 fits one block in either mode."""
+    """The box filter needs no taps and no h-pass buffer: its layout holds,
+    for each of its 16 warps, one group of anti_aliasing canvas rows of wc
+    rounded up to 16 bytes (a warp renders whole output rows from its own
+    group), then the channel tables of its mixed blocks' sums. The identity
+    (anti_aliasing=1) holds the whole canvas. The Lanczos layout, for 8
+    warps, holds one band of 80 canvas rows at the h-pass tiles' pitch
+    beside the h-pass buffer; at 64x64/AA=5 it lets two blocks share an
+    H100 SM (228 KiB of shared memory, 1 KiB of it reserved per block) and
+    the box layout three; 64x64/AA=6 fits one block in either mode."""
     k, v = 6, 30
     box = tcuda.scene_smem_bytes(k, v, 320, 320, 64, 64, tcuda.DS_BOX)
     lanczos = tcuda.scene_smem_bytes(k, v, 320, 320, 64, 64,
                                      tcuda.DS_LANCZOS)
-    ident = tcuda.scene_smem_bytes(k, v, 320, 320, 64, 64, tcuda.DS_IDENTITY)
-    assert box == ident
+    ident = tcuda.scene_smem_bytes(k, v, 64, 64, 64, 64, tcuda.DS_IDENTITY)
     words = k * tcuda.table_width(v) + k + 1 + 2 * 16 * 32
     head = (words * 4 + 15) & ~15
-    assert box == head + 320 * 320
+    assert box == head + 16 * 5 * 320 + 48
+    assert ident == head + 64 * 64 + 48
     cp = tcuda.lanczos_tiles(320, 64).pitch
     wp, hp = tcuda.hpass_geometry(320, 64, 64)
     assert (wp, cp, hp) == (64, 336, 336)
     head8 = head - 2 * 8 * 32 * 4  # 8 warps' crossing scratch, not 16
-    assert lanczos == head8 + 80 * cp + 48 + 3 * wp * hp < box
+    assert lanczos == head8 + 80 * cp + 48 + 3 * wp * hp
     assert 2 * (lanczos + 1024) <= 228 * 1024
+    assert 3 * (box + 1024) <= 228 * 1024
     budget = 232_448
     aa6 = dict(k=k, num_vertices=v, hc=384, wc=384, h=64, w=64)
     assert tcuda.scene_smem_bytes(**aa6, ds=tcuda.DS_BOX) <= budget
