@@ -2,20 +2,26 @@
 taken out.
 
 Each variant is a copy of spriteworld_torch whose CUDA sources differ from
-the tree's by textual edits. VARIANTS take one fast path out each, so their
-output stays bit-exact: every such copy builds its kernels anew and, in its
-own process, checks scene_raster and the strip kernels against the plain
-version on the two paths' scenes (image64/AA=5, B=2048 and demo256, B=256,
-in exact+lanczos and centroid+box) and on seeded 8-sprite batches (K + 1 =
-9 slots; the paths have K + 1 <= 8), then times them: chip_smoke.time_split
-on the paths' scenes (exact+lanczos, exact+box and centroid+box) and
-exact+lanczos on the 8-sprite batches. SPLIT cuts one phase of the
-fill-only (identity and box) instantiations out of both kernels, so its
-copies are timed on the paths' scenes and not checked. The runs go base,
-the variants, the variants in reverse, base, so that drift across the call
-shows. The base run also prints, on each path's scenes, the share of
-h-pass units (16 outputs by 8 canvas rows) whose window holds one slot and
-the share of box blocks (aa x aa canvas pixels) that do.
+the tree's by textual edits. A variant runs only the kernels whose sources
+it edits (an edited header reaches all three; the base run takes the
+kernels of every chosen variant). VARIANTS take one fast path out each, so
+their output stays bit-exact: every such copy builds its kernels anew and,
+in its own process, checks its kernels against the plain version on the
+paths' scenes (scene_raster at image64/AA=5, B=2048 and the strip kernels
+at demo256, B=256, in exact+lanczos and centroid+box; packed_raster at
+image64/AA=1, B=2048, in both fills) and on seeded batches of more sprites
+(8 for the scene and strip kernels, K + 1 = 9 slots; 16 for
+packed_raster), then times them: chip_smoke.time_split on the paths'
+scenes (exact+lanczos, exact+box and centroid+box), packed_raster in both
+fills (queued behind a spin of the card: chip_smoke.event_ms's
+`device_ms`), and the larger batches. SPLIT cuts one phase of the fill-only
+(identity and box) instantiations of the scene and strip kernels, or of
+packed_raster, so its copies are timed on the paths' scenes and not
+checked. The runs go base, the variants, the variants in reverse, base, so
+that drift across the call shows. The base run also prints, on each
+Lanczos path's scenes, the share of h-pass units (16 outputs by 8 canvas
+rows) whose window holds one slot and the share of box blocks (aa x aa
+canvas pixels) that do.
 
 Usage: python3 ablate_kernels.py [--out PATH] [--only NAME,NAME...]
 (default spriteworld_torch/build/ablation.json, every variant)
@@ -123,6 +129,42 @@ VARIANTS = [
     ("strip_box_table", [
         ("strip_raster.cu", "    if (K + 1 <= 8)\n      strip_output<kRoute8>",
          "    if (false)\n      strip_output<kRoute8>", 1)]),
+    # packed_raster: every sprite walked by every warp, also where no row of
+    # the warp lies in its bounds.
+    ("packed_no_sprite_vote", [
+        ("packed_raster.cu", "if (!__any_sync(kFull, in)) continue;",
+         "if (false) continue;", 1)]),
+    # packed_raster: the warp's buffer stored out in bytes, not in 16-byte
+    # chunks.
+    ("packed_byte_stores", [
+        ("packed_raster.cu", "    if (row_bytes % 16 == 0)\n",
+         "    if (false)\n", 1)]),
+    # packed_raster: each lane stores its own row (16-byte stores 3w bytes
+    # apart across the warp), not through the warp's buffer.
+    ("packed_direct_out", [
+        ("packed_raster.cu",
+         "  __syncthreads();\n  uint8_t* buf = ",
+         "  if (active)\n"
+         "    write_row(slots, w, rgb,\n"
+         "              out + (size_t(scene) * h + (h - 1 - r)) * w * 3);\n"
+         "  return;\n"
+         "  __syncthreads();\n  uint8_t* buf = ", 1)]),
+    # packed_raster: every sprite painted into all 16 slot words of a row,
+    # also the groups of 16 columns its mask misses.
+    ("packed_paint_all", [("packed_raster.cu", "if (bits == 0u) continue;",
+                           "if (false) continue;", 1)]),
+    # packed_raster: no register cap (the compiler takes 94 registers, and
+    # 10 blocks an SM).
+    ("packed_no_register_cap", [
+        ("packed_raster.cu", "__launch_bounds__(kMaxThreads, kMinBlocks)",
+         "__launch_bounds__(kMaxThreads)", 1)]),
+    # packed_raster: tiles of at most 32 rows, a warp a block (two blocks a
+    # 64x64 scene, each staging its sprites).
+    ("packed_warp_tiles", [
+        ("packed_raster.cu",
+         "    return static_cast<int>(cudaErrorInvalidValue);\n",
+         "    return static_cast<int>(cudaErrorInvalidValue);\n"
+         "  tile_rows = tile_rows < 32 ? tile_rows : 32;\n", 1)]),
 ]
 
 # The phase split of the fill-only (identity and box) instantiations of the
@@ -147,6 +189,28 @@ _CUT_OUTPUT = [
     ("strip_raster.cu",
      "for (int u = warp; u < (rows / aa) * xt; u += kWarps) {",
      "for (int u = warp; u < 0; u += kWarps) {", 1)]
+# packed_raster's phases at image64/AA=1: the fill (its masks become all
+# columns; painting stays), the output (the row's slots are folded to one
+# word that decides a store no run makes, so the fill stays live), and
+# setup alone (colour table, culling, plan, staging).
+_PACKED_CUT_FILL = [
+    ("packed_raster.cu",
+     "      u64 m = centroid ? centroid_row(head, R, rf)\n"
+     "                       : exact_row(head, R, rf, r);",
+     "      u64 m = ~0ull;", 1)]
+_PACKED_CUT_OUTPUT = [
+    ("packed_raster.cu", "  // Each warp writes its rows through its buffer",
+     "  {\n"
+     "    unsigned x = 0u;\n"
+     "    for (int i = 0; i < kWords; ++i) x ^= slots[i];\n"
+     "    if (x == 0x9e3779b9u) out[tid] = 1;\n"
+     "    return;\n"
+     "  }\n"
+     "  // Each warp writes its rows through its buffer", 1)]
+_PACKED_CUT_SPRITES = [
+    ("packed_raster.cu",
+     "    for (int i = s_chunk[c]; i < s_chunk[c + 1]; ++i) {",
+     "    for (int i = s_chunk[c]; i < 0; ++i) {", 1)]
 SPLIT = [
     # The canvas is first set to ones: a second zeroing's worth of stores.
     ("zero_twice", [
@@ -174,6 +238,9 @@ SPLIT = [
     ("cut_output", _CUT_OUTPUT),
     # Setup alone: zeroing, fill and output cut.
     ("setup_only", _CUT_ZERO + _CUT_FILL + _CUT_OUTPUT),
+    ("packed_cut_fill", _PACKED_CUT_FILL),
+    ("packed_cut_output", _PACKED_CUT_OUTPUT),
+    ("packed_setup_only", _PACKED_CUT_SPRITES + _PACKED_CUT_OUTPUT),
 ]
 
 
@@ -194,10 +261,25 @@ def make_copy(work, name, edits):
     return dest
 
 
-def child(share, checked):
+# The kernels a source feeds: an edit of a header reaches all three.
+KERNELS = ("scene", "strips", "packed")
+_SOURCE_KERNELS = {"scene_raster.cu": ("scene",),
+                   "strip_raster.cu": ("strips",),
+                   "packed_raster.cu": ("packed",),
+                   "lanczos_mma.cuh": ("scene", "strips")}
+
+
+def kernels_of(edits):
+    """The kernels whose sources `edits` touch, in KERNELS order."""
+    hit = {k for fname, *_ in edits
+           for k in _SOURCE_KERNELS.get(fname, KERNELS)}
+    return [k for k in KERNELS if k in hit]
+
+
+def child(share, checked, kernels=KERNELS):
     """One variant's run, in the copy's directory: prints one JSON line.
-    A `checked` variant's renders on the paths (and on 8-sprite batches)
-    must equal the plain version's."""
+    A `checked` variant's renders on the paths (and on batches of more
+    sprites) must equal the plain version's. Only `kernels` are run."""
     import torch
 
     import bench_torch
@@ -210,13 +292,20 @@ def child(share, checked):
     cs.check(pathlib.Path(rc.__file__).is_relative_to(pathlib.Path.cwd()),
              f"{rc.__file__} is not the variant's copy")
     _build.build_all()
-    scene_state, demo_state = cs.path_states(torch, bench_torch, env_lib)
+    states = cs.path_states(torch, bench_torch, env_lib,
+                            demo="strips" in kernels)
+    scene_state = states[0]
+    demo_state = states[1] if "strips" in kernels else None
     out = {}
-    for label, state, size, aa, run in (
-            ("scene_raster", scene_state, (64, 64), 5,
-             lambda t, ds: rc.scene_raster(t, (64, 64), None, ds)),
-            ("strip_raster+strip_vpass", demo_state, (256, 256), 10,
-             lambda t, ds: rc.render_strips(t, (256, 256), None, None, ds))):
+    paths = []
+    if "scene" in kernels:
+        paths.append(("scene_raster", scene_state, (64, 64), 5,
+                      lambda t, ds: rc.scene_raster(t, (64, 64), None, ds)))
+    if "strips" in kernels:
+        paths.append(("strip_raster+strip_vpass", demo_state, (256, 256), 10,
+                      lambda t, ds: rc.render_strips(t, (256, 256), None,
+                                                     None, ds)))
+    for label, state, size, aa, run in paths:
         for pil_exact, ds in ((True, "lanczos"), (False, "box")):
             t = rc.prepare(state.factors, state.num_sprites, size[0] * aa,
                            size[1] * aa, colors.hsv_to_rgb, pil_exact)
@@ -232,22 +321,46 @@ def child(share, checked):
             if share and ds == "box":
                 _, u, n = cs.word_box_ops(torch, t, aa, aa)
                 out[f"{label} one-slot box blocks"] = [u, n, u / n]
-    out.update(cs.time_split(torch, rc, colors, scene_state, demo_state))
+    if paths:
+        out.update(cs.time_split(
+            torch, rc, colors, scene_state if "scene" in kernels else None,
+            demo_state))
+    if "packed" in kernels:
+        out["packed_raster"] = {}
+        for pil_exact in (True, False):
+            t = rc.prepare(scene_state.factors, scene_state.num_sprites, 64,
+                           64, colors.hsv_to_rgb, pil_exact)
+            mode = rc.mode_name(pil_exact, rc.DS_IDENTITY)
+            if checked:
+                _, count = cs.compare(rc.packed_raster(t, (64, 64)),
+                                      rc.render_rgb_batch_plain(t, (64, 64)))
+                cs.check(count == 0, f"packed_raster differs from plain on "
+                                     f"its path ({mode})")
+            out["packed_raster"][mode] = cs.event_ms(
+                torch, lambda: rc.packed_raster(t, (64, 64)), 200, True)
     if not checked:
         print(json.dumps(out))
         return
-    for label, seed, b, size, aa, reps, run in (
-            ("scene_raster, 8 sprites", 71, 2048, (64, 64), 5, 20,
-             lambda t: rc.scene_raster(t, (64, 64))),
-            ("strip_raster+strip_vpass, 8 sprites", 72, 64, (256, 256), 10,
-             5, lambda t: rc.render_strips(t, (256, 256)))):
-        f, n = cs.scene_batch(seed, b, kmax=8, hsv=True)
+    many = []
+    if "scene" in kernels:
+        many.append(("scene_raster, 8 sprites", 71, 2048, (64, 64), 5, 8,
+                     20, lambda t: rc.scene_raster(t, (64, 64))))
+    if "strips" in kernels:
+        many.append(("strip_raster+strip_vpass, 8 sprites", 72, 64,
+                     (256, 256), 10, 8, 5,
+                     lambda t: rc.render_strips(t, (256, 256))))
+    if "packed" in kernels:  # K + 1 = 17 slots: the table route
+        many.append(("packed_raster, 16 sprites", 73, 2048, (64, 64), 1, 16,
+                     200, lambda t: rc.packed_raster(t, (64, 64))))
+    for label, seed, b, size, aa, kmax, reps, run in many:
+        f, n = cs.scene_batch(seed, b, kmax=kmax, hsv=True)
         t = rc.prepare(torch.from_numpy(f).cuda(), torch.from_numpy(n).cuda(),
                        size[0] * aa, size[1] * aa, colors.hsv_to_rgb)
         _, count = cs.compare(run(t), rc.render_rgb_batch_plain(t, size))
         cs.check(count == 0, f"{label} differs from plain")
-        out[label] = {"exact+lanczos": cs.event_ms(torch, lambda: run(t),
-                                                   reps)}
+        out[label] = {rc.mode_name(True, rc.DS_LANCZOS if aa > 1
+                                   else rc.DS_IDENTITY):
+                      cs.event_ms(torch, lambda: run(t), reps, aa == 1)}
     print(json.dumps(out))
 
 
@@ -271,6 +384,9 @@ def main():
     for name, edits in chosen.items():
         copies[name] = make_copy(work, name, edits)
     checked = {"base"} | {n for n, _ in VARIANTS}
+    kernels = {n: kernels_of(e) for n, e in chosen.items()}
+    kernels["base"] = [k for k in KERNELS
+                       if any(k in ks for ks in kernels.values())]
     names = list(copies)
     order = names + names[::-1]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -278,7 +394,8 @@ def main():
     runs = []
     for i, name in enumerate(order):
         code = (f"import ablate_kernels; "
-                f"ablate_kernels.child({i == 0}, {name in checked})")
+                f"ablate_kernels.child({i == 0}, {name in checked}, "
+                f"{kernels[name]!r})")
         proc = subprocess.run([sys.executable, "-c", code], cwd=copies[name],
                               env=env, capture_output=True, text=True)
         if proc.returncode != 0:

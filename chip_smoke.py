@@ -6,8 +6,9 @@ Phases:
   2. build every kernel from spriteworld_torch/csrc (one nvcc per source,
      all started together), and hold the renderer's Python mirrors of the
      kernels' shared-memory layouts equal to the kernels' own, with the
-     Lanczos and the box layouts of the scene kernel, and the blocks each
-     layout keeps resident on an SM at the two paths' shapes;
+     Lanczos and the box layouts of the scene kernel and packed_raster's
+     at several K and tile heights, and the blocks each layout keeps
+     resident on an SM at the paths' shapes;
   3. each kernel against its plain PyTorch version on the card, bit-exact,
      over seeded batches. The scene kernel: all 12 shapes, random angles,
      1-8 live sprites, the degenerate tiny/axis-aligned generator, at
@@ -27,10 +28,13 @@ Phases:
      mosaic-parity CASES of tests_tpu/test_mosaic_parity.py through the
      renderer's dispatch, each checked to run the kernel it should; batches
      of 16 sprites (K + 1 = 17 slots, the h-pass's table route) through
-     the scene and strip kernels; at random angles, the count of
-     world-vertex values and of 64x64/AA=1 pixels that differ between the
-     card and the CPU; the IMMA instructions in each built kernel
-     (cuobjdump -sass);
+     the scene and strip kernels; the card against the CPU
+     (`vertex_trig`): world-vertex values at random angles, SelectMove
+     picks and Embodied carries on clicks placed on sprite edges (and one
+     float32 ulp off them), anti_aliasing=1 pixels at 64x64, 128x128 and
+     256x256, each checked to differ nowhere, beside the counts that
+     float32 sine and cosine give; the IMMA instructions in each built
+     kernel (cuobjdump -sass);
   4. the main path: bench.py's image64 workload at anti_aliasing=5 over
      2048 lanes — reset, warm-up, 3 timed chunks of 50 steps, each step
      followed by torch.cuda.synchronize() — checking that every render went
@@ -44,7 +48,8 @@ Phases:
      images are not blank, rewards are finite wherever the task is valid
      and step types follow FIRST/MID/LAST;
   6. every bench.py workload (bench_torch.py's builders): image64 at AA=1
-     (packed_raster), image64 fast at AA=5 (the scene kernel in
+     (packed_raster, and in its fast centroid mode), image64 fast at AA=5
+     (the scene kernel in
      centroid+box), factors (no kernel), clustering, sorting and embodied
      (the scene kernel), 2048 lanes each, and demo256 fast over 256 lanes
      (the strip kernel in centroid+box): a short warm-up and one timed
@@ -54,19 +59,26 @@ Phases:
   7. the split: scene_raster at image64/AA=5 (B=2048) and strip_raster +
      strip_vpass at demo256 (B=256) in exact+lanczos, exact+box and
      centroid+box on their paths' scenes (one JSON `split` line); each
-     kernel's time at its path's shapes beside its plain version and two
-     bounds (`bound_ms`, every edge at every pixel and every tap at the
+     kernel's time at its path's shapes (`ms`: launches queued between two
+     events; `device_ms`: the same, queued behind a spin of the card, so
+     that a kernel shorter than its wrapper's host time is timed on the
+     device) beside its plain version and two bounds (the bytes count
+     the table entries the kernels need, not the table's padding;
+     `bound_ms`, every edge at every pixel and every tap at the
      float32 rate; `bound_tc_ms`, the work as the kernels do it: the
      compacted fill at the float32 rate, the Lanczos multiply-adds of the
      h-pass units that hold more than one slot and of the v-pass at the
      int8 tensor-core rate; for the centroid+box entries the compacted
      centroid fill and the box by words as those kernels do them, with
-     their share of one-slot box blocks and resident blocks an SM), as one
-     JSON `kernels` line, and the
-     scene kernel's time at image64/AA=1 beside packed_raster's;
+     their share of one-slot box blocks; every entry with its resident
+     blocks an SM), packed_raster in both fills, as one JSON `kernels`
+     line, and the scene kernel's time at image64/AA=1 beside
+     packed_raster's in each fill;
   8. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
+python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 7's split)
+python3 -c 'import chip_smoke; chip_smoke.packed_only()'  (packed_raster)
 """
 
 import json
@@ -223,11 +235,16 @@ def check_layouts(rasterize_cuda):
                                                           int(lanczos))
                 print(f"strip layout at 256x256/AA=10, mode {ds}: {rows} "
                       f"rows, {got} bytes, {blocks} resident blocks an SM")
-        if aa == 1:
-            rows = rc.default_tile_rows(h, w)
-            want = packed_lib.packed_raster_smem_bytes(k, rows, w)
-            got = rc.packed_smem_bytes(k, rows, w)
-            check(got == want, f"packed layout mirror {got} != {want}")
+    for k in (1, 6, 8, 16, 254):
+        for rows in (16, 48, 64, 128):
+            want = packed_lib.packed_raster_smem_bytes(k, v, rows)
+            got = rc.packed_smem_bytes(k, v, rows)
+            check(got == want, f"packed layout mirror {got} != {want} at "
+                               f"K={k}, {rows} rows")
+            if (k, rows) == (6, 64):
+                blocks = packed_lib.packed_raster_blocks_per_sm(got, rows)
+                print(f"packed layout at K=6, 64 rows: {got} bytes, "
+                      f"{blocks} resident blocks an SM")
     print("shared-memory layout mirrors equal the kernels' own")
 
 
@@ -349,6 +366,14 @@ def modes_vs_plain(torch, rasterize_cuda, colors):
         ("64x64 bg_color", 25, (64, 64), {}, {"bg_color": (10, 20, 30)}),
         ("64x64 hsv", 26, (64, 64), {"hsv": True}, hsv),
         ("64x64 degenerate", 27, (64, 64), {"degenerate": True}, {}),
+        # Rows of 3w bytes stored in 4-byte words (w = 4, 8) and in bytes
+        # (w = 1, 2); frames taller than a tile (128 rows).
+        ("16x8", 29, (16, 8), {}, {}),
+        ("32x4", 30, (32, 4), {}, {}),
+        ("64x2", 40, (64, 2), {}, {}),
+        ("256x1", 41, (256, 1), {}, {}),
+        ("384x8", 42, (384, 8), {}, {}),
+        ("512x16", 43, (512, 16), {}, {}),
     ]
     for label, seed, size, bkw, rkw in packed_cases:
         for pe in (True, False):
@@ -576,6 +601,8 @@ def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
 WORKLOADS = [
     ("image64 AA=1", "image64", 1, True, BATCH,
      ("packed_raster", "exact+identity")),
+    ("image64 AA=1 fast", "image64", 1, False, BATCH,
+     ("packed_raster", "centroid+identity")),
     ("image64 AA=5 fast", "image64", 5, False, BATCH,
      ("scene_raster", "centroid+box")),
     ("factors", "factors", None, True, BATCH, None),
@@ -638,18 +665,67 @@ def drive_workloads(torch, bench_torch, env_lib, rasterize_cuda, card):
     return out
 
 
-def event_ms(torch, fn, reps):
-    """Mean device time of one call of `fn` over `reps` calls, after one."""
+_SPIN_RATE = []
+
+
+def spin_cycles_per_ms(torch):
+    """Cycles of `torch.cuda._sleep` the card spins a millisecond, timed
+    once a process between two events."""
+    if not _SPIN_RATE:
+        torch.cuda._sleep(1 << 20)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1 << 23)
+        end.record()
+        end.synchronize()
+        _SPIN_RATE.append((1 << 23) / start.elapsed_time(end))
+    return _SPIN_RATE[0]
+
+
+def event_ms(torch, fn, reps, spin=False):
+    """Mean device time of one call of `fn` over `reps` calls, after one,
+    between two events (`ms` in the kernels line). With `spin` the card
+    first spins for 1.5 times the host's time to enqueue the calls, at its
+    measured spin rate, so they run back to back and a kernel shorter than
+    its wrapper's host time is timed on the device, not on the host
+    (`device_ms`)."""
     fn()
     torch.cuda.synchronize()
+    cycles = 0
+    if spin:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cycles = int(spin_cycles_per_ms(torch)
+                     * min(1.5 * reps * host_s, 2.0) * 1e3)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if cycles:
+        torch.cuda._sleep(cycles)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def table_bytes(tables):
+    """Bytes of prepared `tables` a kernel must read: every sprite's edge
+    count, and for each live sprite whose rows meet the canvas its other
+    scalars, its `count` edges (5 floats each) and its `nf` features (3
+    each); not the padding of each row to V edges and 2V features."""
+    from spriteworld_torch.ops import rasterize_cuda as s
+
+    tab = tables.tab
+    count, nf = tab[..., s.T_COUNT], tab[..., s.T_NF]
+    meets = ((count > 0) & (tab[..., s.T_ROW0] <= tables.hc - 1)
+             & (tab[..., s.T_ROW1] >= 0))
+    per = (s.NUM_SCALARS - 1 + s.NUM_EDGE_FIELDS * count
+           + s.NUM_FEATURE_FIELDS * nf)
+    return 4 * (count.numel() + int((per * meets).sum()))
 
 
 def fill_ops(tables):
@@ -782,8 +858,10 @@ def time_strips(torch, rasterize_cuda, colors, state):
           "strip kernels differ from the plain version at the demo inputs")
 
     ms_h = event_ms(torch, lambda: rc.strip_raster(tables, size), 10)
+    dev_h = event_ms(torch, lambda: rc.strip_raster(tables, size), 10, True)
     plain_h = event_ms(torch, lambda: rc.hpass_plain(tables, DEMO_SIZE), 1)
     ms_v = event_ms(torch, lambda: rc.strip_vpass(hp, DEMO_SIZE), 20)
+    dev_v = event_ms(torch, lambda: rc.strip_vpass(hp, DEMO_SIZE), 20, True)
     plain_v = event_ms(torch, lambda: rc.vpass_plain(hp, DEMO_SIZE), 2)
 
     from spriteworld_torch.ops import resample
@@ -797,7 +875,7 @@ def time_strips(torch, rasterize_cuda, colors, state):
     h_ops = lanczos_ops(resample, hc, DEMO_SIZE, b, hc)
     v_ops = lanczos_ops(resample, hc, DEMO_SIZE, b, DEMO_SIZE)
     one_slot, units = uniform_units(torch, tables, DEMO_SIZE)
-    bh = bounds(tables.tab.numel() * 4 + taps_bytes, hp_bytes, f_ops + h_ops,
+    bh = bounds(table_bytes(tables) + taps_bytes, hp_bytes, f_ops + h_ops,
                 f_ops_tc, h_ops * (1 - one_slot / units))
     bv = bounds(hp_bytes + taps_bytes, img.numel(), v_ops, 0, v_ops)
     print(f"strip_raster bound: {f_ops:.0f} fill ({f_ops_tc:.0f} compacted) "
@@ -816,14 +894,14 @@ def time_strips(torch, rasterize_cuda, colors, state):
         "name": "strip_raster", "route": "cuda", "source": source,
         "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:761",
         "launches": None, "max_abs_err": err_h, "ms": ms_h,
-        "plain_ms": plain_h, **bh,
+        "device_ms": dev_h, "plain_ms": plain_h, **bh,
         # No single PyTorch call computes Pillow's fill and Lanczos.
         "library_ms": None,
     }, {
         "name": "strip_vpass", "route": "cuda", "source": source,
         "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:1484",
         "launches": None, "max_abs_err": err_v, "ms": ms_v,
-        "plain_ms": plain_v, **bv,
+        "device_ms": dev_v, "plain_ms": plain_v, **bv,
         # No single PyTorch call gives Pillow's fixed-point rounding.
         "library_ms": None,
     }]
@@ -843,6 +921,9 @@ def time_kernel(torch, rasterize_cuda, colors, state):
 
     ms = event_ms(
         torch, lambda: rasterize_cuda.scene_raster(tables, image_size), 20)
+    device_ms = event_ms(
+        torch, lambda: rasterize_cuda.scene_raster(tables, image_size), 20,
+        True)
     plain_ms = event_ms(
         torch,
         lambda: rasterize_cuda.render_rgb_batch_plain(tables, image_size), 2)
@@ -853,8 +934,8 @@ def time_kernel(torch, rasterize_cuda, colors, state):
     from spriteworld_torch.ops import resample
 
     tiles = rasterize_cuda.lanczos_tiles(64 * aa, 64)
-    in_bytes = tables.tab.numel() * 4 + 2 * (tiles.frags.nbytes
-                                             + tiles.kstart.nbytes)
+    in_bytes = table_bytes(tables) + 2 * (tiles.frags.nbytes
+                                          + tiles.kstart.nbytes)
     out_bytes = BATCH * 64 * 64 * 3
     f_ops = fill_ops(tables)
     f_ops_tc = compacted_fill_ops(torch, tables)
@@ -877,6 +958,7 @@ def time_kernel(torch, rasterize_cuda, colors, state):
         "launches": None,  # filled in with the main path's count
         "max_abs_err": err,
         "ms": ms,
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         **bd,
         "library_ms": None,  # no single PyTorch call rasterizes a scene
@@ -958,16 +1040,18 @@ def word_box_ops(torch, tables, aa, unit_rows):
 
 def time_modes(torch, rasterize_cuda, colors, workloads):
     """Phase 7, the kernels of this slice's modes at their paths' inputs:
-    packed_raster at image64/AA=1 (B=2048) beside the scene kernel on the
-    same tables, the scene kernel in centroid+box at image64/AA=5 (B=2048),
-    the strip kernel in centroid+box at demo256 (B=256). Returns their
-    `kernels` entries; the two centroid+box ones also carry their share of
-    one-slot box blocks and their resident blocks an SM."""
+    packed_raster at image64/AA=1 (B=2048) in both fills, each beside the
+    scene kernel on the same tables, the scene kernel in centroid+box at
+    image64/AA=5 (B=2048), the strip kernel in centroid+box at demo256
+    (B=256). Returns their `kernels` entries, each with its resident blocks
+    an SM; the two centroid+box ones also carry their share of one-slot box
+    blocks."""
     rc = rasterize_cuda
     entries = []
 
     def entry(name, replaces, source, key, state, image_size, aa, pil_exact,
-              run, reps, plain_reps, extra_ops, fast=None):
+              run, reps, plain_reps, extra_ops, box_rows=None,
+              blocks_of=None):
         h, w = image_size
         tables = rc.prepare(state.factors, state.num_sprites, h * aa, w * aa,
                             colors.hsv_to_rgb, pil_exact)
@@ -979,6 +1063,7 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
               f"{err}, {count} differing values")
         check(count == 0, f"{name} differs from the plain version")
         ms = event_ms(torch, lambda: run(tables), reps)
+        device_ms = event_ms(torch, lambda: run(tables), reps, True)
         plain_ms = event_ms(
             torch, lambda: rc.render_rgb_batch_plain(tables, image_size),
             plain_reps)
@@ -986,27 +1071,26 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
             f_ops = fill_ops(tables)
         else:
             f_ops = centroid_ops(torch, tables)
-        in_bytes = tables.tab.numel() * 4
+        in_bytes = table_bytes(tables)
         bound_ms, bound_by = bound(in_bytes, got.numel(),
                                    f_ops + extra_ops(b))
-        extra = {}
-        if fast is None:  # the compacted exact fill, no downsample
-            tc_ops = compacted_fill_ops(torch, tables)
+        extra = {"blocks_per_sm": blocks_of(tables)}
+        # The centroid count is the compacted one already.
+        tc_ops = compacted_fill_ops(torch, tables) if pil_exact else f_ops
+        if box_rows is None:  # no downsample
             print(f"{name} bound: {in_bytes + got.numel()} bytes, "
-                  f"{f_ops:.0f} fill ({tc_ops:.0f} compacted) operations")
+                  f"{f_ops:.0f} fill ({tc_ops:.0f} compacted) operations; "
+                  f"{extra['blocks_per_sm']} resident blocks an SM")
         else:  # the compacted fill and the word box, as the kernels do them
-            unit_rows, blocks_of = fast
-            blocks_per_sm = blocks_of(tables)
             box_w, one_slot, blocks = word_box_ops(torch, tables, aa,
-                                                   unit_rows)
-            tc_ops = f_ops + box_w  # the centroid count is the compacted one
-            extra = {"one_slot_blocks": [one_slot, blocks, one_slot / blocks],
-                     "blocks_per_sm": blocks_per_sm}
+                                                   box_rows)
+            tc_ops += box_w
+            extra["one_slot_blocks"] = [one_slot, blocks, one_slot / blocks]
             print(f"{name} bound: {in_bytes + got.numel()} bytes, "
                   f"{f_ops:.0f} fill + {extra_ops(b)} box operations at "
                   f"every pixel, {box_w:.0f} as the word box does them "
                   f"({one_slot} of {blocks} box blocks one slot); "
-                  f"{blocks_per_sm} resident blocks an SM")
+                  f"{extra['blocks_per_sm']} resident blocks an SM")
         tc_ms, tc_by = bound(in_bytes, got.numel(), tc_ops)
         print(f"{name} bounds: {bound_ms:.6f} ms ({bound_by}), "
               f"{tc_ms:.6f} ms ({tc_by}) as the kernel does the work")
@@ -1015,8 +1099,8 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": workloads[label][2][kernel].get(mode, 0),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # No Lanczos pass: the fill and box counts change.
             "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
             # No single PyTorch call fills and filters a scene.
@@ -1024,18 +1108,35 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
         })
         return tables
 
-    state = workloads["image64 AA=1"][1]
-    tables = entry(
-        "packed_raster", "spriteworld_tpu/ops/rasterize_pallas.py:761",
-        "spriteworld_torch/csrc/packed_raster.cu",
-        ("image64 AA=1", "packed_raster", "exact+identity"), state,
-        (64, 64), 1, True, lambda t: rc.packed_raster(t, (64, 64)), 50, 2,
-        lambda b: 0)
-    scene_ms = event_ms(torch, lambda: rc.scene_raster(tables, (64, 64)), 50)
-    print(f"scene_raster at image64/AA=1 on the same tables, B={BATCH}: "
-          f"{scene_ms:.4f} ms (packed_raster {entries[-1]['ms']:.4f} ms)")
     scene_lib = rc._scene_launcher()[0]
     strip_lib = rc._strip_launchers()[0]
+    packed_lib = rc._packed_launcher()[0]
+
+    def packed_blocks(t):
+        rows = rc.default_tile_rows(64)
+        return packed_lib.packed_raster_blocks_per_sm(
+            rc.packed_smem_bytes(t.tab.shape[1], t.num_vertices, rows), rows)
+
+    for label, pil_exact, name in (
+            ("image64 AA=1", True, "packed_raster"),
+            ("image64 AA=1 fast", False,
+             "packed_raster[centroid+identity]")):
+        tables = entry(
+            name, "spriteworld_tpu/ops/rasterize_pallas.py:761",
+            "spriteworld_torch/csrc/packed_raster.cu",
+            (label, "packed_raster", rc.mode_name(pil_exact,
+                                                  rc.DS_IDENTITY)),
+            workloads[label][1], (64, 64), 1, pil_exact,
+            lambda t: rc.packed_raster(t, (64, 64)), 200, 2, lambda b: 0,
+            blocks_of=packed_blocks)
+        scene_ms = [event_ms(torch,
+                             lambda: rc.scene_raster(tables, (64, 64)), 50,
+                             spin) for spin in (False, True)]
+        print(f"scene_raster at image64/AA=1 on the same tables "
+              f"({entries[-1]['name']}), B={BATCH}: {scene_ms[0]:.4f} ms, "
+              f"device {scene_ms[1]:.4f} ms (packed_raster "
+              f"{entries[-1]['ms']:.4f} ms, device "
+              f"{entries[-1]['device_ms']:.4f} ms)")
 
     def scene_blocks(t):
         return scene_lib.scene_raster_blocks_per_sm(
@@ -1048,7 +1149,7 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
           ("image64 AA=5 fast", "scene_raster", "centroid+box"),
           workloads["image64 AA=5 fast"][1], (64, 64), 5, False,
           lambda t: rc.scene_raster(t, (64, 64)), 20, 2,
-          lambda b: b * 64 * 64 * 3 * 25, fast=(5, scene_blocks))
+          lambda b: b * 64 * 64 * 3 * 25, box_rows=5, blocks_of=scene_blocks)
     hc = DEMO_SIZE * DEMO_AA
     rows = rc.default_strip_rows(hc, rc._round16(hc), DEMO_AA)
 
@@ -1063,7 +1164,7 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
           workloads["demo256 fast"][1], (DEMO_SIZE, DEMO_SIZE), DEMO_AA,
           False, lambda t: rc.strip_raster(t, (DEMO_SIZE, DEMO_SIZE)), 10, 1,
           lambda b: b * DEMO_SIZE * DEMO_SIZE * 3 * DEMO_AA * DEMO_AA,
-          fast=(rows, strip_blocks))
+          box_rows=rows, blocks_of=strip_blocks)
     return entries
 
 
@@ -1074,17 +1175,19 @@ SPLIT_MODES = (("exact+lanczos", True, "lanczos"), ("exact+box", True, "box"),
                ("centroid+box", False, "box"))
 
 
-def path_states(torch, bench_torch, env_lib, steps=2):
+def path_states(torch, bench_torch, env_lib, steps=2, demo=True):
     """(image64 AA=5 state over BATCH lanes, demo256 state over DEMO_BATCH
-    lanes), each after a reset and `steps` steps: the scenes the two
-    Lanczos kernels render on their paths."""
+    lanes unless not `demo`), each after a reset and `steps` steps: the
+    scenes the kernels render on their paths (packed_raster's image64
+    scenes at AA=1 are the same)."""
+    envs = [(bench_torch.build_env(anti_aliasing=5, device="cuda", seed=1),
+             BATCH)]
+    if demo:
+        envs.append((bench_torch.build_demo_env(
+            anti_aliasing=DEMO_AA, render_size=DEMO_SIZE, device="cuda",
+            seed=1), DEMO_BATCH))
     out = []
-    for env, lanes in (
-            (bench_torch.build_env(anti_aliasing=5, device="cuda", seed=1),
-             BATCH),
-            (bench_torch.build_demo_env(anti_aliasing=DEMO_AA,
-                                        render_size=DEMO_SIZE, device="cuda",
-                                        seed=1), DEMO_BATCH)):
+    for env, lanes in envs:
         benv = env_lib.BatchedEnvironment(env, lanes)
         state, _ = benv.reset()
         for _ in range(steps):
@@ -1097,7 +1200,8 @@ def path_states(torch, bench_torch, env_lib, steps=2):
 def time_split(torch, rasterize_cuda, colors, scene_state, demo_state):
     """Phase 7: scene_raster at image64/AA=5 (B=2048) and strip_raster +
     strip_vpass at demo256 (B=256), each in the three SPLIT_MODES on its
-    path's scenes. Returns {kernel: {mode: ms}}."""
+    path's scenes (a kernel whose state is None is left out). Returns
+    {kernel: {mode: ms}}."""
     rc = rasterize_cuda
     runs = (
         ("scene_raster", scene_state, (64, 64), 5, 20,
@@ -1109,6 +1213,8 @@ def time_split(torch, rasterize_cuda, colors, scene_state, demo_state):
     )
     split = {}
     for kernel, state, (h, w), aa, reps, run in runs:
+        if state is None:
+            continue
         split[kernel] = {}
         for mode, pil_exact, ds in SPLIT_MODES:
             tables = rc.prepare(state.factors, state.num_sprites, h * aa,
@@ -1147,27 +1253,127 @@ def many_sprites(torch, rasterize_cuda):
     return worst
 
 
-def vertex_trig(torch, rasterize_cuda):
-    """Phase 3: at random angles, the world vertices the card computes
-    (CUDA's sin/cos) against the CPU's, and the 64x64/AA=1 renders of the
-    same factors on each. Prints both counts; neither is checked, since the
-    CPU is no reference for the card's trig."""
+def float32_trig_vertices(factors):
+    """`geometry.centered_vertices` with sine and cosine taken in float32,
+    the port's trig before it rounded a float64 sine and cosine once. The
+    card and the CPU round these differently; `vertex_trig` measures what
+    that moves."""
+    import torch
+
+    from spriteworld_torch.core import state as state_lib
     from spriteworld_torch.ops import geometry
 
+    base = geometry.vertex_bank(factors.device)[
+        factors[..., state_lib.SHAPE].to(torch.int64)]
+    scaled = base * factors[..., state_lib.SCALE][..., None, None]
+    rad = factors[..., state_lib.ANGLE] * geometry._DEG2RAD
+    c = torch.cos(rad)[..., None]
+    s = torch.sin(rad)[..., None]
+    vx, vy = scaled[..., 0], scaled[..., 1]
+    return torch.stack([c * vx - s * vy, s * vx + c * vy], dim=-1)
+
+
+def edge_clicks(torch, f, n, seed):
+    """Clicks on the CPU's sprite edges: for each lane a sprite below its
+    last live one and one of its edges, the edge's float32 midpoint and the
+    points one float32 ulp from it along x and along y: f32[5, B, 2]."""
+    from spriteworld_torch import constants
+    from spriteworld_torch.core import state as state_lib
+    from spriteworld_torch.ops import geometry
+
+    rng = np.random.default_rng(seed)
+    b = len(f)
+    k = (rng.random(b) * (n - 1)).astype(np.int64)  # below the body
+    lanes = np.arange(b)
+    counts = constants.VERTEX_COUNTS[f[lanes, k, state_lib.SHAPE].astype(int)]
+    e = (rng.random(b) * counts).astype(np.int64)
+    v = geometry.world_vertices(torch.from_numpy(f)).numpy()[lanes, k]
+    mid = ((v[lanes, e] + v[lanes, (e + 1) % counts])
+           * np.float32(0.5)).astype(np.float32)
+    pts = [mid]
+    for axis in (0, 1):
+        for to in (np.inf, -np.inf):
+            p = mid.copy()
+            p[:, axis] = np.nextafter(p[:, axis], np.float32(to))
+            pts.append(p)
+    return np.stack(pts)
+
+
+def trig_counts(torch, rasterize_cuda):
+    """Card against CPU with `geometry.centered_vertices` as it stands: the
+    differing world-vertex values at random angles; the lanes whose
+    SelectMove pick or Embodied carry differs on clicks placed on the CPU's
+    edges (`edge_clicks`: the sprite at the click, or the body placed there,
+    moves on one side and not on the other); the differing values of the
+    anti_aliasing=1 renders at 64x64 (packed_raster), 128x128 (the scene
+    kernel) and 256x256 (as kernel_mode="auto" decides)."""
+    from spriteworld_torch.core import actions
+    from spriteworld_torch.core import state as state_lib
+    from spriteworld_torch.ops import geometry
+
+    out = {}
     f, n = scene_batch(61, BATCH)
-    fc, nc = torch.from_numpy(f), torch.from_numpy(n)
-    v_gpu = geometry.world_vertices(fc.cuda()).cpu()
+    fc = torch.from_numpy(f)
     v_cpu = geometry.world_vertices(fc)
-    vdiff = int((v_gpu != v_cpu).sum())
-    kw = dict(image_size=(64, 64), anti_aliasing=1)
-    _, pdiff = compare(rasterize_cuda.render_rgb_batch(fc.cuda(), nc.cuda(),
-                                                       **kw),
-                       rasterize_cuda.render_rgb_batch(fc, nc, **kw))
-    print(f"vertex trig, card vs CPU at random angles, B={BATCH}: "
-          f"{vdiff} of {v_cpu.numel()} world_vertices values differ; "
-          f"64x64/AA=1 renders: {pdiff} of {BATCH * 64 * 64 * 3} values "
-          "differ")
-    return vdiff, pdiff
+    out["world_vertices"] = [
+        int((geometry.world_vertices(fc.cuda()).cpu() != v_cpu).sum()),
+        v_cpu.numel()]
+    n = np.maximum(n, 2)
+    pts = edge_clicks(torch, f, n, 62)
+    lanes = np.arange(BATCH)
+    select = actions.SelectMove(scale=0.25)
+    embodied = actions.Embodied()
+    picks = carries = 0
+    for p in pts:
+        act = np.concatenate([p, np.full((BATCH, 2), 0.9, np.float32)], -1)
+        fb = f.copy()  # the body (the last live sprite) at the click
+        fb[lanes, n - 1, state_lib.X] = p[:, 0]
+        fb[lanes, n - 1, state_lib.Y] = p[:, 1]
+        carry = np.zeros((BATCH, 2), np.int32)
+        carry[:, 0] = 1
+        res = []
+        for dev in ("cuda", "cpu"):
+            g = torch.Generator(device=dev)
+            nd = torch.from_numpy(n).to(dev)
+            moved = select.step(torch.from_numpy(act).to(dev),
+                                torch.from_numpy(f).to(dev), nd, False, g)[0]
+            carried = embodied.step(torch.from_numpy(carry).to(dev),
+                                    torch.from_numpy(fb).to(dev), nd, False,
+                                    g)[0]
+            res.append((moved.cpu(), carried.cpu()))
+        picks += int((res[0][0] != res[1][0]).flatten(1).any(-1).sum())
+        carries += int((res[0][1] != res[1][1]).flatten(1).any(-1).sum())
+    out["picks"] = [picks, len(pts) * BATCH]
+    out["carries"] = [carries, len(pts) * BATCH]
+    for size, b in ((64, BATCH), (128, BATCH // 4), (256, BATCH // 16)):
+        fs, ns = torch.from_numpy(f[:b]), torch.from_numpy(n[:b])
+        kw = dict(image_size=(size, size), anti_aliasing=1)
+        _, count = compare(
+            rasterize_cuda.render_rgb_batch(fs.cuda(), ns.cuda(), **kw),
+            rasterize_cuda.render_rgb_batch(fs, ns, **kw))
+        out[f"pixels {size}x{size}"] = [count, b * size * size * 3]
+    return out
+
+
+def vertex_trig(torch, rasterize_cuda):
+    """Phase 3: the card's vertices against the CPU's (`trig_counts`), with
+    float32 sine and cosine (`float32_trig_vertices`: printed) and with the
+    port's float64 ones rounded once (checked: nothing may differ).
+    Returns the two count dicts."""
+    from spriteworld_torch.ops import geometry
+
+    tree = geometry.centered_vertices
+    geometry.centered_vertices = float32_trig_vertices
+    try:
+        before = trig_counts(torch, rasterize_cuda)
+    finally:
+        geometry.centered_vertices = tree
+    after = trig_counts(torch, rasterize_cuda)
+    for key in after:
+        print(f"vertex trig, card vs CPU, {key}: {after[key][0]} of "
+              f"{after[key][1]} differ ({before[key][0]} with float32 trig)")
+        check(after[key][0] == 0, f"card and CPU differ in {key}")
+    return before, after
 
 
 def imma_counts(_build):
@@ -1198,6 +1404,49 @@ def imma_counts(_build):
                 per[fn] += 1
         counts[name] = per
     return counts
+
+
+def time_packed(torch, rasterize_cuda, colors, state, reps=200):
+    """packed_raster at image64/AA=1 on `state`'s scenes in both fills,
+    each checked against the plain version first: {mode: {"ms": ...,
+    "device_ms": ...}} (`event_ms` without and with the spin)."""
+    rc = rasterize_cuda
+    out = {}
+    for pil_exact in (True, False):
+        tables = rc.prepare(state.factors, state.num_sprites, 64, 64,
+                            colors.hsv_to_rgb, pil_exact)
+        mode = rc.mode_name(pil_exact, rc.DS_IDENTITY)
+        _, count = compare(rc.packed_raster(tables, (64, 64)),
+                           rc.render_rgb_batch_plain(tables, (64, 64)))
+        check(count == 0, f"packed_raster differs from plain ({mode})")
+        out[mode] = {
+            key: event_ms(torch, lambda: rc.packed_raster(tables, (64, 64)),
+                          reps, spin)
+            for key, spin in (("ms", False), ("device_ms", True))}
+    return out
+
+
+def packed_only():
+    """packed_raster alone at image64/AA=1 (B=2048) in both fills, on
+    freshly built kernels:
+    python3 -c 'import chip_smoke; chip_smoke.packed_only()'. It calls
+    only rasterize_cuda.prepare, packed_raster and render_rgb_batch_plain,
+    so it can time an older tree too."""
+    import torch
+
+    import bench_torch
+    from spriteworld_torch.core import environment as env_lib
+    from spriteworld_torch.ops import _build
+    from spriteworld_torch.ops import rasterize_cuda
+    from spriteworld_torch.utils import colors
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = bench_torch.card_name_and_power_limit()
+    print(card)
+    _build.build_all()
+    state, = path_states(torch, bench_torch, env_lib, demo=False)
+    times = time_packed(torch, rasterize_cuda, colors, state)
+    print(json.dumps({"packed": times, "card": card}))
 
 
 def split_only():
@@ -1281,9 +1530,8 @@ def main():
         e["max_abs_err"] = max(e["max_abs_err"], err, worst_many)
     mode_entries = time_modes(torch, rasterize_cuda, colors, workloads)
     for e in mode_entries:
-        kernel = e["name"].split("[")[0]
-        mode = "exact+identity" if kernel == "packed_raster" else \
-            "centroid+box"
+        kernel, _, mode = e["name"].rstrip("]").partition("[")
+        mode = mode or "exact+identity"
         e["max_abs_err"] = max(e["max_abs_err"], worst_cases,
                                worst_modes.get((kernel, mode), 0))
     entries = [entry] + strip_entries + mode_entries

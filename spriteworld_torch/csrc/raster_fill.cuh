@@ -1,6 +1,7 @@
 // The two polygon fills of one sprite, shared by the scene kernel
-// (scene_raster.cu), the row-strip kernel (strip_raster.cu) and the small
-// anti_aliasing=1 kernel (packed_raster.cu); the slot resolution that the
+// (scene_raster.cu) and the row-strip kernel (strip_raster.cu), with the
+// table layout that the small anti_aliasing=1 kernel (packed_raster.cu,
+// which fills a row its own way) reads too; the slot resolution that the
 // box filter and the Lanczos passes (lanczos_mma.cuh) share; and the box
 // filter by words (`box_words`) with the sprite-bounds test that lets the
 // scene and strip kernels skip the canvas where no sprite reaches.

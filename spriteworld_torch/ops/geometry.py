@@ -30,13 +30,20 @@ def centered_vertices(factors: torch.Tensor) -> torch.Tensor:
     Scale, then rotate counter-clockwise (mpl Affine2D().rotate_deg).
     Returns f32[..., MAX_VERTICES, 2]. The rotation is written out
     elementwise — never a matmul — so no TF32 setting can touch it.
+
+    The angle in radians is the float32 product the JAX package computes;
+    its sine and cosine are taken in float64 and rounded once to float32.
+    float32 sine and cosine round differently on the card and on the CPU
+    (some 4% of vertex values differ, and with them picks near an edge);
+    both round a float64 value within an ulp of the true one to the same
+    float32 but for ties one in ~10^8 apart.
     """
     shape_id = factors[..., state_lib.SHAPE].to(torch.int64)
     base = vertex_bank(factors.device)[shape_id]  # [..., V, 2]
     scaled = base * factors[..., state_lib.SCALE][..., None, None]
-    rad = factors[..., state_lib.ANGLE] * _DEG2RAD
-    c = torch.cos(rad)[..., None]
-    s = torch.sin(rad)[..., None]
+    rad = (factors[..., state_lib.ANGLE] * _DEG2RAD).to(torch.float64)
+    c = torch.cos(rad).to(torch.float32)[..., None]
+    s = torch.sin(rad).to(torch.float32)[..., None]
     vx = scaled[..., 0]
     vy = scaled[..., 1]
     return torch.stack([c * vx - s * vy, s * vx + c * vy], dim=-1)

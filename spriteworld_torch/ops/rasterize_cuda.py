@@ -335,7 +335,6 @@ _SCENE_WARPS = 16  # scene_raster.cu threads_of(false) / 32
 _SCENE_LANCZOS_WARPS = 8  # threads_of(true) / 32
 _SCENE_BAND_ROWS = 80  # scene_raster.cu kBandRows
 _STRIP_WARPS = 8  # strip_raster.cu kThreads / 32
-_PACKED_WARPS = 4  # packed_raster.cu kThreads / 32
 
 
 def _round8(n: int) -> int:
@@ -393,11 +392,42 @@ def strip_smem_bytes(k: int, strip_rows: int, wc: int,
     return head + _round16(canvas) + _chan_bytes(k)
 
 
-def packed_smem_bytes(k: int, tile_rows: int, w: int) -> int:
+# csrc/packed_raster.cu: warps a block at most (a lane a row, so 32 times
+# this is the most rows a tile), words of staged records a block holds at
+# most (more go in chunks), words of a warp's output buffer (16 rows of
+# 3 * 64 + 16 bytes).
+_PACKED_MAX_WARPS = 4
+_PACKED_STAGE_WORDS = 2560
+_PACKED_OUT_WORDS = 16 * (3 * 64 + 16) // 4
+
+
+def packed_threads(tile_rows: int) -> int:
+    """Threads of a packed_raster block of `tile_rows` canvas rows: a warp
+    for each 32 rows, up to four (csrc/packed_raster.cu `threads_of`)."""
+    return 32 * min(_PACKED_MAX_WARPS, -(-tile_rows // 32))
+
+
+def packed_record_words(count: int, nf: int) -> int:
+    """Words of one sprite's record in packed_raster's shared memory
+    (csrc/packed_raster.cu `record_words`): `count` float4 edges, their
+    float2 row ranges (rounded up to 4 words), `nf` int4 features."""
+    return 4 * count + ((2 * count + 3) & ~3) + 4 * nf
+
+
+def packed_smem_bytes(k: int, num_vertices: int, tile_rows: int) -> int:
     """Shared memory of one packed_raster block: a mirror of `layout` in
-    csrc/packed_raster.cu."""
-    return (_round16((k + 1 + 2 * _PACKED_WARPS * 32) * 4)
-            + _round16(tile_rows * w))
+    csrc/packed_raster.cu. The colour words (K + 1), the staging plan (an
+    8-word header and 5 ints a sprite, 3 more), then the records' region:
+    every
+    sprite's record at its largest up to `_PACKED_STAGE_WORDS` words
+    (larger tables are staged in chunks), and at least the warps' output
+    buffers, which reuse it."""
+    threads = packed_threads(tile_rows)
+    most = min(k * packed_record_words(num_vertices, 2 * num_vertices),
+               _PACKED_STAGE_WORDS)
+    stage = max(most, threads // 32 * _PACKED_OUT_WORDS)
+    return (_round16(4 * (k + 1)) + _round16((13 * k + 3) * 4)
+            + 4 * stage)
 
 
 KERNEL_MODES = ("auto", "scene", "strips")
@@ -454,9 +484,6 @@ def uses_packed(image_size: Tuple[int, int], anti_aliasing: int,
 # Canvas bytes a strip block keeps in shared memory by default: small
 # enough for three blocks on one SM.
 _STRIP_CANVAS_BYTES = 64 * 1024
-# And a packed block, whose canvas is usually the whole frame (4 KiB at
-# 64x64): taller frames go in tiles of rows of at most this much.
-_PACKED_CANVAS_BYTES = 32 * 1024
 
 
 def default_strip_rows(hc: int, wc: int, multiple: int = 1) -> int:
@@ -468,11 +495,10 @@ def default_strip_rows(hc: int, wc: int, multiple: int = 1) -> int:
     return max(multiple, rows)
 
 
-def default_tile_rows(h: int, w: int) -> int:
-    """Image rows per packed_raster block: the whole frame up to
-    `_PACKED_CANVAS_BYTES` (a block then needs at most ~35 KiB of shared
-    memory for K <= 254)."""
-    return max(1, min(h, _PACKED_CANVAS_BYTES // w))
+def default_tile_rows(h: int) -> int:
+    """Image rows per packed_raster block: the whole frame up to 128 rows,
+    a lane a row (64x64: two warps); taller frames go in tiles of 128."""
+    return max(1, min(h, 32 * _PACKED_MAX_WARPS))
 
 
 def render_rgb_batch(factors: torch.Tensor,
@@ -567,6 +593,9 @@ def _packed_launcher():
     fn.restype = ctypes.c_int
     lib.packed_raster_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.packed_raster_smem_bytes.restype = ctypes.c_longlong
+    lib.packed_raster_blocks_per_sm.argtypes = [ctypes.c_longlong,
+                                                ctypes.c_int]
+    lib.packed_raster_blocks_per_sm.restype = ctypes.c_int
     return lib, fn
 
 
@@ -769,11 +798,11 @@ def packed_raster(tables: SceneTables, image_size: Tuple[int, int],
     """Launch the anti_aliasing=1 small-canvas kernel on prepared tables ->
     u8[B, H, W, 3].
 
-    Any anti_aliasing=1 canvas, in tiles of `default_tile_rows` rows;
-    `render_rgb_batch` sends it the canvases of `uses_packed`. Runs on the
-    current stream; raises when the kernel cannot launch. Each launch adds
-    one to `packed_raster.launches` and to
-    `packed_raster.by_mode[mode_name(...)]`.
+    Any anti_aliasing=1 canvas at most 64 pixels wide (a row is one
+    64-bit mask), in tiles of `default_tile_rows` rows; `render_rgb_batch`
+    sends it the canvases of `uses_packed`. Runs on the current stream;
+    raises when the kernel cannot launch. Each launch adds one to
+    `packed_raster.launches` and to `packed_raster.by_mode[mode_name(...)]`.
     """
     b, k = _check_tables(tables, image_size, "packed_raster")
     tab = tables.tab
@@ -781,7 +810,10 @@ def packed_raster(tables: SceneTables, image_size: Tuple[int, int],
     if tables.hc != h:
         raise ValueError(f"packed_raster renders at anti_aliasing=1; the "
                          f"canvas is {tables.hc}x{tables.wc} for {h}x{w}")
-    rows = default_tile_rows(h, w)
+    if w > 64:
+        raise ValueError(f"packed_raster renders canvases at most 64 "
+                         f"pixels wide; this one is {w}")
+    rows = default_tile_rows(h)
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=tab.device)
     if b == 0:
         return out
@@ -960,6 +992,99 @@ def box_words(slots: torch.Tensor, colors: torch.Tensor, aa: int, w: int):
     out = torch.where(one_slot[..., None],
                       colour.reshape(b, h, w, 3).to(torch.float32), mean)
     return out.to(torch.uint8), one_slot
+
+
+def _cols_from(t: torch.Tensor) -> torch.Tensor:
+    """i64 64-bit masks (two's complement) of the columns c >= t."""
+    m = torch.bitwise_left_shift(torch.full_like(t, -1), t.clamp(0, 63))
+    return torch.where(t >= 64, torch.zeros_like(m), m)
+
+
+def _col_range(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """i64 masks of the columns a..b (none when a > b)."""
+    m = _cols_from(a) & ~_cols_from(b + 1)
+    return torch.where(a > b, torch.zeros_like(m), m)
+
+
+def _fold(x, w, parity, window):
+    """packed_raster.cu `fold`: a crossing x of weight w flips the parity
+    of the columns c with x <= c - 0.5 (from t, found by floor and one
+    compare) and marks its window column t - 1 unless x lies on a pixel
+    boundary."""
+    f = torch.floor(x).clamp(-2.0, 65.0)
+    half = f + 0.5
+    t = f.to(torch.int64) + torch.where(x <= half, 1, 2)
+    parity = parity ^ torch.where((w & 1) == 1, _cols_from(t), 0)
+    s = t - 1
+    bit = torch.bitwise_left_shift(torch.ones_like(s), s.clamp(0, 63))
+    on = (w > 0) & (x != half) & (s >= 0) & (s < 64)
+    return parity, window | torch.where(on, bit, 0)
+
+
+def packed_row_masks(tables: SceneTables, k: int) -> torch.Tensor:
+    """i64[B, hc]: sprite k's columns on each canvas row as the packed
+    kernel computes them (csrc/packed_raster.cu `exact_row`,
+    `centroid_row`, the staged feature and column masks), bit c for column
+    c of a canvas at most 64 wide; 0 on rows outside the sprite's row
+    bounds and for a dead sprite. The edges are walked in order with the
+    first row maximum held aside for the odd-total trim, crossings become
+    integer column thresholds, and parities and windows 64-bit masks."""
+    tab = tables.tab[:, k]  # [B, NT]
+    hc, wc = tables.hc, tables.wc
+    dev = tab.device
+    v = tables.num_vertices
+    rf = torch.arange(hc, dtype=torch.float32, device=dev)[None, :]
+    zero = torch.zeros((tab.shape[0], hc), dtype=torch.int64, device=dev)
+    fields = [f[:, 0] for f in _edge_fields(tables, k)]  # each [B, V]
+    if tables.pil_exact:
+        y0, m, x0, ymn, ymx = fields
+        gymax = tab[:, T_GYMAX, None]
+        parity, window = zero, zero
+        total, hw = zero, zero
+        hx = torch.full((tab.shape[0], hc), -_BIG, device=dev)
+        for e in range(v):  # edges past the count never weigh
+            inr = (rf >= ymn[:, e, None]) & (rf <= ymx[:, e, None])
+            dup = inr & (rf == ymx[:, e, None]) & (ymx[:, e, None] < gymax)
+            w = inr.to(torch.int64) + dup.to(torch.int64)
+            total = total + w
+            xi = x0[:, e, None] + (rf - y0[:, e, None]) * m[:, e, None]
+            top = (w > 0) & (xi > hx)
+            fx = torch.where(top, hx, xi)
+            fw = torch.where(top, hw, w)
+            hx = torch.where(top, xi, hx)
+            hw = torch.where(top, w, hw)
+            parity, window = _fold(fx, fw, parity, window)
+        parity, window = _fold(hx, hw - (total & 1), parity, window)
+        feats = tables.features()[:, k]  # [B, 2V, 3]
+        nf = tab[:, T_NF].to(torch.int64)
+        lo = torch.ceil(feats[..., 1]).clamp(0, 64).to(torch.int64)
+        hi = torch.floor(feats[..., 2]).clamp(-1, 63).to(torch.int64)
+        fmask = _col_range(lo, hi)  # [B, 2V]
+        row = feats[..., 0]
+        live = ((torch.arange(2 * v, device=dev)[None] < nf[:, None])
+                & (row == torch.floor(row)))
+        on = zero
+        for j in range(2 * v):
+            hit = live[:, j, None] & (row[:, j, None] == rf)
+            on = on | torch.where(hit, fmask[:, j, None], 0)
+        mask = parity | window | on
+    else:
+        y0, dy, x0, y1, dx = fields
+        py = rf + 0.5
+        mask = zero
+        for e in range(v):  # dead edges have y1 == y0: no straddle
+            straddle = ((y0[:, e, None] > py) != (y1[:, e, None] > py))
+            x = x0[:, e, None] + ((py - y0[:, e, None]) / dy[:, e, None]) \
+                * dx[:, e, None]
+            f = torch.floor(x).clamp(-2.0, 65.0)
+            u = f.to(torch.int64) + (x > f + 0.5).to(torch.int64)
+            mask = mask ^ torch.where(straddle, ~_cols_from(u), 0)
+    c0 = tab[:, T_COL0].to(torch.int64).clamp(min=0)
+    c1 = tab[:, T_COL1].to(torch.int64).clamp(max=wc - 1)
+    rows_in = ((rf >= tab[:, T_ROW0, None].trunc())
+               & (rf <= tab[:, T_ROW1, None].trunc())
+               & (tab[:, T_COUNT, None].to(torch.int64) > 0))
+    return torch.where(rows_in, mask & _col_range(c0, c1)[:, None], 0)
 
 
 def exact_crossings(tables: SceneTables, k: int):

@@ -62,3 +62,28 @@ def test_uniform_units_of_empty_and_filled_scenes():
     assert u == total == 3 * (320 // 8) * 4
     u, total = chip_smoke.uniform_units(torch, _tables(2, 3), 64)
     assert total == 3 * (320 // 8) * 4 and 0 < u < total
+
+
+@pytest.mark.parametrize("pil_exact", [True, False])
+def test_table_bytes_count_only_what_the_kernels_read(pil_exact):
+    """Every sprite's count; the other scalars, `count` edges and `nf`
+    features of each live sprite whose rows meet the canvas; never the
+    padding to V edges and 2V features."""
+    tables = _tables(3, 6, pil_exact=pil_exact, aa=1)
+    tab = tables.tab.numpy()
+    want = tab.shape[0] * tab.shape[1]
+    for t in tab.reshape(-1, tab.shape[-1]):
+        count, nf = int(t[tcuda.T_COUNT]), int(t[tcuda.T_NF])
+        if count and t[tcuda.T_ROW0] <= tables.hc - 1 and t[tcuda.T_ROW1] >= 0:
+            want += tcuda.NUM_SCALARS - 1 + 5 * count + 3 * nf
+    got = chip_smoke.table_bytes(tables)
+    assert got == 4 * want
+    assert got < tables.tab.numel() * 4
+    if not pil_exact:  # the centroid fill has no features
+        assert (tab[..., tcuda.T_NF] == 0).all()
+    # A sprite moved off the canvas costs only its count.
+    off = tcuda.SceneTables(tab=tables.tab.clone(),
+                            num_vertices=tables.num_vertices, hc=tables.hc,
+                            wc=tables.wc, pil_exact=pil_exact)
+    off.tab[..., tcuda.T_ROW0] = tables.hc + 5
+    assert chip_smoke.table_bytes(off) == 4 * tab.shape[0] * tab.shape[1]
