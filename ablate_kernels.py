@@ -26,6 +26,12 @@ canvas pixels) that do.
 Usage: python3 ablate_kernels.py [--out PATH] [--only NAME,NAME...]
 (default spriteworld_torch/build/ablation.json, every variant)
 (needs one CUDA card)
+
+`chunk_graphs()` times the runner's graph of one step, replayed per step of
+a chunk, against one graph of the whole chunk:
+python3 -c 'import ablate_kernels; ablate_kernels.chunk_graphs()'.
+`eager_steps()` times the eager environment step of this tree or of an
+older one, driven the same way (see its docstring).
 """
 
 import argparse
@@ -35,6 +41,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -362,6 +369,134 @@ def child(share, checked, kernels=KERNELS):
                                    else rc.DS_IDENTITY):
                       cs.event_ms(torch, lambda: run(t), reps, aa == 1)}
     print(json.dumps(out))
+
+
+def chunk_graphs(steps=20, chunks=6):
+    """A rollout chunk of `steps` steps replayed from the runner's graph of
+    one step against one graph that captures all `steps` steps, on
+    chip_smoke.RUNNER_PATHS, in alternating chunks (each: load the start
+    state, replay, read the metrics):
+    python3 -c 'import ablate_kernels; ablate_kernels.chunk_graphs()'.
+    Prints one JSON line a path with each chunk's seconds."""
+    import torch
+
+    import bench_torch
+    import chip_smoke as cs
+    from spriteworld_torch.ops import _build
+    from spriteworld_torch.parallel import ShardedRunner
+    from spriteworld_torch.parallel import runner as runner_lib
+
+    cs.check(torch.cuda.is_available(), "no CUDA device")
+    card = bench_torch.card_name_and_power_limit()
+    print(card)
+    _build.build_all()
+    for label, name, aa, lanes, _ in cs.RUNNER_PATHS:
+        env, _, _ = bench_torch.build(name, aa, True, device="cuda", seed=0)
+        runner = ShardedRunner(env, lanes)
+        state, _ = runner.reset(0)
+        sig = (steps, False, None)
+        state, _ = runner.rollout(state, steps)  # captures the step graph
+        carry, step_graph = runner._programs[sig]
+        whole = torch.cuda.CUDAGraph()
+        whole.register_generator_state(env.generator)
+        gen = env.generator.get_state()
+        with torch.cuda.graph(whole):
+            for _ in range(steps):
+                runner._step(carry, *sig, defer=True)
+        env.generator.set_state(gen)
+
+        def chunk(graph, replays):
+            carry.load(state, runner.episode_returns)
+            for _ in range(replays):
+                graph.replay()
+            return runner_lib._to_host(carry.counts)
+
+        times = {"step graph": [], "chunk graph": []}
+        for c in range(chunks):
+            runs = [("step graph", step_graph, steps),
+                    ("chunk graph", whole, 1)]
+            for key, graph, replays in (runs if c % 2 == 0 else runs[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                chunk(graph, replays)
+                times[key].append(time.perf_counter() - t0)
+        print(json.dumps({"path": label, "lanes": lanes, "steps": steps,
+                          "seconds": times, "card": card}))
+
+
+def eager_steps(tree=".", workload="image64", aa=None, lanes=None,
+                steps=20, chunks=4, device="cuda"):
+    """The eager environment step of the repo's tree at `tree` (this one,
+    or an older commit unpacked with `git archive`), driven the same way
+    for every tree: `BatchedEnvironment.step` on `sample_actions()` from
+    one reset, no observation read. Prints one JSON line: wall ms a step
+    and env-steps/s of `chunks` timed chunks of `steps` steps (after one
+    warm-up chunk), and on the card the device busy ms, idle share and
+    launches a step of one more chunk under torch.profiler. Run one tree
+    a process:
+    python3 -c 'import ablate_kernels as a; a.eager_steps("archive/parent",
+    "sorting")'."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import statistics
+
+    import torch
+
+    import bench_torch
+    from spriteworld_torch.core import environment as env_lib
+
+    (name, aa, exact), = bench_torch.todo_list(workload, aa, False)
+    lanes = lanes or (256 if name == "demo256" else 2048)
+    env, _, _ = bench_torch.build(name, aa, exact, device=device, seed=0)
+    benv = env_lib.BatchedEnvironment(env, lanes)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def chunk(state):
+        for _ in range(steps):
+            state, _ = benv.step(state, benv.sample_actions())
+        return state
+
+    state = chunk(benv.reset()[0])
+    times = []
+    for _ in range(chunks):
+        sync()
+        t0 = time.perf_counter()
+        state = chunk(state)
+        sync()
+        times.append(time.perf_counter() - t0)
+    out = {"tree": tree, "workload": name, "anti_aliasing": aa,
+           "lanes": lanes, "device": device, "steps": steps,
+           "chunk_seconds": times,
+           "wall_ms_per_step_best": min(times) * 1e3 / steps,
+           "wall_ms_per_step_median":
+               statistics.median(times) * 1e3 / steps,
+           "env_steps_per_sec_best": lanes * steps / min(times),
+           "env_steps_per_sec_median":
+               lanes * steps / statistics.median(times)}
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            chunk(state)
+            sync()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        out.update({
+            "profiled_wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernel_launches_per_step":
+                sum(e.count for e in kernels) / steps,
+            "card": bench_torch.card_name_and_power_limit()})
+    else:
+        out["host_cpus"] = os.cpu_count()
+    print(json.dumps(out), flush=True)
 
 
 def main():

@@ -23,23 +23,30 @@ anti_aliasing=10 and Success, 256 lanes by default. Its 2560x2560 canvas
 renders through the row-strip kernels (with --fast, in their centroid and
 box mode). It stays outside `all`.
 
-Every observation leaf and the reward feed an on-device sum (a stand-in
-learner). Each timed chunk ends in torch.cuda.synchronize(); "value" is the
-best chunk's rate (bench.py's rule), "median_steps_per_sec" the median
-chunk's.
+The lanes step through `spriteworld_torch.parallel.ShardedRunner`, a chunk
+of --steps steps at a time (the runner keeps the episode metrics on the
+device and reads them once a chunk), after one warm-up chunk. --runner
+graph (default) replays each step as a captured CUDA graph; --runner eager
+launches the same step's kernels one by one; --runner pairs runs both on the
+same env and alternates their chunks (graph, eager, eager, graph, ...), so
+the two are compared within one call. Each timed chunk ends in
+torch.cuda.synchronize(); "value" is the best chunk's rate (bench.py's
+rule), "median_steps_per_sec" the median chunk's.
 
-Prints ONE JSON line per workload in bench.py's shape, with "backend":
-"cuda", the card's name and its power limit. Needs a CUDA device.
+Prints ONE JSON line per workload and runner in bench.py's shape, with
+"runner", "backend": "cuda", the card's name and its power limit; with
+pairs, then a line with each pair's chunk seconds. Needs a CUDA device.
 
-With --profile N it then runs N more steps under torch.profiler and prints
-a second JSON line: wall and device-busy time per step, the device's idle
-share, kernel launches per step and the kernels that take the most device
-time. The profiler's own overhead lengthens those steps.
+With --profile N it then runs one chunk of N steps of each runner under
+torch.profiler and prints a JSON line each: wall and device-busy time per
+step, the device's idle share, kernel launches per step (a graph replay's
+kernels counted one by one) and the kernels that take the most device time.
+The profiler's own overhead lengthens those steps.
 
 Usage: python bench_torch.py [--workload image64|factors|clustering|sorting|
                               embodied|demo256|all] [--aa N] [--fast]
-                             [--num_envs B] [--steps 50] [--chunks 3]
-                             [--profile N]
+                             [--runner graph|eager|pairs] [--num_envs B]
+                             [--steps 50] [--chunks 3] [--profile N]
 """
 
 import argparse
@@ -59,6 +66,7 @@ from spriteworld_torch.core import environment as env_lib
 from spriteworld_torch.core import generators as sprite_generators
 from spriteworld_torch.core import renderers
 from spriteworld_torch.core import tasks
+from spriteworld_torch.parallel import ShardedRunner
 
 
 def goal_finding_parts():
@@ -175,59 +183,50 @@ def card_name_and_power_limit() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def leaves(tree):
-    """The tensors of a nested dict of observations."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in leaves(v)]
-    return [tree]
+def timed_chunks(runners, steps: int, chunks: int):
+    """{mode: seconds of each of `chunks` timed chunks of `steps` steps},
+    after a reset and one warm-up chunk (which captures a graph) of each
+    runner, and {mode: final state}. With two runners the chunks alternate
+    in pairs whose order flips each time (A B, B A, A B, ...)."""
+    states = {}
+    for mode, runner in runners.items():
+        state, _ = runner.reset()
+        states[mode], _ = runner.rollout(state, steps)
+    times = {mode: [] for mode in runners}
+    order = list(runners)
+    for c in range(chunks):
+        for mode in (order if c % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[mode], _ = runners[mode].rollout(states[mode], steps)
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t0)
+    return times, states
 
 
-def consume(ts) -> torch.Tensor:
-    """Sum of every observation leaf and the reward, on the device."""
-    total = torch.nan_to_num(ts.reward).sum()
-    for leaf in leaves(ts.observation):
-        total = total + leaf.to(torch.float32).sum()
-    return total
-
-
-def run(benv, steps: int, chunks: int):
-    """(seconds of each of `chunks` timed runs of `steps` steps after one
-    warm-up chunk, final state)."""
-    state, ts = benv.reset()
-    acc = consume(ts)
-    times = []
-    for c in range(chunks + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, ts = benv.step(state, benv.sample_actions())
-            acc = acc + consume(ts)
-        torch.cuda.synchronize()
-        if c > 0:
-            times.append(time.perf_counter() - t0)
-    return times, state
-
-
-def profile(benv, state, steps: int) -> dict:
-    """Device time by kernel over `steps` steps, from torch.profiler."""
+def profile(runner, state, steps: int) -> dict:
+    """Device time by kernel over one chunk of `steps` steps, from
+    torch.profiler (after one unprofiled chunk of the same length)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    state, _ = runner.rollout(state, steps)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = benv.step(state, benv.sample_actions())
+        runner.rollout(state, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Device-side events only: operator events carry their kernels' time
-    # too, and would count it twice.
+    # Kernels only: operator events carry their kernels' time too, and
+    # the device-side ranges of `profiling.annotate` span them.
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {
+        "runner": "graph" if runner.use_graph else "eager",
         "profile_steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -282,45 +281,62 @@ def main(argv=None):
     p.add_argument("--fast", action="store_true",
                    help="image64 or demo256 with pil_exact=False (centroid "
                         "fill + box filter)")
+    p.add_argument("--runner", default="graph",
+                   choices=["graph", "eager", "pairs"],
+                   help="replay captured CUDA graphs, launch the step's "
+                        "kernels eagerly, or alternate the two")
     p.add_argument("--num_envs", type=int, default=None,
                    help="lanes (default: 2048; 256 for demo256)")
     p.add_argument("--steps", type=int, default=50,
                    help="steps per timed chunk")
     p.add_argument("--chunks", type=int, default=3,
-                   help="timed chunks (best taken) after one warm-up chunk")
+                   help="timed chunks of each runner (best taken) after "
+                        "one warm-up chunk")
     p.add_argument("--profile", type=int, default=0,
-                   help="steps to run under torch.profiler after each "
-                        "workload")
+                   help="steps of a chunk to run under torch.profiler "
+                        "after each workload")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_torch.py needs a CUDA device", file=sys.stderr)
         return 1
     card = card_name_and_power_limit()
+    modes = ["graph", "eager"] if args.runner == "pairs" else [args.runner]
     for name, aa, exact in todo_list(args.workload, args.aa, args.fast):
         num_envs = args.num_envs or (256 if name == "demo256" else 2048)
         env, suffix, extra = build(name, aa, exact)
-        benv = env_lib.BatchedEnvironment(env, num_envs)
-        times, state = run(benv, args.steps, args.chunks)
-        steps_per_sec = num_envs * args.steps / min(times)
-        print(json.dumps({
-            "metric": f"env_steps_per_sec_per_chip_{suffix}",
-            "value": steps_per_sec,
-            "unit": "env-steps/s/chip",
-            "vs_baseline": None,
-            "workload": name,
-            "num_envs": num_envs,
-            "chip_count": 1,
-            "total_steps_per_sec": steps_per_sec,
-            "median_steps_per_sec":
-                num_envs * args.steps / statistics.median(times),
-            "chunk_seconds": times,
-            "backend": "cuda",
-            **extra,
-            "device": torch.cuda.get_device_name(0),
-            "card": card,
-        }), flush=True)
+        runners = {m: ShardedRunner(env, num_envs, use_graph=m == "graph")
+                   for m in modes}
+        times, states = timed_chunks(runners, args.steps, args.chunks)
+        for mode in modes:
+            steps_per_sec = num_envs * args.steps / min(times[mode])
+            print(json.dumps({
+                "metric": f"env_steps_per_sec_per_chip_{suffix}",
+                "value": steps_per_sec,
+                "unit": "env-steps/s/chip",
+                "vs_baseline": None,
+                "workload": name,
+                "runner": mode,
+                "num_envs": num_envs,
+                "chip_count": 1,
+                "total_steps_per_sec": steps_per_sec,
+                "median_steps_per_sec":
+                    num_envs * args.steps / statistics.median(times[mode]),
+                "chunk_seconds": times[mode],
+                "backend": "cuda",
+                **extra,
+                "device": torch.cuda.get_device_name(0),
+                "card": card,
+            }), flush=True)
+        if len(modes) == 2:
+            pairs = list(zip(times["graph"], times["eager"]))
+            print(json.dumps({
+                "workload": name, "pairs_graph_eager_seconds": pairs,
+                "graph_faster": sum(g < e for g, e in pairs),
+                "card": card}), flush=True)
         if args.profile:
-            print(json.dumps(profile(benv, state, args.profile)), flush=True)
+            for mode in modes:
+                print(json.dumps(profile(runners[mode], states[mode],
+                                         args.profile)), flush=True)
     return 0
 
 

@@ -56,7 +56,18 @@ Phases:
      chunk longer than an episode, with the same per-step checks, launch
      counts by kernel and mode, and for embodied that actions moved the
      agent's body; each workload's env-steps/s on a line of its own;
-  7. the split: scene_raster at image64/AA=5 (B=2048) and strip_raster +
+  7. the runner (spriteworld_torch.parallel.ShardedRunner) on image64 at
+     AA=5 and AA=1 and sorting over 2048 lanes and demo256 over 256: a
+     chunk of 8 steps replayed from a captured CUDA graph, whose capture
+     launched the path's kernels (and no other) through their wrappers,
+     equal bit for bit (state, step types, rewards, images, metrics) to
+     the eager runner's chunk from the same generator state, run under
+     torch.cuda.set_sync_debug_mode("error"); metrics against the stacked
+     timesteps; two replays from one state drawing different scenes and
+     actions; graph and eager env-steps/s from alternating chunks; and a
+     chunk whose fresh scenes leave rejection elements pending after the
+     first round, run again and equal to the eager step loop;
+  8. the split: scene_raster at image64/AA=5 (B=2048) and strip_raster +
      strip_vpass at demo256 (B=256) in exact+lanczos, exact+box and
      centroid+box on their paths' scenes (one JSON `split` line); each
      kernel's time at its path's shapes (`ms`: launches queued between two
@@ -73,11 +84,12 @@ Phases:
      their share of one-slot box blocks; every entry with its resident
      blocks an SM), packed_raster in both fills, as one JSON `kernels`
      line, and the scene kernel's time at image64/AA=1 beside
-     packed_raster's in each fill;
-  8. the last line: {"ok": true, "device": {...}}.
+     packed_raster's in each fill; every kernel also timed inside a CUDA
+     graph of its launches (`graph_ms`);
+  9. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
-python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 7's split)
+python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 8's split)
 python3 -c 'import chip_smoke; chip_smoke.packed_only()'  (packed_raster)
 """
 
@@ -665,6 +677,215 @@ def drive_workloads(torch, bench_torch, env_lib, rasterize_cuda, card):
     return out
 
 
+# Phase 7, the runner: (label, bench_torch workload, anti_aliasing, lanes,
+# {kernel: mode} that the captured step launches).
+RUNNER_PATHS = [
+    ("image64 AA=5", "image64", 5, BATCH, {"scene_raster": "exact+lanczos"}),
+    ("image64 AA=1", "image64", 1, BATCH,
+     {"packed_raster": "exact+identity"}),
+    ("sorting", "sorting", None, BATCH, {"scene_raster": "exact+lanczos"}),
+    ("demo256", "demo256", DEMO_AA, DEMO_BATCH,
+     {"strip_raster": "exact+lanczos", "strip_vpass": "lanczos"}),
+]
+RUNNER_STEPS = 8  # the compared chunk, with stacked timesteps
+RUNNER_TIMED_STEPS = 20  # steps of each timed chunk
+RUNNER_PAIRS = 3  # timed graph/eager chunk pairs
+
+
+def launch_counts(rasterize_cuda):
+    rc = rasterize_cuda
+    return {k.__name__: dict(k.by_mode) for k in (
+        rc.scene_raster, rc.strip_raster, rc.strip_vpass, rc.packed_raster)}
+
+
+def equal_runs(torch, a, b, what):
+    """Checks two (state, Metrics, stacked TimeStep) results bit-equal."""
+    from spriteworld_torch.core.state import STATE_FIELDS
+
+    (sa, ma, ta), (sb, mb, tb) = a, b
+    for name in STATE_FIELDS:
+        check(torch.equal(getattr(sa, name), getattr(sb, name)),
+              f"{what}: state field {name} differs")
+    for name in ("step_type", "discount"):
+        check(torch.equal(getattr(ta, name), getattr(tb, name)),
+              f"{what}: {name} differs")
+    check(torch.equal(ta.reward.nan_to_num(), tb.reward.nan_to_num())
+          and torch.equal(ta.reward.isnan(), tb.reward.isnan()),
+          f"{what}: rewards differ")
+    for key in ta.observation:
+        check(torch.equal(ta.observation[key], tb.observation[key]),
+              f"{what}: observation {key} differs")
+    check(ma == mb, f"{what}: metrics differ ({ma} against {mb})")
+
+
+def metrics_of(tss, ret_acc):
+    """(episodes, successes, return sum, reward sum) recomputed on the host
+    in float64 from stacked timesteps, from per-lane returns `ret_acc`."""
+    reward = np.nan_to_num(tss.reward.cpu().numpy().astype(np.float64))
+    last = tss.step_type.cpu().numpy() == 2
+    succ = tss.observation["success"].cpu().numpy()
+    acc = ret_acc.cpu().numpy().astype(np.float64)
+    returns = 0.0
+    for t in range(reward.shape[0]):
+        acc += reward[t]
+        returns += acc[last[t]].sum()
+        acc[last[t]] = 0.0
+    return (int(last.sum()), int((last & succ).sum()), returns,
+            float(reward.sum()))
+
+
+def low_acceptance_env(bench_torch, env_lib):
+    """image64 at AA=1 whose sprite x comes from a Selection that accepts
+    4% of its proposals: at 2048 lanes x 6 sprites a step's fresh scenes
+    leave elements pending after the first rejection round."""
+    from spriteworld_torch.core import actions, renderers
+    from spriteworld_torch.core import distributions as d
+    from spriteworld_torch.core import generators
+
+    task, _ = bench_torch.goal_finding_parts()
+    pos = d.Selection(d.Product([d.Continuous("x", 0.0, 1.0),
+                                 d.Continuous("y", 0.1, 0.9)]),
+                      d.Continuous("x", 0.3, 0.34))
+    sprites = generators.generate_sprites(d.Product([
+        pos, d.Discrete("shape", ["square", "triangle", "star_5"]),
+        d.Continuous("angle", 0, 360), d.Continuous("scale", 0.1, 0.2),
+        d.Continuous("c0", 0.0, 0.9), d.Continuous("c1", 0.3, 1.0),
+        d.Continuous("c2", 0.9, 1.0)]), num_sprites=6)
+    return env_lib.Environment(
+        task=task, action_space=actions.SelectMove(scale=0.25),
+        renderers={"image": renderers.ImageRenderer(
+                       (64, 64), anti_aliasing=1, color_to_rgb="hsv"),
+                   "success": renderers.Success()},
+        init_sprites=sprites, max_episode_length=20, device="cuda", seed=0)
+
+
+def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
+    """Phase 7: each path through ShardedRunner. The first chunk captures
+    a graph (one warm-up launch and one captured launch of each of the
+    path's kernels, none other; replays add none) and its stacked
+    timesteps and metrics must equal, bit for bit, the eager runner's from
+    the same generator state, run under torch.cuda.set_sync_debug_mode
+    ("error"); the metrics must agree with the timesteps; two replays of a
+    one-step graph from one state must draw different scenes and actions;
+    then timed graph/eager chunk pairs. Last, a chunk whose fresh scenes
+    leave rejection elements pending runs again, and must equal the plain
+    eager step loop. Returns {label: (graph env-steps/s, eager)}."""
+    from spriteworld_torch.parallel import ShardedRunner
+
+    rates = {}
+    for label, name, aa, lanes, kernels in RUNNER_PATHS:
+        env, _, _ = bench_torch.build(name, aa, True, device="cuda", seed=0)
+        graph = ShardedRunner(env, lanes)
+        eager = ShardedRunner(env, lanes, use_graph=False)
+        check(graph.use_graph, "the runner does not default to a graph")
+        start, _ = graph.reset(1)
+        gen = env.generator.get_state()
+        rasterize_cuda.reset_launch_counts()
+        ran_graph = graph.rollout(start, RUNNER_STEPS, return_timesteps=True)
+        captured = launch_counts(rasterize_cuda)
+        want = {k: {} for k in captured}
+        for k, mode in kernels.items():
+            want[k] = {mode: 2}
+        print(f"runner {label}: launches through the wrappers while "
+              f"capturing and replaying {RUNNER_STEPS} steps: {captured}")
+        check(captured == want, f"runner {label}: the captured step did "
+                                f"not launch {kernels} (once to warm up, "
+                                "once captured) and nothing else")
+        env.generator.set_state(gen)
+        eager.episode_returns = np.zeros(lanes, np.float32)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ran_eager = eager.rollout(start, RUNNER_STEPS,
+                                      return_timesteps=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(launch_counts(rasterize_cuda) == {
+            k: {m: n + (RUNNER_STEPS if k in kernels else 0)
+                for m, n in v.items()} for k, v in want.items()},
+            f"runner {label}: an eager step did not launch the kernels")
+        equal_runs(torch, ran_graph, ran_eager, f"runner {label}")
+        _, m, tss = ran_graph
+        host = metrics_of(tss, torch.zeros(lanes))
+        check((m.episodes, m.successes) == host[:2]
+              and abs(m.return_sum - host[2]) <= 1e-4 * max(1, abs(host[2]))
+              and abs(m.reward_sum - host[3]) <= 1e-4 * abs(host[3]),
+              f"runner {label}: metrics {m} disagree with the timesteps "
+              f"{host}")
+        image = tss.observation["image"]
+        side = DEMO_SIZE if name == "demo256" else 64
+        check(tuple(image.shape) == (RUNNER_STEPS, lanes, side * side * 3)
+              and int(image.amax(-1).eq(0).sum()) == 0,
+              f"runner {label}: images {tuple(image.shape)} or blank")
+        print(f"runner {label}: graph and eager chunks equal; {m}")
+
+        # Two replays of one graph from one state draw anew: from the
+        # initial state every lane takes a fresh scene, and a policy that
+        # keeps its actions in a buffer shows them drawn anew.
+        a, _ = graph.rollout(env.initial_state(lanes), 1)
+        b, _ = graph.rollout(env.initial_state(lanes), 1)
+        fresh = (a.factors != b.factors).flatten(1).any(1)
+        seen = env.sample_action(lanes)
+
+        def recording(generator, state, seen=seen, env=env):
+            actions = env.sample_action(lanes)
+            seen.copy_(actions)
+            return actions
+
+        recorder = ShardedRunner(env, lanes, policy=recording)
+        recorder.rollout(ran_graph[0], 1)
+        first = seen.clone()
+        recorder.rollout(ran_graph[0], 1)
+        drawn = (first != seen).flatten(1).any(1)
+        print(f"runner {label}: two replays from one state: fresh scenes "
+              f"differ in {int(fresh.sum())}, actions in "
+              f"{int(drawn.sum())} of {lanes} lanes")
+        check(bool(fresh.all()) and bool(drawn.all()),
+              f"runner {label}: replays repeat their draws")
+
+        times, _ = bench_torch.timed_chunks(
+            {"graph": graph, "eager": eager}, RUNNER_TIMED_STEPS,
+            2 * RUNNER_PAIRS)
+        rate = {k: lanes * RUNNER_TIMED_STEPS / min(v)
+                for k, v in times.items()}
+        print(f"env_steps_per_sec graph {rate['graph']:.1f} eager "
+              f"{rate['eager']:.1f} ({label}, {lanes} lanes, runner, best "
+              f"of {2 * RUNNER_PAIRS} chunks of {RUNNER_TIMED_STEPS} "
+              f"steps each, alternating) on {card}; chunk seconds "
+              f"{json.dumps(times)}")
+        check(graph.reruns == 0 and eager.reruns == 0,
+              f"runner {label}: a chunk ran again")
+        fresh_ms = graph_ms(torch, lambda: env.initial_state(lanes), 10,
+                            env.generator)
+        print(f"runner {label}: fresh scenes for all {lanes} lanes, as "
+              f"every step samples them: {fresh_ms:.4f} ms of device time "
+              f"in a graph, on {card}")
+        rates[label] = (rate["graph"], rate["eager"])
+
+    env = low_acceptance_env(bench_torch, env_lib)
+    runner = ShardedRunner(env, BATCH)
+    start, _ = runner.reset(2)
+    gen = env.generator.get_state()
+    ran = runner.rollout(start, 4, return_timesteps=True)
+    check(runner.reruns == 1, f"the low-acceptance chunk ran "
+                              f"{runner.reruns} times again, not once")
+    check(bool(ran[0].sample_ok.all()), "a lane's scene was not sampled")
+    env.generator.set_state(gen)
+    state = start
+    for t in range(4):
+        state, ts = env.step_batch(state, env.sample_action(BATCH))
+        check(torch.equal(ts.observation["image"].reshape(BATCH, -1),
+                          ran[2].observation["image"][t])
+              and torch.equal(ts.step_type, ran[2].step_type[t]),
+              f"re-run chunk step {t} differs from the eager loop")
+    from spriteworld_torch.core.state import STATE_FIELDS
+    for name in STATE_FIELDS:
+        check(torch.equal(getattr(state, name), getattr(ran[0], name)),
+              f"re-run chunk: state field {name} differs")
+    print("runner: a chunk with rejection pending after the first round "
+          "ran again and equals the eager loop")
+    return rates
+
+
 _SPIN_RATE = []
 
 
@@ -707,6 +928,30 @@ def event_ms(torch, fn, reps, spin=False):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps, generator=None):
+    """Mean device time of one call of `fn` inside a CUDA graph of `reps`
+    calls, between two events around one replay after a warm one
+    (`graph_ms` in the kernels line: the kernel as the runner's graph
+    replays it, with no wrapper on the host). `fn` may draw from
+    `generator`, which the graph then registers."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -837,7 +1082,7 @@ def bounds(in_bytes, out_bytes, ops, fill_tc, lanczos_tc):
 
 
 def time_strips(torch, rasterize_cuda, colors, state):
-    """Phase 6, strips: strip_raster and strip_vpass at the demo path's
+    """Phase 8, strips: strip_raster and strip_vpass at the demo path's
     inputs. Returns their `kernels` entries."""
     rc = rasterize_cuda
     size = (DEMO_SIZE, DEMO_SIZE)
@@ -860,8 +1105,10 @@ def time_strips(torch, rasterize_cuda, colors, state):
     ms_h = event_ms(torch, lambda: rc.strip_raster(tables, size), 10)
     dev_h = event_ms(torch, lambda: rc.strip_raster(tables, size), 10, True)
     plain_h = event_ms(torch, lambda: rc.hpass_plain(tables, DEMO_SIZE), 1)
+    graph_h = graph_ms(torch, lambda: rc.strip_raster(tables, size), 10)
     ms_v = event_ms(torch, lambda: rc.strip_vpass(hp, DEMO_SIZE), 20)
     dev_v = event_ms(torch, lambda: rc.strip_vpass(hp, DEMO_SIZE), 20, True)
+    graph_v = graph_ms(torch, lambda: rc.strip_vpass(hp, DEMO_SIZE), 20)
     plain_v = event_ms(torch, lambda: rc.vpass_plain(hp, DEMO_SIZE), 2)
 
     from spriteworld_torch.ops import resample
@@ -894,21 +1141,21 @@ def time_strips(torch, rasterize_cuda, colors, state):
         "name": "strip_raster", "route": "cuda", "source": source,
         "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:761",
         "launches": None, "max_abs_err": err_h, "ms": ms_h,
-        "device_ms": dev_h, "plain_ms": plain_h, **bh,
+        "device_ms": dev_h, "graph_ms": graph_h, "plain_ms": plain_h, **bh,
         # No single PyTorch call computes Pillow's fill and Lanczos.
         "library_ms": None,
     }, {
         "name": "strip_vpass", "route": "cuda", "source": source,
         "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:1484",
         "launches": None, "max_abs_err": err_v, "ms": ms_v,
-        "device_ms": dev_v, "plain_ms": plain_v, **bv,
+        "device_ms": dev_v, "graph_ms": graph_v, "plain_ms": plain_v, **bv,
         # No single PyTorch call gives Pillow's fixed-point rounding.
         "library_ms": None,
     }]
 
 
 def time_kernel(torch, rasterize_cuda, colors, state):
-    """Phase 5: scene_raster at the main path's inputs."""
+    """Phase 8: scene_raster at the main path's inputs."""
     image_size, aa = (64, 64), 5
     tables = rasterize_cuda.prepare(state.factors, state.num_sprites,
                                     64 * aa, 64 * aa, colors.hsv_to_rgb)
@@ -924,6 +1171,8 @@ def time_kernel(torch, rasterize_cuda, colors, state):
     device_ms = event_ms(
         torch, lambda: rasterize_cuda.scene_raster(tables, image_size), 20,
         True)
+    in_graph_ms = graph_ms(
+        torch, lambda: rasterize_cuda.scene_raster(tables, image_size), 20)
     plain_ms = event_ms(
         torch,
         lambda: rasterize_cuda.render_rgb_batch_plain(tables, image_size), 2)
@@ -959,6 +1208,7 @@ def time_kernel(torch, rasterize_cuda, colors, state):
         "max_abs_err": err,
         "ms": ms,
         "device_ms": device_ms,
+        "graph_ms": in_graph_ms,
         "plain_ms": plain_ms,
         **bd,
         "library_ms": None,  # no single PyTorch call rasterizes a scene
@@ -1039,7 +1289,7 @@ def word_box_ops(torch, tables, aa, unit_rows):
 
 
 def time_modes(torch, rasterize_cuda, colors, workloads):
-    """Phase 7, the kernels of this slice's modes at their paths' inputs:
+    """Phase 8, the kernels of this slice's modes at their paths' inputs:
     packed_raster at image64/AA=1 (B=2048) in both fills, each beside the
     scene kernel on the same tables, the scene kernel in centroid+box at
     image64/AA=5 (B=2048), the strip kernel in centroid+box at demo256
@@ -1064,6 +1314,7 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
         check(count == 0, f"{name} differs from the plain version")
         ms = event_ms(torch, lambda: run(tables), reps)
         device_ms = event_ms(torch, lambda: run(tables), reps, True)
+        in_graph_ms = graph_ms(torch, lambda: run(tables), reps)
         plain_ms = event_ms(
             torch, lambda: rc.render_rgb_batch_plain(tables, image_size),
             plain_reps)
@@ -1100,7 +1351,8 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
             "replaces": replaces,
             "launches": workloads[label][2][kernel].get(mode, 0),
             "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "graph_ms": in_graph_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             # No Lanczos pass: the fill and box counts change.
             "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
             # No single PyTorch call fills and filters a scene.
@@ -1168,7 +1420,7 @@ def time_modes(torch, rasterize_cuda, colors, workloads):
     return entries
 
 
-# Phase 7, the split: (fill, downsample) modes of each Lanczos kernel. The
+# Phase 8, the split: (fill, downsample) modes of each Lanczos kernel. The
 # difference exact+lanczos - exact+box is the Lanczos passes' cost, exact+box
 # - centroid+box mostly the exact fill's.
 SPLIT_MODES = (("exact+lanczos", True, "lanczos"), ("exact+box", True, "box"),
@@ -1198,7 +1450,7 @@ def path_states(torch, bench_torch, env_lib, steps=2, demo=True):
 
 
 def time_split(torch, rasterize_cuda, colors, scene_state, demo_state):
-    """Phase 7: scene_raster at image64/AA=5 (B=2048) and strip_raster +
+    """Phase 8: scene_raster at image64/AA=5 (B=2048) and strip_raster +
     strip_vpass at demo256 (B=256), each in the three SPLIT_MODES on its
     path's scenes (a kernel whose state is None is left out). Returns
     {kernel: {mode: ms}}."""
@@ -1450,7 +1702,7 @@ def packed_only():
 
 
 def split_only():
-    """The phase-7 split alone, on freshly built kernels:
+    """The phase-8 split alone, on freshly built kernels:
     python3 -c 'import chip_smoke; chip_smoke.split_only()'."""
     import torch
 
@@ -1518,6 +1770,11 @@ def main():
 
     workloads = drive_workloads(torch, bench_torch, env_lib, rasterize_cuda,
                                 card)
+    runner_rates = drive_runner(torch, bench_torch, env_lib, rasterize_cuda,
+                                card)
+    print(json.dumps({"runner_env_steps_per_sec": {
+        label: {"graph": g, "eager": e}
+        for label, (g, e) in runner_rates.items()}, "card": card}))
 
     split = time_split(torch, rasterize_cuda, colors, state, demo_state)
     print(json.dumps({"split": split}))
@@ -1536,7 +1793,8 @@ def main():
                                worst_modes.get((kernel, mode), 0))
     entries = [entry] + strip_entries + mode_entries
     for e in entries:
-        print(f"{e['name']}: kernel {e['ms']:.4f} ms, plain "
+        print(f"{e['name']}: kernel {e['ms']:.4f} ms ({e['graph_ms']:.4f} "
+              f"ms in a graph), plain "
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms "
               f"({e['bound_by']}), tensor-core bound "
               f"{e['bound_tc_ms']:.6f} ms ({e['bound_tc_by']}), "

@@ -20,23 +20,76 @@ Semantics kept from the reference:
   * Rejection is bounded by MAX_REJECTION_TRIES proposals per element;
     ``ok`` is False where the bound ran out or a nested rejection node
     reported exhaustion, which stops the outer loop at once (fail fast).
+
+Sampling makes no host sync, so that a step can be captured in a CUDA
+graph: categorical draws invert cached cumulative probabilities, a mixture
+draws every component for every element and selects, and a rejection node
+draws its first REJECTION_ROUNDS proposals of every element at once. Only
+when an element is still pending after those does the node look at the
+host (see `_rejection_sample` and `defer_rejection`).
 """
 
 from __future__ import annotations
 
 import abc
+import contextlib
+import contextvars
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
 from spriteworld_torch import constants
+from spriteworld_torch.utils import device as device_lib
 
 Spec = Dict[str, torch.Tensor]
 
 # Proposals per element before a rejection node gives up, as the JAX
 # package's (the reference raises after as many).
 MAX_REJECTION_TRIES = 100_000
+# Proposals of every element a rejection node draws at once before it asks
+# which elements are still pending. At the lowest acceptance rate of the
+# rejecting configs (0.6, configs/examples/goal_finding_clustering.py's
+# scale) an element is still pending after 32 of them with chance
+# 0.4^32 = 2e-13 (PERF.md).
+REJECTION_ROUNDS = 32
+
+_DEFERRED = contextvars.ContextVar("spriteworld_rejection_deferred",
+                                   default=None)
+
+
+@contextlib.contextmanager
+def defer_rejection(flag: torch.Tensor):
+    """Within the block, a rejection node with elements still pending after
+    its REJECTION_ROUNDS proposals sets `flag` (a bool[] tensor on the
+    sampling device) and returns them with ok=False, instead of proposing
+    on under a host check. Nothing then reads the device from the host, so
+    the block can be captured in a CUDA graph. The caller reads `flag`
+    afterwards and, where it is set, samples again outside this block from
+    the same generator state: the first REJECTION_ROUNDS proposals are the
+    same draws, and the host-checked ones continue them
+    (`parallel.runner.ShardedRunner` re-runs such a chunk)."""
+    token = _DEFERRED.set(flag)
+    try:
+        yield flag
+    finally:
+        _DEFERRED.reset(token)
+
+
+def cumulative_probs(probs) -> np.ndarray:
+    """float32 cumulative probabilities of `probs`, normalized."""
+    p = np.asarray(probs, np.float64)
+    return (np.cumsum(p) / p.sum()).astype(np.float32)
+
+
+def categorical(generator: torch.Generator, cdf: np.ndarray, shape):
+    """i64[*shape] indices drawn with cumulative probabilities `cdf`, by
+    inverting the CDF at uniform draws: unlike `torch.multinomial`, no
+    validity check on the host."""
+    dev = generator.device
+    u = torch.rand(shape, generator=generator, device=dev)
+    idx = torch.bucketize(u, device_lib.constant(cdf, dev), right=True)
+    return idx.clamp_(max=len(cdf) - 1)
 
 
 def _resolve(key: str, value):
@@ -123,25 +176,23 @@ class Discrete(AbstractDistribution):
         self.candidates = np.asarray(
             [_resolve(key, c) for c in candidates], dtype=np.float32)
         self.probs = None if probs is None else np.asarray(probs)
+        self._cdf = None if probs is None else cumulative_probs(probs)
 
     def sample_with_status(self, generator, shape=()):
         dev = generator.device
-        n = len(self.candidates)
-        numel = int(np.prod(shape))
-        if self.probs is None:
-            idx = torch.randint(n, (numel,), generator=generator, device=dev)
+        if self._cdf is None:
+            idx = torch.randint(len(self.candidates), shape,
+                                generator=generator, device=dev)
         else:
-            p = torch.as_tensor(self.probs, dtype=torch.float32, device=dev)
-            idx = torch.multinomial(p, numel, replacement=True,
-                                    generator=generator)
-        cands = torch.as_tensor(self.candidates, device=dev)
-        return ({self.key: cands[idx].reshape(shape)},
+            idx = categorical(generator, self._cdf, shape)
+        cands = device_lib.constant(self.candidates, dev)
+        return ({self.key: cands[idx]},
                 torch.ones(shape, dtype=torch.bool, device=dev))
 
     def contains(self, spec: Spec) -> torch.Tensor:
         self._require_keys(spec)
         v = spec[self.key]
-        cands = torch.as_tensor(self.candidates, device=v.device)
+        cands = device_lib.constant(self.candidates, v.device)
         return (v[..., None] == cands).any(-1)
 
     def to_str(self, indent):
@@ -164,33 +215,58 @@ def _same_keys_check(components, what):
     return keys
 
 
+def _proposal_rounds(generator, shape, rounds, propose, accept):
+    """`rounds` proposals of every element, drawn at once; of each element's,
+    the first that ends its do-while (accepted, or not ok: fail fast), else
+    the last. Returns (spec, ok, pending bool[*shape]): pending where none
+    of them ended the loop."""
+    spec, ok = propose(generator, (rounds,) + shape)
+    ok = ok.expand((rounds,) + shape)
+    stop = accept(spec) | ~ok
+    r = torch.arange(rounds, device=ok.device).view((rounds,)
+                                                    + (1,) * len(shape))
+    first = torch.where(stop, r, rounds - 1).amin(0, keepdim=True)
+
+    def take(v):
+        return v.expand((rounds,) + shape).gather(0, first).squeeze(0)
+
+    return ({k: take(v) for k, v in spec.items()}, take(ok),
+            ~stop.any(0))
+
+
 def _rejection_sample(generator, shape, propose, accept):
     """Batched bounded rejection: propose until each element is accepted.
 
-    `propose(generator, shape) -> (Spec, ok)`, `accept(Spec) -> bool`. Each
-    round proposes again only for the elements still pending (not accepted,
-    and whose last proposal was ok), so every element has its own do-while
-    loop of at most MAX_REJECTION_TRIES proposals, as in the JAX package's
-    `_rejection_sample`. A proposal with ok=False (a nested rejection node
-    that ran out) stops that element's loop: fail fast. Returns (spec,
-    accept(spec) & ok). Each round costs one host check of the pending
-    count.
+    `propose(generator, shape) -> (Spec, ok)`, `accept(Spec) -> bool`. Every
+    element runs its own do-while loop of at most MAX_REJECTION_TRIES
+    proposals, as in the JAX package's `_rejection_sample`; a proposal with
+    ok=False (a nested rejection node that ran out) stops that element's
+    loop: fail fast. Returns (spec, accept(spec) & ok).
+
+    The proposals come in rounds of REJECTION_ROUNDS for every element,
+    each element taking the first of a round that ends its loop, so the
+    first round makes no host sync. Where an element is still pending after
+    it, the node goes on with further rounds while the host finds one
+    pending; inside `defer_rejection` it sets the flag instead and stops.
     """
-    spec, ok = propose(generator, shape)
-    flat = {k: v.reshape(-1).clone() for k, v in spec.items()}
-    ok = ok.reshape(-1).clone()
-    pending = (~accept(flat) & ok).nonzero().squeeze(1)
-    tries = 1
-    while pending.numel() and tries < MAX_REJECTION_TRIES:
-        new, new_ok = propose(generator, (pending.numel(),))
-        for k in flat:
-            flat[k][pending] = new[k]
-        ok[pending] = new_ok
-        pending = pending[~accept(new) & new_ok]
-        tries += 1
     shape = tuple(shape)
-    return ({k: v.reshape(shape) for k, v in flat.items()},
-            (accept(flat) & ok).reshape(shape))
+    rounds = min(REJECTION_ROUNDS, MAX_REJECTION_TRIES)
+    spec, ok, pending = _proposal_rounds(generator, shape, rounds, propose,
+                                         accept)
+    flag = _DEFERRED.get()
+    if flag is not None:
+        flag.logical_or_(pending.any())
+        return spec, accept(spec) & ok
+    tries = rounds
+    while tries < MAX_REJECTION_TRIES and bool(pending.any()):
+        n = min(REJECTION_ROUNDS, MAX_REJECTION_TRIES - tries)
+        new, new_ok, new_pending = _proposal_rounds(generator, shape, n,
+                                                    propose, accept)
+        spec = {k: torch.where(pending, new[k], v) for k, v in spec.items()}
+        ok = torch.where(pending, new_ok, ok)
+        pending = pending & new_pending
+        tries += n
+    return spec, accept(spec) & ok
 
 
 class Mixture(AbstractDistribution):
@@ -201,27 +277,24 @@ class Mixture(AbstractDistribution):
         self.probs = (np.ones(len(self.components)) / len(self.components)
                       if probs is None else np.asarray(probs))
         self._keys = _same_keys_check(self.components, "Mixture")
+        self._cdf = cumulative_probs(self.probs)
 
     def sample_with_status(self, generator, shape=()):
-        dev = generator.device
-        numel = int(np.prod(shape))
-        p = torch.as_tensor(self.probs, dtype=torch.float32, device=dev)
-        idx = torch.multinomial(p, numel, replacement=True,
-                                generator=generator)
-        out = {k: torch.zeros(numel, device=dev) for k in self._keys}
-        ok = torch.ones(numel, dtype=torch.bool, device=dev)
-        # Each element draws from its own component only.
-        for i, c in enumerate(self.components):
-            where = (idx == i).nonzero().squeeze(1)
-            if not where.numel():
-                continue
-            spec, c_ok = c.sample_with_status(generator, (where.numel(),))
-            for k in out:
-                out[k][where] = spec[k].to(torch.float32)
-            ok[where] = c_ok
         shape = tuple(shape)
-        return ({k: v.reshape(shape) for k, v in out.items()},
-                ok.reshape(shape))
+        idx = categorical(generator, self._cdf, shape)
+        # Every component draws for every element and each element takes
+        # its own component's draw (JAX's lax.switch under vmap).
+        out, ok = None, None
+        for i, c in enumerate(self.components):
+            spec, c_ok = c.sample_with_status(generator, shape)
+            spec = {k: v.to(torch.float32) for k, v in spec.items()}
+            if out is None:
+                out, ok = spec, c_ok
+                continue
+            sel = idx == i
+            out = {k: torch.where(sel, spec[k], out[k]) for k in out}
+            ok = torch.where(sel, c_ok, ok)
+        return out, ok
 
     def contains(self, spec: Spec) -> torch.Tensor:
         results = torch.broadcast_tensors(

@@ -12,8 +12,12 @@ Step pipeline (reference environment.py:88-108, preserved order):
 
 Auto-reset: a step on a lane whose previous step was LAST resamples that
 lane's scene and emits FIRST — including the reference quirk that the first
-`step_batch` from `initial_state` performs a reset (reset_next=True). Only
-the terminated lanes are resampled; each step renders once.
+`step_batch` from `initial_state` performs a reset (reset_next=True). As in
+the JAX package's `transition` under vmap, every step samples a fresh scene
+for every lane and the lanes with reset_next select it (`torch.where`), so
+the step never asks the host which lanes those are: it makes no host sync
+and can be captured in a CUDA graph (`parallel.runner`). Each step renders
+once, the selected state.
 """
 
 from __future__ import annotations
@@ -22,10 +26,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from spriteworld_torch.core.state import EnvState, StepType, TimeStep
+from spriteworld_torch.core.state import (STATE_FIELDS, EnvState, StepType,
+                                          TimeStep)
 from spriteworld_torch.core.tasks import task_valid
 from spriteworld_torch.ops import geometry
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils import profiling
 
 
 class Environment:
@@ -125,47 +131,58 @@ class Environment:
         return self._fresh(batch, reset_next=True)
 
     def step_batch(self, state: EnvState, actions: torch.Tensor):
-        """One transition of every lane plus one render: (state, TimeStep)."""
-        factors, cost = self._action_space.step(
-            actions, state.factors, state.num_sprites, self._keep_in_frame,
-            self.generator)
-        # Velocity integration for every sprite; dead slots carry zero
-        # velocity so padding is unaffected.
-        new_pos = factors[..., 0:2] + factors[..., 8:10]
-        if self._keep_in_frame:
-            new_pos = new_pos.clamp(0.0, 1.0)
-        factors[..., 0:2] = new_pos
-        num = state.num_sprites
+        """One transition of every lane plus one render: (state, TimeStep).
 
-        reward = cost + self._task.reward(factors, num)
-        success = self._task.success(factors, num)
-        oof = geometry.out_of_frame(factors, num)
-        step_count = state.step_count + 1
-        terminate = success | oof | (step_count >= self._max_episode_length)
-        new = EnvState(
-            factors=factors,
-            num_sprites=num.clone(),
-            step_count=step_count,
-            reset_next=terminate,
-            sample_ok=state.sample_ok.clone(),
-            task_valid=task_valid(self._task, factors, num))
-        step_type = torch.where(terminate, StepType.LAST, StepType.MID).to(
-            torch.int32)
-        discount = torch.where(terminate, 0.0, 1.0)
+        Lanes whose previous step was LAST take a fresh scene and emit FIRST
+        (reward 0, discount 1) instead of stepping."""
+        with profiling.annotate("spriteworld.transition"):
+            factors, cost = self._action_space.step(
+                actions, state.factors, state.num_sprites,
+                self._keep_in_frame, self.generator)
+            # Velocity integration for every sprite; dead slots carry zero
+            # velocity so padding is unaffected.
+            new_pos = factors[..., 0:2] + factors[..., 8:10]
+            if self._keep_in_frame:
+                new_pos = new_pos.clamp(0.0, 1.0)
+            factors[..., 0:2] = new_pos
+            num = state.num_sprites
 
-        # Lanes that ended last step start a new episode instead.
-        lanes = state.reset_next.nonzero().squeeze(1)
-        if lanes.numel():
-            fresh = self._fresh(lanes.numel(), reset_next=False)
-            for name in ("factors", "num_sprites", "step_count", "reset_next",
-                         "sample_ok", "task_valid"):
-                getattr(new, name)[lanes] = getattr(fresh, name)
-            step_type[lanes] = StepType.FIRST
-            reward[lanes] = 0.0
-            discount[lanes] = 1.0
+            reward = cost + self._task.reward(factors, num)
+            success = self._task.success(factors, num)
+            oof = geometry.out_of_frame(factors, num)
+            step_count = state.step_count + 1
+            terminate = success | oof | (
+                step_count >= self._max_episode_length)
+            stepped = EnvState(
+                factors=factors,
+                num_sprites=num,
+                step_count=step_count,
+                reset_next=terminate,
+                sample_ok=state.sample_ok,
+                task_valid=task_valid(self._task, factors, num))
 
-        success = self._task.success(new.factors, new.num_sprites)
-        obs = self.observation_batch(new.factors, new.num_sprites, success)
+            # Lanes that ended last step start a new episode instead.
+            reset = state.reset_next
+            fresh = self._fresh(reset.shape[0], reset_next=False)
+
+            def select(a, b):
+                return torch.where(
+                    reset.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+            new = EnvState(**{name: select(getattr(fresh, name),
+                                           getattr(stepped, name))
+                              for name in STATE_FIELDS})
+            step_type = torch.where(
+                reset, StepType.FIRST,
+                torch.where(terminate, StepType.LAST, StepType.MID)).to(
+                    torch.int32)
+            reward = torch.where(reset, 0.0, reward)
+            discount = torch.where(reset | ~terminate, 1.0, 0.0)
+
+        with profiling.annotate("spriteworld.render"):
+            success = self._task.success(new.factors, new.num_sprites)
+            obs = self.observation_batch(new.factors, new.num_sprites,
+                                         success)
         return new, TimeStep(step_type=step_type, reward=reward,
                              discount=discount, observation=obs)
 

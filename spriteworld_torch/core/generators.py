@@ -18,6 +18,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from spriteworld_torch.core import distributions
 from spriteworld_torch.core import state as state_lib
 
 
@@ -140,29 +141,32 @@ class SampleGenerator(SpriteGenerator):
     def __init__(self, gens: Sequence[SpriteGenerator], p=None):
         self.gens = list(gens)
         self.p = None if p is None else np.asarray(p)
+        self._cdf = None if p is None else distributions.cumulative_probs(p)
         self.max_sprites = max(g.max_sprites for g in self.gens)
 
     def sample_with_status(self, generator, batch: int):
         dev = generator.device
-        n = len(self.gens)
-        if self.p is None:
-            idx = torch.randint(n, (batch,), generator=generator, device=dev)
+        if self._cdf is None:
+            idx = torch.randint(len(self.gens), (batch,), generator=generator,
+                                device=dev)
         else:
-            p = torch.as_tensor(self.p, dtype=torch.float32, device=dev)
-            idx = torch.multinomial(p, batch, replacement=True,
-                                    generator=generator)
-        factors = state_lib.default_factors((batch, self.max_sprites), dev)
-        num = torch.zeros(batch, dtype=torch.int32, device=dev)
-        ok = torch.ones(batch, dtype=torch.bool, device=dev)
-        # Each lane draws from its own generator only.
+            idx = distributions.categorical(generator, self._cdf, (batch,))
+        # Every generator draws for every lane and each lane takes its own
+        # generator's scene (JAX's lax.switch under vmap).
+        factors = num = ok = None
         for i, g in enumerate(self.gens):
-            lanes = (idx == i).nonzero().squeeze(1)
-            if not lanes.numel():
+            f, n_i, ok_i = g.sample_with_status(generator, batch)
+            pad = self.max_sprites - g.max_sprites
+            if pad:
+                f = torch.cat(
+                    [f, state_lib.default_factors((batch, pad), dev)], 1)
+            if factors is None:
+                factors, num, ok = f, n_i, ok_i
                 continue
-            f, n_i, ok_i = g.sample_with_status(generator, lanes.numel())
-            factors[lanes, :g.max_sprites] = f
-            num[lanes] = n_i
-            ok[lanes] = ok_i
+            sel = idx == i
+            factors = torch.where(sel[:, None, None], f, factors)
+            num = torch.where(sel, n_i, num)
+            ok = torch.where(sel, ok_i, ok)
         return factors, num, ok
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spriteworld_torch import constants
@@ -55,7 +56,7 @@ def _round_half_up(f):
 def _canvas_vertices(factors, hc: int, wc: int):
     """World vertices scaled to PIL canvas coordinates (x*W, y*H)."""
     verts = geometry.world_vertices(factors)  # [..., V, 2]
-    scale = torch.tensor([wc, hc], dtype=torch.float32, device=verts.device)
+    scale = device_lib.constant(np.array([wc, hc], np.float32), verts.device)
     return verts * scale
 
 
@@ -261,8 +262,8 @@ def _render_chunk(factors, num_sprites, image_size, aa, bg_color,
     counts = device_lib.constant(constants.VERTEX_COUNTS, dev)[shape_ids]
     colors = sprite_colors(factors, color_to_rgb)
 
-    bg = torch.tensor(bg_color if bg_color is not None else (0, 0, 0),
-                      dtype=torch.float32, device=dev)
+    bg = device_lib.constant(np.array(
+        bg_color if bg_color is not None else (0, 0, 0), np.float32), dev)
     canvas = bg.expand(b, hc, wc, 3)
 
     mask_fn = _pil_polygon_mask if pil_exact else _centroid_polygon_mask

@@ -1,0 +1,138 @@
+"""Checkpoint/resume of simulation state: tensors keyed by field path.
+
+Counterpart of `spriteworld_tpu/parallel/checkpoint.py`, without orbax: the
+whole simulation (factor tensors, step counters, flags, batched over lanes)
+is a tree of tensors, and `save_state` writes its leaves into one `.npz`
+keyed by their path in the tree, spelled as `jax.tree_util.keystr` spells
+it (`.factors` for a dataclass field, `['env_state']` for a dict key, `[0]`
+for a sequence index). The state holds no random key: the port draws from
+the environment's `torch.Generator`, and a generator in the tree is saved as
+its state and restored into the generator in `like`, so a restored run
+resumes the same trajectory. The recommended runner checkpoint is::
+
+    ckpt = {"env_state": state, "episode_returns": runner.episode_returns,
+            "generator": env.generator}
+    save_state(path, ckpt)
+    ...
+    restored = restore_state(path, like=ckpt)  # sets env.generator's state
+    runner.episode_returns = restored["episode_returns"]
+
+so per-episode returns of episodes in flight at save time survive a
+kill-and-resume.
+
+Forward migration, as in the JAX package: leaves are keyed by path, so a
+checkpoint taken before a state field existed restores cleanly — missing
+leaves are filled from `like` with a warning, extra leaves are ignored with
+a warning. That is also how a JAX package `.npz` restores: its EnvState's
+`.key` (typed PRNG key data; the generators differ) is dropped, every other
+field restores equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Any, Callable, List, Tuple
+
+import numpy as np
+import torch
+
+
+def _is_leaf(x) -> bool:
+    return not (isinstance(x, (dict, list, tuple))
+                or dataclasses.is_dataclass(x))
+
+
+def _children(tree) -> List[Tuple[str, Any]]:
+    """(path suffix, child) pairs in JAX's flattening order."""
+    if isinstance(tree, dict):
+        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    return [(f".{f.name}", getattr(tree, f.name))
+            for f in dataclasses.fields(tree)]
+
+
+def _flatten(tree, path: str = "") -> List[Tuple[str, Any]]:
+    if _is_leaf(tree):
+        return [(path, tree)]
+    return [item for suffix, child in _children(tree)
+            for item in _flatten(child, path + suffix)]
+
+
+def _rebuild(tree, fn: Callable, path: str = ""):
+    """`tree` with each leaf replaced by fn(path, leaf)."""
+    if _is_leaf(tree):
+        return fn(path, tree)
+    new = {suffix: _rebuild(child, fn, path + suffix)
+           for suffix, child in _children(tree)}
+    if isinstance(tree, dict):
+        return {k: new[f"[{k!r}]"] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(new[f"[{i}]"] for i in range(len(tree)))
+    return dataclasses.replace(
+        tree, **{f.name: new[f".{f.name}"]
+                 for f in dataclasses.fields(tree)})
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Generator):
+        return leaf.get_state().numpy()
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _restore_leaf(value: np.ndarray, like):
+    """`value` in the type, dtype and device of `like`; a generator in
+    `like` takes the state and is returned."""
+    if isinstance(like, torch.Generator):
+        like.set_state(torch.from_numpy(np.asarray(value, np.uint8)))
+        return like
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(np.asarray(value), device=like.device).to(
+            like.dtype)
+    if isinstance(like, np.ndarray):
+        return np.asarray(value).astype(like.dtype)
+    return type(like)(np.asarray(value).item())
+
+
+def save_state(path: str, state: Any) -> None:
+    """Write a tree of tensors (e.g. an EnvState, or a dict holding one and
+    the env's generator) to `path`.npz."""
+    path = os.path.abspath(path)
+    np.savez(path + ".npz", **{p: _to_numpy(x) for p, x in _flatten(state)})
+
+
+def _fill_from_like(stored: dict, like: Any, source: str) -> Any:
+    """Rebuild `like` from a path->array dict; missing leaves keep their
+    `like` value (defaults), extra stored leaves are ignored."""
+    paths = [p for p, _ in _flatten(like)]
+    missing = [p for p in paths if p not in stored]
+    if missing:
+        warnings.warn(
+            f"Checkpoint {source} predates state field(s) {missing}; "
+            "restoring them from the provided `like` values.")
+    extra = sorted(set(stored) - set(paths))
+    if extra:
+        warnings.warn(
+            f"Checkpoint {source} contains unknown field(s) {extra}; "
+            "ignored.")
+    return _rebuild(like, lambda p, leaf: (
+        _restore_leaf(stored[p], leaf) if p in stored else leaf))
+
+
+def restore_state(path: str, like: Any) -> Any:
+    """Restore a tree saved by `save_state` (or by the JAX package's npz
+    form).
+
+    `like` provides the structure, dtypes and devices (e.g. a freshly reset
+    state of the same env and batch); generators in it take their saved
+    state. Fields absent from the checkpoint are filled from `like` with a
+    warning instead of failing.
+    """
+    path = os.path.abspath(path)
+    with np.load(path + ".npz") as data:
+        stored = {k: data[k] for k in data.files}
+    return _fill_from_like(stored, like, source=f"{path}.npz")

@@ -32,6 +32,8 @@ from spriteworld_torch.core import renderers as trenderers
 from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core import tasks as ttasks
 from spriteworld_torch.core.state import StepType
+from spriteworld_torch.parallel import ShardedRunner
+from spriteworld_torch.parallel import runner as runner_lib
 
 import bench_torch
 
@@ -408,8 +410,11 @@ def test_config_structure_equals_jax(path, mode):
 
 @pytest.mark.parametrize("workload", ["all", "demo256"])
 def test_bench_builders_construct_and_step(workload):
-    """Every bench_torch.py workload builds and steps on the CPU, at a
-    small canvas for demo256."""
+    """Every bench_torch.py workload builds and steps on the CPU through
+    the runner bench_torch.py times (eager here), at a small canvas for
+    demo256: every observation leaf of the reset and of the stacked
+    timesteps finite, finite metrics, and an image wherever the workload
+    renders one."""
     todo = bench_torch.todo_list(workload, None, workload == "demo256")
     assert len(todo) == (7 if workload == "all" else 1)
     for name, aa, exact in todo:
@@ -421,13 +426,14 @@ def test_bench_builders_construct_and_step(workload):
             env, suffix, extra = bench_torch.build(name, aa, exact,
                                                    device="cpu")
             assert suffix.endswith("_fast") == (not exact)
-        benv = tenvironment.BatchedEnvironment(env, 3)
-        state, ts = benv.reset()
-        acc = bench_torch.consume(ts)
-        for _ in range(2):
-            state, ts = benv.step(state, benv.sample_actions())
-            acc = acc + bench_torch.consume(ts)
-        assert torch.isfinite(acc), (name, suffix)
+        runner = ShardedRunner(env, 3)
+        state, ts0 = runner.reset()
+        state, m, ts = runner.rollout(state, 2, return_timesteps=True)
+        for x in (runner_lib._leaves(ts0.observation)
+                  + runner_lib._leaves(ts.observation)):
+            assert torch.isfinite(x.float()).all(), (name, suffix)
+        assert m.steps == 6 and np.isfinite(m.reward_sum), (name, suffix)
+        assert np.isfinite(m.return_sum), (name, suffix)
         assert ("image" in ts.observation) == (name != "factors")
 
 
