@@ -59,6 +59,7 @@ import time
 
 import torch
 
+from spriteworld_torch import demo_ui
 from spriteworld_torch.configs.cobra import clustering
 from spriteworld_torch.core import actions as action_lib
 from spriteworld_torch.core import distributions as distribs
@@ -129,12 +130,19 @@ def build_factors_env(device="cuda", seed: int = 0):
         device=device, seed=seed)
 
 
-def config_env(module_name: str, device="cuda", seed: int = 0):
-    """bench.py's _config_env: a config's train mode plus Success."""
+def config_of(module_name: str):
+    """A config's train mode plus the Success observation, as a dict of
+    Environment arguments (`module_name` under spriteworld_torch.configs)."""
     mod = importlib.import_module(f"spriteworld_torch.configs.{module_name}")
     cfg = mod.get_config("train")
     cfg["renderers"]["success"] = renderers.Success()
-    return env_lib.Environment(**cfg, device=device, seed=seed)
+    return cfg
+
+
+def config_env(module_name: str, device="cuda", seed: int = 0):
+    """bench.py's _config_env: a config's train mode plus Success."""
+    return env_lib.Environment(**config_of(module_name), device=device,
+                               seed=seed)
 
 
 # bench.py's WORKLOADS: name -> (metric suffix, builder(device, seed)).
@@ -153,19 +161,13 @@ WORKLOADS = {
 def demo_config(mode: str = "train", render_size: int = 256,
                 anti_aliasing: int = 10, pil_exact: bool = True):
     """The cobra clustering config with the interactive demo's overrides
-    (demo_ui.setup_run_ui, at run_demo.py's defaults): DragAndDrop(scale=0.5)
-    in place of SelectMove, an HSV image of render_size x render_size at
-    `anti_aliasing`, and the Success observation."""
-    config = clustering.get_config(mode)
-    config["action_space"] = action_lib.DragAndDrop(scale=0.5)
-    config["renderers"] = {
-        "image": renderers.ImageRenderer(
-            image_size=(render_size, render_size),
-            anti_aliasing=anti_aliasing, color_to_rgb="hsv",
-            pil_exact=pil_exact),
-        "success": renderers.Success(),
-    }
-    return config
+    (`demo_ui.demo_overrides`, at run_demo.py's defaults):
+    DragAndDrop(scale=0.5) in place of SelectMove, an HSV image of
+    render_size x render_size at `anti_aliasing`, and the Success
+    observation."""
+    return demo_ui.demo_overrides(
+        clustering.get_config(mode), render_size, task_hsv_colors=True,
+        anti_aliasing=anti_aliasing, pil_exact=pil_exact)
 
 
 def build_demo_env(anti_aliasing: int = 10, render_size: int = 256,

@@ -86,7 +86,24 @@ Phases:
      line, and the scene kernel's time at image64/AA=1 beside
      packed_raster's in each fill; every kernel also timed inside a CUDA
      graph of its launches (`graph_ms`);
-  9. the last line: {"ok": true, "device": {...}}.
+  9. the single env at B=1 (run before phase 8, whose kernels line stays
+     last but one): each kernel and mode (scene exact+lanczos and
+     centroid+box at 64x64/AA=5, strips in both at 256x256/AA=10,
+     packed_raster in both fills at 64x64/AA=1, and the dispatch's pick
+     for setup_run_ui's default 256x256/AA=1) at B = 1, 2 and 3 through
+     the renderer's dispatch against the plain version, launched once at
+     that batch (`by_batch`); media.record_episode on
+     goal_finding_new_position and sorting (64x64/AA=5), the demo config
+     (256x256/AA=10) and image64 (64x64/AA=1) with a deterministic click
+     policy, every frame equal to the plain version's render of its state
+     and every render through the config's kernels at B=1;
+     example_run_loop_torch.run at 4 lanes with images, one log line an
+     episode; the dm_env adapter where dm_env is installed, else a line
+     that says so; make_gifs_torch, writing its GIF where Pillow is
+     installed, else a line that says so; ms a single-env step (median
+     and best of 20), kernel launches and device-busy ms a step
+     (torch.profiler) on each of the four configs, as one JSON line;
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
 python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 8's split)
@@ -884,6 +901,341 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
     print("runner: a chunk with rejection pending after the first round "
           "ran again and equals the eager loop")
     return rates
+
+
+# Phase 9, the single env. Each kernel and mode of the path at B = 1, 2
+# and 3 against its plain version: (label, image_size, anti_aliasing,
+# pil_exact, {kernel: mode} the dispatch launches, or None where the
+# dispatch's pick is printed and held against plain).
+SINGLE_CASES = [
+    ("scene, exact+lanczos", (64, 64), 5, True,
+     {"scene_raster": "exact+lanczos"}),
+    ("scene, centroid+box", (64, 64), 5, False,
+     {"scene_raster": "centroid+box"}),
+    ("strips, exact+lanczos", (DEMO_SIZE, DEMO_SIZE), DEMO_AA, True,
+     {"strip_raster": "exact+lanczos", "strip_vpass": "lanczos"}),
+    ("strips, centroid+box", (DEMO_SIZE, DEMO_SIZE), DEMO_AA, False,
+     {"strip_raster": "centroid+box"}),
+    ("packed, exact", (64, 64), 1, True,
+     {"packed_raster": "exact+identity"}),
+    ("packed, centroid", (64, 64), 1, False,
+     {"packed_raster": "centroid+identity"}),
+    ("setup_run_ui's default", (DEMO_SIZE, DEMO_SIZE), 1, True, None),
+]
+SINGLE_BATCHES = (1, 2, 3)
+SINGLE_MAX_STEPS = 30  # record_episode's steps at most
+SINGLE_WARMUP_STEPS = 3
+SINGLE_TIMED_STEPS = 20
+SINGLE_PROFILED_STEPS = 5
+
+
+def batch_counts(rasterize_cuda):
+    rc = rasterize_cuda
+    return {k.__name__: dict(k.by_batch) for k in (
+        rc.scene_raster, rc.strip_raster, rc.strip_vpass, rc.packed_raster)}
+
+
+def single_vs_plain(torch, rasterize_cuda, colors, dev="cuda"):
+    """Phase 9.1: every case of SINGLE_CASES at each of SINGLE_BATCHES
+    through the renderer's dispatch, each launching its kernel and mode
+    once at that batch and no other, against the plain version on the
+    card. Returns the largest difference."""
+    rc = rasterize_cuda
+    worst = 0
+    for i, (label, size, aa, pe, want) in enumerate(SINGLE_CASES):
+        for b in SINGLE_BATCHES:
+            f, n = scene_batch(90 + i, b, hsv=True)
+            f = torch.from_numpy(f).to(dev)
+            n = torch.from_numpy(n).to(dev)
+            rc.reset_launch_counts()
+            got = rc.render_rgb_batch(
+                f, n, image_size=size, anti_aliasing=aa,
+                color_to_rgb=colors.hsv_to_rgb, pil_exact=pe)
+            ran = {k: v for k, v in launch_counts(rc).items() if v}
+            batches = {k: v for k, v in batch_counts(rc).items() if v}
+            t = rc.prepare(f, n, size[0] * aa, size[1] * aa,
+                           colors.hsv_to_rgb, pe)
+            err, count = compare(got, rc.render_rgb_batch_plain(t, size))
+            print(f"single env, {label} {size[0]}x{size[1]}/AA={aa}, B={b}:"
+                  f" ran {ran}, max |diff| {err}, {count} differing values")
+            if want is None:
+                check(len(ran) == 1, f"{label}: ran {ran}")
+            else:
+                check(ran == {k: {m: 1} for k, m in want.items()},
+                      f"{label}, B={b}: ran {ran}, not {want}")
+            check(batches == {k: {b: 1} for k in ran},
+                  f"{label}, B={b}: launched at batches {batches}")
+            check(count == 0, f"{label}, B={b}: differs from plain")
+            worst = max(worst, err)
+    return worst
+
+
+def single_env_paths(bench_torch, dev="cuda"):
+    """Phase 9's four configs: [(label, env, {kernel: mode} each render
+    launches)]."""
+    lanczos = {"scene_raster": "exact+lanczos"}
+    return [
+        ("goal_finding_new_position 64x64/AA=5",
+         bench_torch.config_env("cobra.goal_finding_new_position",
+                                device=dev, seed=0), lanczos),
+        ("sorting 64x64/AA=5",
+         bench_torch.config_env("cobra.sorting", device=dev, seed=0),
+         lanczos),
+        ("demo 256x256/AA=10",
+         bench_torch.build_demo_env(anti_aliasing=DEMO_AA,
+                                    render_size=DEMO_SIZE, device=dev,
+                                    seed=0),
+         {"strip_raster": "exact+lanczos", "strip_vpass": "lanczos"}),
+        ("image64 64x64/AA=1",
+         bench_torch.build_env(anti_aliasing=1, device=dev, seed=0),
+         {"packed_raster": "exact+identity"}),
+    ]
+
+
+def scripted_policy(torch, env):
+    """A deterministic click policy: at step t, click the centre of live
+    sprite t mod n and move it a tenth of a frame at most toward the
+    frame's centre, through SelectMove's or DragAndDrop's second click."""
+    from spriteworld_torch.core import actions
+    from spriteworld_torch.utils import device as device_lib
+
+    space = env.action_space
+    drag = isinstance(space, actions.DragAndDrop)
+    steps = [0]
+
+    def policy(generator, state):
+        del generator
+        host = device_lib.to_host({"pos": state.factors[0, :, 0:2],
+                                   "n": state.num_sprites[0]})
+        k = steps[0] % max(1, int(host["n"]))
+        steps[0] += 1
+        pos = host["pos"][k]
+        click = np.clip((0.5 - pos) * 0.5, -0.1, 0.1) / space._scale
+        click = click + (pos if drag else 0.5)
+        return torch.as_tensor(np.concatenate([pos, click])[None],
+                               dtype=torch.float32, device=env.device)
+
+    return policy
+
+
+def plain_frames(rasterize_cuda, renderer, factors, num_sprites):
+    """The images of `renderer` for scenes [T, K, 10] through the plain
+    version on the scenes' device."""
+    size, aa = renderer.image_size, renderer._anti_aliasing
+    tables = rasterize_cuda.prepare(factors, num_sprites, size[0] * aa,
+                                    size[1] * aa, renderer._color_to_rgb,
+                                    renderer._pil_exact)
+    return rasterize_cuda.render_rgb_batch_plain(
+        tables, size, renderer._bg_color, renderer._downsample)
+
+
+def record_single(torch, bench_torch, rasterize_cuda, dev="cuda"):
+    """Phase 9.2: media.record_episode at B=1 on each config of
+    `single_env_paths` with `scripted_policy`, up to SINGLE_MAX_STEPS
+    steps: every frame equals the plain version's render of its state,
+    and every render launched the config's kernels and modes at B=1, once
+    a frame. Returns {label: (frames, raster launches)}."""
+    from spriteworld_torch.utils import media
+
+    rc = rasterize_cuda
+    out = {}
+    for label, env, kernels in single_env_paths(bench_torch, dev):
+        rc.reset_launch_counts()
+        frames, states = media.record_episode(
+            env, 0, max_steps=SINGLE_MAX_STEPS,
+            policy=scripted_policy(torch, env), return_states=True)
+        counts = {k: v for k, v in launch_counts(rc).items() if v}
+        batches = {k: v for k, v in batch_counts(rc).items() if v}
+        renders = len(frames)
+        want = plain_frames(
+            rc, env.renderers["image"],
+            torch.cat([s.factors for s in states]),
+            torch.cat([s.num_sprites for s in states]))
+        err, count = compare(torch.from_numpy(frames).to(dev), want)
+        blank = int((want.amax(dim=(1, 2, 3)) == 0).sum())
+        print(f"single env record_episode, {label}: {renders} frames, "
+              f"launches {counts} at batches {batches}; frames against "
+              f"plain renders of their states: max |diff| {err}, {count} "
+              f"differing values, {blank} blank")
+        check(counts == {k: {m: renders} for k, m in kernels.items()},
+              f"{label}: launches {counts}, not {kernels} once a frame")
+        check(batches == {k: {1: renders} for k in kernels},
+              f"{label}: launched at batches {batches}, not 1")
+        check(count == 0, f"{label}: a frame differs from plain")
+        check(blank == 0 and renders >= 2, f"{label}: blank or no steps")
+        out[label] = (frames, counts)
+    return out
+
+
+def run_loop_single(torch, rasterize_cuda, dev="cuda"):
+    """Phase 9.3: example_run_loop_torch.run at 4 lanes with images, one
+    episode a lane: one log line per finished episode, every step through
+    scene_raster at B=4."""
+    import logging
+
+    import example_run_loop_torch
+
+    lines = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = example_run_loop_torch.logger
+    handler = Collect(logging.INFO)
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    rasterize_cuda.reset_launch_counts()
+    try:
+        episodes = example_run_loop_torch.run(
+            num_episodes=1, num_envs=4, render_images=True, device=dev)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    batches = {k: v for k, v in batch_counts(rasterize_cuda).items() if v}
+    logged = [m for m in lines if m.startswith("Episode done")]
+    print(f"single env example_run_loop_torch.run: {len(episodes)} "
+          f"episodes, {len(logged)} log lines, launches at batches "
+          f"{batches}; first: {logged[:1]}")
+    check(len(logged) == len(episodes) and 4 <= len(episodes) < 8,
+          "example_run_loop_torch.run did not log each episode once")
+    check(set(batches) == {"scene_raster"}
+          and set(batches["scene_raster"]) == {4},
+          f"example_run_loop_torch.run launched {batches}")
+
+
+def adapter_single(torch, bench_torch, dev="cuda"):
+    """Phase 9.4: the dm_env adapter where dm_env is installed (reset, then
+    steps of `action_space.sample()`, each observation held to
+    `observation_spec`), and make_gifs_torch, writing its GIF where Pillow
+    is installed."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import make_gifs_torch
+
+    if importlib.util.find_spec("dm_env") is None:
+        print("dm_env is not installed on this machine: the dm_env adapter "
+              "was held on the CPU only (tests/test_torch_adapters.py)")
+    else:
+        from spriteworld_torch.adapters import dm_env_adapter
+
+        for label, cfg in (
+                ("goal_finding_new_position",
+                 bench_torch.config_of("cobra.goal_finding_new_position")),
+                ("demo", bench_torch.demo_config())):
+            env = dm_env_adapter.Environment(**cfg, seed=0, device=dev)
+            spec = env.observation_spec()
+            ts = env.reset()
+            for i in range(SINGLE_TIMED_STEPS + 1):
+                if i:
+                    ts = env.step(env.action_space.sample())
+                for name, s in spec.items():
+                    s.validate(np.asarray(ts.observation[name]))
+            print(f"dm_env adapter, {label}: reset and "
+                  f"{SINGLE_TIMED_STEPS} steps of action_space.sample(), "
+                  f"every observation of its spec's shape and dtype")
+    if importlib.util.find_spec("PIL") is None:
+        frames = make_gifs_torch.record("goal_finding_video", 4, dev,
+                                        SINGLE_MAX_STEPS)
+        print(f"Pillow is not installed on this machine: make_gifs_torch "
+              f"recorded {len(frames)} frames and wrote no GIF")
+    else:
+        with tempfile.TemporaryDirectory() as out:
+            path = make_gifs_torch.make_gif("goal_finding_video", out, 4, 2,
+                                            dev, SINGLE_MAX_STEPS)
+            size = os.path.getsize(path)
+        print(f"Pillow is installed: make_gifs_torch wrote "
+              f"goal_finding_video.gif ({size} bytes)")
+        check(size > 0, "make_gifs_torch wrote an empty GIF")
+
+
+def time_single(torch, bench_torch, rasterize_cuda, card, dev="cuda"):
+    """Phase 9.5: wall ms a single-env step (`media.step_frame`: the step
+    at B=1 and its one device-to-host copy) on each config of
+    `single_env_paths`, median and best of SINGLE_TIMED_STEPS steps of
+    pre-drawn random actions after SINGLE_WARMUP_STEPS; the raster
+    kernels' launches a step from their counters, and every kernel's
+    launches and device-busy ms a step from torch.profiler over
+    SINGLE_PROFILED_STEPS more. Returns {label: {...}}."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from spriteworld_torch.utils import media
+
+    rc = rasterize_cuda
+    out = {}
+    for label, env, kernels in single_env_paths(bench_torch, dev):
+        state, _ = env.reset_batch(1)
+        actions = [env.sample_action(1) for _ in range(
+            SINGLE_WARMUP_STEPS + SINGLE_TIMED_STEPS
+            + SINGLE_PROFILED_STEPS)]
+        torch.cuda.synchronize()
+        ms = []
+        for i in range(SINGLE_WARMUP_STEPS + SINGLE_TIMED_STEPS):
+            if i == SINGLE_WARMUP_STEPS:
+                rc.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, _, _ = media.step_frame(env, state, actions[i])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ms = ms[SINGLE_WARMUP_STEPS:]
+        raster = {k: {m: c / SINGLE_TIMED_STEPS for m, c in v.items()}
+                  for k, v in launch_counts(rc).items() if v}
+        check(raster == {k: {m: 1.0} for k, m in kernels.items()},
+              f"{label}: timed steps launched {raster}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for a in actions[-SINGLE_PROFILED_STEPS:]:
+                state, _, _ = media.step_frame(env, state, a)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
+        launched = [e for e in events
+                    if not e.key.startswith(("Memcpy", "Memset"))]
+        copies = {}  # by kind: DtoH (each a wait for the device), DtoD
+        for e in events:
+            if e.key.startswith("Memcpy"):
+                kind = e.key.split()[1]
+                copies[kind] = (copies.get(kind, 0)
+                                + e.count / SINGLE_PROFILED_STEPS)
+        out[label] = {
+            "ms_median": statistics.median(ms), "ms_best": min(ms),
+            "kernel_launches_per_step":
+                sum(e.count for e in launched) / SINGLE_PROFILED_STEPS,
+            "copies_per_step": copies,
+            "device_busy_ms_per_step":
+                sum(e.self_device_time_total for e in launched) / 1e3
+                / SINGLE_PROFILED_STEPS,
+            "raster_launches_per_step": raster,
+        }
+        print(f"single env step, {label}: {out[label]['ms_median']:.3f} ms "
+              f"median, {out[label]['ms_best']:.3f} ms best of "
+              f"{SINGLE_TIMED_STEPS} (B=1, after {SINGLE_WARMUP_STEPS} "
+              f"warm-up steps); "
+              f"{out[label]['kernel_launches_per_step']:.1f} kernel "
+              f"launches and {out[label]['device_busy_ms_per_step']:.4f} "
+              f"device-busy ms a step, copies a step {copies} "
+              f"(torch.profiler, {SINGLE_PROFILED_STEPS} steps); raster "
+              f"{raster}; on {card}")
+    return out
+
+
+def single_env(torch, bench_torch, rasterize_cuda, colors, card,
+               dev="cuda"):
+    """Phase 9, the single env at B=1: kernels against plain (9.1),
+    record_episode (9.2), example_run_loop_torch (9.3), the dm_env adapter
+    and make_gifs_torch (9.4), then the step's times (9.5), with one JSON
+    line of the times. Returns the largest kernel difference."""
+    worst = single_vs_plain(torch, rasterize_cuda, colors, dev)
+    record_single(torch, bench_torch, rasterize_cuda, dev)
+    run_loop_single(torch, rasterize_cuda, dev)
+    adapter_single(torch, bench_torch, dev)
+    times = time_single(torch, bench_torch, rasterize_cuda, card, dev)
+    print(json.dumps({"single_env_step": times, "card": card}))
+    return worst
 
 
 _SPIN_RATE = []
@@ -1775,6 +2127,8 @@ def main():
     print(json.dumps({"runner_env_steps_per_sec": {
         label: {"graph": g, "eager": e}
         for label, (g, e) in runner_rates.items()}, "card": card}))
+    worst_single = single_env(torch, bench_torch, rasterize_cuda, colors,
+                              card)
 
     split = time_split(torch, rasterize_cuda, colors, state, demo_state)
     print(json.dumps({"split": split}))
@@ -1793,6 +2147,7 @@ def main():
                                worst_modes.get((kernel, mode), 0))
     entries = [entry] + strip_entries + mode_entries
     for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], worst_single)
         print(f"{e['name']}: kernel {e['ms']:.4f} ms ({e['graph_ms']:.4f} "
               f"ms in a graph), plain "
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms "

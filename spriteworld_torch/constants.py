@@ -75,3 +75,9 @@ def _build_vertex_bank():
 # Host tables. VERTEX_BANK: f32[13, 30, 2]; VERTEX_COUNTS: i32[13].
 VERTEX_BANK, VERTEX_COUNTS = _build_vertex_bank()
 
+
+def shape_id(shape) -> int:
+    """Resolve a shape name or id to its integer ShapeType value."""
+    if isinstance(shape, str):
+        return ShapeType[shape].value
+    return int(shape)

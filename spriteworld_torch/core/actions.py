@@ -78,6 +78,14 @@ class SelectMove:
         return torch.rand((batch, 4), generator=generator,
                           device=generator.device)
 
+    def action_spec(self):
+        """The dm_env spec of one lane's action (imported here, so that
+        nothing on the step path needs dm_env)."""
+        from dm_env import specs
+
+        return specs.BoundedArray(
+            shape=(4,), dtype=np.float32, minimum=0.0, maximum=1.0)
+
 
 class DragAndDrop(SelectMove):
     """Like SelectMove, but the motion is relative to the first click."""
@@ -128,3 +136,13 @@ class Embodied:
             torch.randint(0, 2, (batch,), generator=generator, device=dev),
             torch.randint(0, 4, (batch,), generator=generator, device=dev),
         ], -1).to(torch.int32)
+
+    def action_spec(self):
+        """The dm_env spec of one lane's action: [carry, direction] as two
+        int64 DiscreteArrays, as the reference's."""
+        from dm_env import specs
+
+        return [
+            specs.DiscreteArray(num_values=2, dtype=np.int64),
+            specs.DiscreteArray(num_values=4, dtype=np.int64),
+        ]

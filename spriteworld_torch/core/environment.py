@@ -90,6 +90,9 @@ class Environment:
     def max_episode_length(self) -> int:
         return self._max_episode_length
 
+    def action_spec(self):
+        return self._action_space.action_spec()
+
     def observation_spec(self):
         return {name: r.observation_spec()
                 for name, r in self._renderers.items()}
@@ -208,3 +211,6 @@ class BatchedEnvironment:
 
     def observation_spec(self):
         return self.env.observation_spec()
+
+    def action_spec(self):
+        return self.env.action_spec()

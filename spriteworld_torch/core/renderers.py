@@ -4,6 +4,8 @@ Counterpart of `spriteworld_tpu/core/renderers.py`. Each renderer offers
 ``render(factors f32[B, K, 10], num_sprites i32[B], success bool[B])``:
 
   * SpriteFactors — selected factor columns [B, K, F] + live mask [B, K].
+  * SpritePassthrough — the whole factor tensor [B, K, 10] + live counts
+    [B] (the engine's analogue of the reference's Sprite list).
   * Success — the task success flag [B].
   * ImageRenderer — RGB pixels u8[B, H, W, 3], in every fill and
     downsample mode. A CUDA batch goes to a kernel of
@@ -69,6 +71,19 @@ class SpriteFactors(AbstractRenderer):
         k = self.max_sprites
         return {"factors": ((k, len(self._factors)), torch.float32),
                 "mask": ((k,), torch.bool)}
+
+
+class SpritePassthrough(AbstractRenderer):
+    """The full packed factor state (engine analogue of the Sprite list)."""
+
+    def render(self, factors, num_sprites, success):
+        del success
+        return {"factors": factors, "num_sprites": num_sprites}
+
+    def observation_spec(self):
+        return {"factors": ((self.max_sprites, state_lib.NUM_FACTORS),
+                            torch.float32),
+                "num_sprites": ((), torch.int32)}
 
 
 class Success(AbstractRenderer):

@@ -314,10 +314,12 @@ def mode_name(pil_exact: bool, ds: int) -> str:
             + ("identity", "lanczos", "box")[ds])
 
 
-def _count_launch(fn, mode: str):
-    """One more launch of kernel wrapper `fn`, in all and in `mode`."""
+def _count_launch(fn, mode: str, batch: int):
+    """One more launch of kernel wrapper `fn` over `batch` scenes, in all,
+    in `mode` and in `by_batch`."""
     fn.launches += 1
     fn.by_mode[mode] = fn.by_mode.get(mode, 0) + 1
+    fn.by_batch[batch] = fn.by_batch.get(batch, 0) + 1
 
 
 def reset_launch_counts():
@@ -325,6 +327,7 @@ def reset_launch_counts():
     for fn in (scene_raster, strip_raster, strip_vpass, packed_raster):
         fn.launches = 0
         fn.by_mode = {}
+        fn.by_batch = {}
 
 
 def _round16(n: int) -> int:
@@ -646,8 +649,8 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
 
     The tables say which fill; `downsample` is `ops.rasterize.render_rgb`'s.
     Runs on the current stream; raises when the kernel cannot launch.
-    Each launch adds one to `scene_raster.launches` and to
-    `scene_raster.by_mode[mode_name(...)]`.
+    Each launch adds one to `scene_raster.launches`,
+    `scene_raster.by_mode[mode_name(...)]` and `scene_raster.by_batch[B]`.
     """
     b, k = _check_tables(tables, image_size, "scene_raster")
     tab = tables.tab
@@ -674,7 +677,7 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
                      _ptr(hks), _ptr(hqs), hsteps, cp, _ptr(vfr), _ptr(vks),
                      vsteps, hp, _bg_packed(bg_color), _ptr(out), stream)
     _check_launch(lib, err, "scene_raster")
-    _count_launch(scene_raster, mode_name(tables.pil_exact, ds))
+    _count_launch(scene_raster, mode_name(tables.pil_exact, ds), b)
     return out
 
 
@@ -689,8 +692,8 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
     filter, or none at anti_aliasing=1, it returns the image u8[B, H, W,
     3]. Box strips hold a multiple of anti_aliasing rows. Runs on the
     current stream; raises when the kernel cannot launch. Each launch adds
-    one to `strip_raster.launches` and to
-    `strip_raster.by_mode[mode_name(...)]`.
+    one to `strip_raster.launches`, `strip_raster.by_mode[mode_name(...)]`
+    and `strip_raster.by_batch[B]`.
     """
     b, k = _check_tables(tables, image_size, "strip_raster")
     tab = tables.tab
@@ -733,7 +736,7 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
                      _ptr(hfr), _ptr(hks), _ptr(hqs), hsteps, hp,
                      _bg_packed(bg_color), _ptr(buf), stream)
     _check_launch(lib, err, "strip_raster")
-    _count_launch(strip_raster, mode_name(tables.pil_exact, ds))
+    _count_launch(strip_raster, mode_name(tables.pil_exact, ds), b)
     return out
 
 
@@ -752,7 +755,8 @@ def strip_vpass(hpass: torch.Tensor, h: int) -> torch.Tensor:
     """Launch the vertical Lanczos pass: u8[B, hc, W, 3] (Pillow's row
     order) -> u8[B, h, W, 3] flipped to math orientation. `hpass` must be
     the view of `hpass_buffer` (as `strip_raster` returns it); the kernel
-    reads it in place. Each launch adds one to `strip_vpass.launches`."""
+    reads it in place. Each launch adds one to `strip_vpass.launches` and
+    `strip_vpass.by_batch[B]`."""
     if not hpass.is_cuda:
         raise ValueError("strip_vpass needs a CUDA tensor; CPU tensors use "
                          "vpass_plain")
@@ -778,7 +782,7 @@ def strip_vpass(hpass: torch.Tensor, h: int) -> torch.Tensor:
         err = launch(_ptr(hpass), b, hp, w, h, _ptr(vfr), _ptr(vks),
                      lanczos_tiles(hc, h).ksteps, _ptr(out), stream)
     _check_launch(lib, err, "strip_vpass")
-    _count_launch(strip_vpass, "lanczos")
+    _count_launch(strip_vpass, "lanczos", b)
     return out
 
 
@@ -802,7 +806,8 @@ def packed_raster(tables: SceneTables, image_size: Tuple[int, int],
     64-bit mask), in tiles of `default_tile_rows` rows; `render_rgb_batch`
     sends it the canvases of `uses_packed`. Runs on the current stream;
     raises when the kernel cannot launch. Each launch adds one to
-    `packed_raster.launches` and to `packed_raster.by_mode[mode_name(...)]`.
+    `packed_raster.launches`, `packed_raster.by_mode[mode_name(...)]` and
+    `packed_raster.by_batch[B]`.
     """
     b, k = _check_tables(tables, image_size, "packed_raster")
     tab = tables.tab
@@ -825,7 +830,7 @@ def packed_raster(tables: SceneTables, image_size: Tuple[int, int],
                      _bg_packed(bg_color), _ptr(out), stream)
     _check_launch(lib, err, "packed_raster")
     _count_launch(packed_raster,
-                  mode_name(tables.pil_exact, DS_IDENTITY))
+                  mode_name(tables.pil_exact, DS_IDENTITY), b)
     return out
 
 

@@ -29,3 +29,8 @@ def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
     b = torch.stack([p, p, t, v, v, q], dim=-1).gather(-1, idx)[..., 0]
     return 255.0 * torch.stack([r, g, b], dim=-1)
 
+
+
+def identity_255(colors: torch.Tensor) -> torch.Tensor:
+    """Pass-through for colors already expressed in [0, 255]."""
+    return colors
