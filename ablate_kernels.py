@@ -382,6 +382,7 @@ def chunk_graphs(steps=20, chunks=6):
 
     import bench_torch
     import chip_smoke as cs
+    from spriteworld_torch.core.distributions import defer_rejection
     from spriteworld_torch.ops import _build
     from spriteworld_torch.parallel import ShardedRunner
     from spriteworld_torch.parallel import runner as runner_lib
@@ -396,13 +397,14 @@ def chunk_graphs(steps=20, chunks=6):
         state, _ = runner.reset(0)
         sig = (steps, False, None)
         state, _ = runner.rollout(state, steps)  # captures the step graph
-        carry, step_graph = runner._programs[sig]
+        carry, program = runner._programs[sig + (True,)]
+        step_graph = program.graph
         whole = torch.cuda.CUDAGraph()
         whole.register_generator_state(env.generator)
         gen = env.generator.get_state()
-        with torch.cuda.graph(whole):
+        with torch.cuda.graph(whole), defer_rejection(carry.pending):
             for _ in range(steps):
-                runner._step(carry, *sig, defer=True)
+                runner._step(carry, *sig)
         env.generator.set_state(gen)
 
         def chunk(graph, replays):

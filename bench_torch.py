@@ -53,7 +53,6 @@ import argparse
 import importlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -68,6 +67,7 @@ from spriteworld_torch.core import generators as sprite_generators
 from spriteworld_torch.core import renderers
 from spriteworld_torch.core import tasks
 from spriteworld_torch.parallel import ShardedRunner
+from spriteworld_torch.utils.device import card_name_and_power_limit
 
 
 def goal_finding_parts():
@@ -176,13 +176,6 @@ def build_demo_env(anti_aliasing: int = 10, render_size: int = 256,
     return env_lib.Environment(
         **demo_config("train", render_size, anti_aliasing, pil_exact),
         device=device, seed=seed)
-
-
-def card_name_and_power_limit() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def timed_chunks(runners, steps: int, chunks: int):

@@ -83,7 +83,9 @@ Phases:
      centroid fill and the box by words as those kernels do them, with
      their share of one-slot box blocks; every entry with its resident
      blocks an SM), packed_raster in both fills, as one JSON `kernels`
-     line, and the scene kernel's time at image64/AA=1 beside
+     line (strip_vpass's library time: the JAX package's XLA v-pass as
+     one float32 einsum with its rounding, and how many values it
+     differs in), and the scene kernel's time at image64/AA=1 beside
      packed_raster's in each fill; every kernel also timed inside a CUDA
      graph of its launches (`graph_ms`);
   9. the single env at B=1 (run before phase 8, whose kernels line stays
@@ -103,7 +105,23 @@ Phases:
      installed, else a line that says so; ms a single-env step (median
      and best of 20), kernel launches and device-busy ms a step
      (torch.profiler) on each of the four configs, as one JSON line;
- 10. the last line: {"ok": true, "device": {...}}.
+ 10. the trainer, the mesh and the batch sweep (run after phase 9, before
+     phase 8): train_example_torch.train at 1024 lanes x 20 steps, 5
+     iterations, with factor and with image observations (packed_raster
+     launched on the image path, counted into its kernels entry; nothing
+     on the factors path), losses finite, a rollout replayed from the
+     graph equal bit for bit to the eager one from the same parameters,
+     state and generator state, both under
+     torch.cuda.set_sync_debug_mode("error"), the images the policy saw
+     at the first step equal to the plain render, the steady-state
+     env-steps/s and the rollout/update split, and one rollout and one
+     update under torch.profiler (busy ms, launches, top kernels); a
+     one-rank NCCL group
+     through parallel.mesh.initialize_multihost, whose
+     ShardedRunner(mesh=...) over 2048 lanes of image64 at AA=1 equals
+     the runner without a mesh; scaling_bench_torch's batch sweep at 256,
+     2048 and 8192 lanes (rows into chiprun_out/scaling_smoke.jsonl);
+ 11. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
 python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 8's split)
@@ -1238,6 +1256,245 @@ def single_env(torch, bench_torch, rasterize_cuda, colors, card,
     return worst
 
 
+# Phase 10: the trainer at full width (10.1), the mesh on one card (10.2)
+# and the batch sweep (10.3).
+TRAIN_LANES = 1024  # train_example.py's default --num_envs
+TRAIN_STEPS = 20  # its default --steps
+TRAIN_ITERS = 5
+MESH_LANES = 2048
+MESH_STEPS = 12  # two chunks outlast an episode (20 steps)
+SWEEP_BATCHES = (256, 2048, 8192)
+SWEEP_STEPS = 10
+SWEEP_OUT = "chiprun_out/scaling_smoke.jsonl"
+
+
+def equal_rollouts(torch, a, b, what):
+    """Checks two trainer rollouts ((state, Rollout) each) bit-equal."""
+    from spriteworld_torch.core.state import STATE_FIELDS
+
+    (sa, ra), (sb, rb) = a, b
+    for name in STATE_FIELDS:
+        check(torch.equal(getattr(sa, name), getattr(sb, name)),
+              f"{what}: state field {name} differs")
+    for name in ("z", "adv", "valid", "reward", "success"):
+        check(torch.equal(getattr(ra, name), getattr(rb, name)),
+              f"{what}: {name} differs")
+    for i, (x, y) in enumerate(zip(ra.obs, rb.obs)):
+        check(torch.equal(x, y), f"{what}: policy input {i} differs")
+
+
+def drive_trainer(torch, rasterize_cuda, card, dev="cuda"):
+    """Phase 10.1: train_example_torch.train at 1024 lanes x 20 steps for
+    TRAIN_ITERS iterations in each observation mode. Losses finite; the
+    image mode launched packed_raster (exact, at B=1024: the reset's
+    render, then once to warm up and once captured; replays are not
+    counted) and no other kernel, the factors mode none. Then, from the
+    trained state: one rollout replayed from the graph against the eager
+    rollout from the same parameters, state and generator state, both
+    under torch.cuda.set_sync_debug_mode("error"), equal bit for bit;
+    the images the policy saw at the first step against the plain render
+    of that state. Returns {mode: (stats, launches by mode)}."""
+    import train_example_torch as tt
+
+    rc = rasterize_cuda
+    out = {}
+    for obs in ("factors", "image"):
+        t0 = time.perf_counter()
+        rc.reset_launch_counts()
+        stats = {}
+        _, history = tt.train(num_envs=TRAIN_LANES, iters=TRAIN_ITERS,
+                              rollout_steps=TRAIN_STEPS, seed=0,
+                              log_every=2, obs_mode=obs, device=dev,
+                              stats=stats)
+        counts = {k: v for k, v in launch_counts(rc).items() if v}
+        batches = {k: v for k, v in batch_counts(rc).items() if v}
+        trainer = stats.pop("trainer")
+        print(f"trainer {obs}: launches through the wrappers {counts} at "
+              f"batches {batches}; history {json.dumps(history)}")
+        check(all(np.isfinite(m[k]) for m in history for k in m),
+              f"trainer {obs}: a loss or metric is not finite")
+        # The reset's render, then the warm-up and the captured step (an
+        # eager trainer, on the CPU, renders every step).
+        n = 3 if trainer.use_graph else 1 + TRAIN_ITERS * TRAIN_STEPS
+        want = ({} if obs == "factors" else
+                {"packed_raster": {"exact+identity": n}})
+        check(counts == want and batches == {
+            k: {TRAIN_LANES: n} for k in want},
+            f"trainer {obs}: launches {counts} at {batches}, not {want}")
+        check(trainer.use_graph == (dev == "cuda") and trainer.reruns == 0,
+              f"trainer {obs}: no graph, or a rollout ran again")
+
+        point = trainer.save_point()
+        runs = []
+        for use_graph in (trainer.use_graph, False):
+            trainer.restore_point(point)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ro = trainer.rollout(use_graph=use_graph).clone()
+                state = type(trainer.state)(**{
+                    n: x.clone() for n, x in vars(trainer.state).items()})
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            runs.append((state, ro))
+        equal_rollouts(torch, runs[0], runs[1], f"trainer {obs}")
+        line = (f"trainer {obs}: a rollout replayed from the graph equals "
+                "the eager one bit for bit (states, z, rewards, advantages, "
+                "masks, policy inputs); no host sync in either")
+        if obs == "image":
+            from spriteworld_torch.core import state as state_lib
+
+            renderer = trainer.env.renderers["image"]
+            factors, num = point[0].factors, point[0].num_sprites
+            want_img = plain_frames(rc, renderer, factors, num)
+            err, count = compare(runs[0][1].obs[0][0], want_img)
+            blank = int((want_img.amax(dim=(1, 2, 3)) == 0).sum())
+            # train_example.py draws only the hue (c0): saturation and
+            # value keep their default 0, so every sprite is black. The
+            # same scenes in full colour, through the same dispatch.
+            vivid = factors.clone()
+            vivid[..., state_lib.C1] = 1.0
+            vivid[..., state_lib.C2] = 1.0
+            got_vivid = renderer.render(vivid, num, None)
+            want_vivid = plain_frames(rc, renderer, vivid, num)
+            err_v, count_v = compare(got_vivid, want_vivid)
+            blank_v = int((want_vivid.amax(dim=(1, 2, 3)) == 0).sum())
+            line += (f"; first-step images against the plain render of "
+                     f"their states: max |diff| {err}, {count} differing "
+                     f"values, {blank} of {want_img.shape[0]} blank (black "
+                     f"sprites, as train_example.py draws them); the same "
+                     f"scenes at full saturation and value: max |diff| "
+                     f"{err_v}, {count_v} differing, {blank_v} blank")
+            check(count == 0 and count_v == 0 and blank_v == 0,
+                  "trainer image: the policy's images differ from plain")
+        print(line)
+        print(f"trainer {obs}, {TRAIN_LANES} lanes x {TRAIN_STEPS} steps, "
+              f"{TRAIN_ITERS} iterations: steady-state "
+              f"{stats['env_steps_per_sec']:.1f} env-steps/s, rollout "
+              f"{stats['rollout_ms']:.3f} ms, update "
+              f"{stats['update_ms']:.3f} ms an iteration (median, device "
+              f"time between events), on {card}; phase "
+              f"{time.perf_counter() - t0:.1f} s")
+        if dev == "cuda":
+            profile_trainer(torch, trainer, obs, card)
+        out[obs] = (stats, counts)
+    return out
+
+
+def profile_trainer(torch, trainer, obs, card):
+    """One rollout and one update of a trained `trainer` under
+    torch.profiler (after one of each unprofiled): device-busy ms and
+    kernel launches of each, and the kernels that take the most device
+    time, as one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    rollout = trainer.rollout()
+    trainer.update(rollout)
+    for part in ("rollout", "update"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if part == "rollout":
+                rollout = trainer.rollout()
+            else:
+                trainer.update(rollout)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        out[part] = {
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90],
+                             "ms": e.self_device_time_total / 1e3,
+                             "launches": e.count} for e in top]}
+    print(json.dumps({"trainer_profile": {obs: out}, "card": card}))
+
+
+def mesh_one_card(torch, bench_torch, dev="cuda"):
+    """Phase 10.2: a one-rank group (NCCL on the card) through
+    `initialize_multihost`; ShardedRunner(mesh=env_mesh()) on image64 at
+    AA=1 over 2048 lanes, two chunks, against the runner without a mesh
+    from the same seed: equal metrics (episodes, successes, both sums)
+    and states. The group is destroyed after."""
+    import torch.distributed as dist
+
+    from spriteworld_torch.core.state import STATE_FIELDS
+    from spriteworld_torch.parallel import ShardedRunner
+    from spriteworld_torch.parallel import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    mesh_lib.initialize_multihost(f"127.0.0.1:{mesh_lib.free_port()}", 1,
+                                  0, device=dev)
+    try:
+        mesh = mesh_lib.env_mesh(dev)
+        backend = dist.get_backend()
+        check(mesh.size == 1 and mesh.group is not None,
+              f"the one-rank mesh is {mesh}")
+        runs = []
+        for m in (mesh, None):
+            env = bench_torch.build_env(anti_aliasing=1, device=dev, seed=0)
+            runner = ShardedRunner(env, MESH_LANES, mesh=m)
+            state, _ = runner.reset(5)
+            state, m1 = runner.rollout(state, MESH_STEPS)
+            state, m2 = runner.rollout(state, MESH_STEPS)
+            runs.append((state, m1, m2))
+    finally:
+        dist.destroy_process_group()
+    (sa, *ma), (sb, *mb) = runs
+    print(f"mesh of one rank ({backend}), image64 AA=1, {MESH_LANES} lanes, "
+          f"2 chunks of {MESH_STEPS} steps: {ma} with the mesh, {mb} "
+          f"without; phase {time.perf_counter() - t0:.1f} s")
+    check(ma == mb and ma[1].episodes > 0,
+          "the one-rank mesh's metrics differ from the runner's")
+    for name in STATE_FIELDS:
+        check(torch.equal(getattr(sa, name), getattr(sb, name)),
+              f"the one-rank mesh's state field {name} differs")
+    check(backend == ("nccl" if dev == "cuda" else "gloo"),
+          f"the group's backend is {backend}")
+
+
+def sweep_batches(rasterize_cuda, card, dev="cuda"):
+    """Phase 10.3: scaling_bench_torch --batch_sweep at SWEEP_BATCHES
+    lanes, SWEEP_STEPS steps a chunk, its rows into SWEEP_OUT; each batch
+    launched packed_raster 3 times (reset, warm-up, capture)."""
+    import os
+
+    import scaling_bench_torch
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(SWEEP_OUT), exist_ok=True)
+    rasterize_cuda.reset_launch_counts()
+    rows = scaling_bench_torch.batch_sweep(SWEEP_OUT, SWEEP_STEPS,
+                                           SWEEP_BATCHES, dev)
+    batches = {k: v for k, v in batch_counts(rasterize_cuda).items() if v}
+    print(f"batch sweep on {card}: launches at batches {batches}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    check([r["num_envs"] for r in rows] == list(SWEEP_BATCHES)
+          and all(r["steps_per_sec"] > 0 for r in rows),
+          f"batch sweep rows {rows}")
+    # The reset's render, the warm-up and the captured step (eager on the
+    # CPU: the reset and every step of the 4 chunks).
+    n = 3 if dev == "cuda" else 1 + 4 * SWEEP_STEPS
+    check(batches == {"packed_raster": {b: n for b in SWEEP_BATCHES}},
+          f"batch sweep launches {batches}")
+
+
+def trainer_mesh_sweep(torch, bench_torch, rasterize_cuda, card,
+                       dev="cuda"):
+    """Phase 10. Returns the trainer's packed_raster launches by mode."""
+    t0 = time.perf_counter()
+    trained = drive_trainer(torch, rasterize_cuda, card, dev)
+    mesh_one_card(torch, bench_torch, dev)
+    sweep_batches(rasterize_cuda, card, dev)
+    print(json.dumps({"trainer": {
+        obs: stats for obs, (stats, _) in trained.items()}, "card": card}))
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    return trained["image"][1].get("packed_raster", {})
+
+
 _SPIN_RATE = []
 
 
@@ -1465,6 +1722,30 @@ def time_strips(torch, rasterize_cuda, colors, state):
 
     from spriteworld_torch.ops import resample
 
+    # The library call: the XLA v-pass of the JAX package
+    # (rasterize_pallas.py:1484-1491) as one float32 einsum, TF32 off, on
+    # its float32 h-pass [B, 3, hc, w], then its rounding.
+    kh = torch.tensor(resample.pil_lanczos_matrix(hc, DEMO_SIZE),
+                      device=hp.device)
+    hp_f32 = hp.permute(0, 3, 1, 2).float().contiguous()
+
+    def library_v():
+        out = torch.einsum("oh,bchw->bcow", kh, hp_f32)
+        return torch.clamp(torch.floor(out + 0.5), 0.0, 255.0)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_v = event_ms(torch, library_v, 5)
+        lib_img = library_v().flip(2).permute(0, 2, 3, 1).to(torch.uint8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err_lib, count_lib = compare(lib_img, img)
+    print(f"strip_vpass's library call (float32 einsum + round) at the demo "
+          f"path's inputs: {lib_v:.4f} ms; against strip_vpass max |diff| "
+          f"{err_lib}, {count_lib} of {img.numel()} values differ")
+    del hp_f32
+
     # Taps: the tensor-core fragments and window starts of each pass.
     tiles = rc.lanczos_tiles(hc, DEMO_SIZE)
     taps_bytes = tiles.frags.nbytes + tiles.kstart.nbytes
@@ -1501,8 +1782,9 @@ def time_strips(torch, rasterize_cuda, colors, state):
         "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:1484",
         "launches": None, "max_abs_err": err_v, "ms": ms_v,
         "device_ms": dev_v, "graph_ms": graph_v, "plain_ms": plain_v, **bv,
-        # No single PyTorch call gives Pillow's fixed-point rounding.
-        "library_ms": None,
+        # One float32 einsum, as XLA computes this pass for the JAX
+        # package; it misses Pillow's fixed-point rounding where printed.
+        "library_ms": lib_v, "library_differing": count_lib,
     }]
 
 
@@ -2129,6 +2411,8 @@ def main():
         for label, (g, e) in runner_rates.items()}, "card": card}))
     worst_single = single_env(torch, bench_torch, rasterize_cuda, colors,
                               card)
+    trainer_launches = trainer_mesh_sweep(torch, bench_torch, rasterize_cuda,
+                                          card)
 
     split = time_split(torch, rasterize_cuda, colors, state, demo_state)
     print(json.dumps({"split": split}))
@@ -2143,6 +2427,8 @@ def main():
     for e in mode_entries:
         kernel, _, mode = e["name"].rstrip("]").partition("[")
         mode = mode or "exact+identity"
+        if kernel == "packed_raster":  # the trainer's image path (phase 10)
+            e["launches"] += trainer_launches.get(mode, 0)
         e["max_abs_err"] = max(e["max_abs_err"], worst_cases,
                                worst_modes.get((kernel, mode), 0))
     entries = [entry] + strip_entries + mode_entries

@@ -58,6 +58,16 @@ _DEFERRED = contextvars.ContextVar("spriteworld_rejection_deferred",
                                    default=None)
 
 
+class Deferral:
+    """What `defer_rejection` yields: the flag, and `nodes`, the rejection
+    nodes that sampled inside the block (0: the flag cannot be set by a
+    rerun of the same code)."""
+
+    def __init__(self, flag: torch.Tensor):
+        self.flag = flag
+        self.nodes = 0
+
+
 @contextlib.contextmanager
 def defer_rejection(flag: torch.Tensor):
     """Within the block, a rejection node with elements still pending after
@@ -68,10 +78,12 @@ def defer_rejection(flag: torch.Tensor):
     afterwards and, where it is set, samples again outside this block from
     the same generator state: the first REJECTION_ROUNDS proposals are the
     same draws, and the host-checked ones continue them
-    (`parallel.runner.ShardedRunner` re-runs such a chunk)."""
-    token = _DEFERRED.set(flag)
+    (`parallel.runner.StepGraph` re-runs such steps). Yields a `Deferral`
+    that counts the rejection nodes the block ran."""
+    deferral = Deferral(flag)
+    token = _DEFERRED.set(deferral)
     try:
-        yield flag
+        yield deferral
     finally:
         _DEFERRED.reset(token)
 
@@ -253,9 +265,10 @@ def _rejection_sample(generator, shape, propose, accept):
     rounds = min(REJECTION_ROUNDS, MAX_REJECTION_TRIES)
     spec, ok, pending = _proposal_rounds(generator, shape, rounds, propose,
                                          accept)
-    flag = _DEFERRED.get()
-    if flag is not None:
-        flag.logical_or_(pending.any())
+    deferral = _DEFERRED.get()
+    if deferral is not None:
+        deferral.nodes += 1
+        deferral.flag.logical_or_(pending.any())
         return spec, accept(spec) & ok
     tries = rounds
     while tries < MAX_REJECTION_TRIES and bool(pending.any()):

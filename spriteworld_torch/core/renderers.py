@@ -19,11 +19,13 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from spriteworld_torch.core import state as state_lib
 from spriteworld_torch.ops import rasterize_cuda
 from spriteworld_torch.utils import colors as color_maps
+from spriteworld_torch.utils import device as device_lib
 
 
 class AbstractRenderer:
@@ -61,8 +63,13 @@ class SpriteFactors(AbstractRenderer):
     def render(self, factors, num_sprites, success):
         del success
         k = factors.shape[-2]
+        # The columns as a cached device index: indexing with the Python
+        # list would copy it to the device each call, which a CUDA graph
+        # capture refuses.
+        columns = device_lib.constant(np.asarray(self._columns, np.int64),
+                                      factors.device)
         return {
-            "factors": factors[..., self._columns],
+            "factors": factors.index_select(-1, columns),
             "mask": (torch.arange(k, device=factors.device)
                      < num_sprites[:, None]),
         }

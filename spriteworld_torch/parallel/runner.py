@@ -31,8 +31,22 @@ is set, runs the chunk again eagerly from its start state and generator
 state with host-checked rejection, which continues the same draws: the
 result is the JAX package's per-element do-while up to MAX_REJECTION_TRIES.
 
-Devices: the runner runs on the environment's device, a mesh of one device;
-sharding lanes over several cards (`parallel/mesh.py`) is not ported yet.
+Devices: the runner runs on the environment's device. Under a mesh
+(`parallel/mesh.py`) of several ranks, each rank's runner steps its
+contiguous slice of the global lanes (`num_envs / mesh.size`) on the rank's
+device, in its own captured graph; at the chunk boundary the counts (as
+int64: a global chunk can pass 2**31 where no rank's does) and the float32
+sums go through `all_reduce(SUM)` outside the graph, on the same stream,
+before the chunk's one host read, so every rank returns the global metrics.
+
+Randomness under a mesh, the port's one deliberate difference from the JAX
+runner: JAX keys every lane from the key, so its rollout is the same
+whatever the mesh shape. Here each rank draws from its own env's generator,
+seeded by `reset(seed)` with `rank_seed(seed, rank)`; rank 0 takes `seed`
+itself, so rank 0 of a mesh of one is exactly the runner without a mesh,
+and a mesh of n ranks equals n runners without a mesh, each of
+`num_envs / n` lanes seeded with its rank's seed. Another mesh shape draws
+other scenes and actions (ROADMAP, "Randomness").
 """
 
 from __future__ import annotations
@@ -47,6 +61,19 @@ import torch
 from spriteworld_torch.core import distributions
 from spriteworld_torch.core.environment import Environment
 from spriteworld_torch.core.state import STATE_FIELDS, EnvState, TimeStep
+from spriteworld_torch.parallel import mesh as mesh_lib
+
+# Added, times the rank, to a rank's seed (mod 2**64): the golden-ratio
+# increment of splitmix64, so nearby ranks get distant seeds.
+_RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The generator seed of `rank` under a mesh: `seed` itself on rank 0,
+    else `(seed + rank * 0x9E3779B97F4A7C15) % 2**64`."""
+    if rank == 0:
+        return int(seed)
+    return (int(seed) + int(rank) * _RANK_SEED_STRIDE) % 2**64
 
 
 @dataclasses.dataclass
@@ -156,14 +183,70 @@ class _Carry:
             x.zero_()
 
 
+class StepGraph:
+    """One step that reads and writes carried tensors in place, run a
+    number of times: replayed from a CUDA graph or launched eagerly.
+
+    With `use_graph`, `step()` is captured after one eager warm-up step
+    (which builds the kernels and fills the device-constant caches), inside
+    `distributions.defer_rejection(pending)`; the graph registers
+    `generator`, so each replay advances it as the eager step would, and
+    warm-up and capture leave it where they found it. `rejects` says
+    whether the captured step holds a rejection node: where it does not,
+    a replay can never set `pending`, which then need not be read. The
+    runner and the trainer (`train_example_torch.py`) share this: run the
+    steps deferred, read `pending` at the boundary, and where it is set run
+    them again with `run(n, step, defer=False)` from the same start and
+    generator state (host-checked rejection continues the same draws).
+
+    The step is passed again to `run` rather than kept: a step that
+    refers to its owner would make a reference cycle through the owner's
+    programs, and the garbage collector could then free a graph during
+    another capture, which CUDA refuses.
+    """
+
+    def __init__(self, step: Callable[[], None], generator: torch.Generator,
+                 pending: torch.Tensor, use_graph: bool):
+        self.pending = pending
+        self.graph = None
+        self.rejects = False
+        if use_graph:
+            start = generator.get_state()
+            with distributions.defer_rejection(pending) as deferral:
+                step()
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(generator)
+            with torch.cuda.graph(graph):
+                with distributions.defer_rejection(pending):
+                    step()
+            generator.set_state(start)
+            self.graph = graph
+            self.rejects = deferral.nodes > 0
+
+    def run(self, n: int, step: Callable[[], None], defer: bool = True):
+        """`n` steps: replays of the graph, or `step()` launched eagerly
+        (without a graph, or with `defer=False`). With `defer`, rejection
+        that runs past its first rounds sets `pending` (no host sync),
+        else it asks the host."""
+        for _ in range(n):
+            if self.graph is not None and defer:
+                self.graph.replay()
+                continue
+            ctx = (distributions.defer_rejection(self.pending) if defer
+                   else contextlib.nullcontext())
+            with ctx:
+                step()
+
+
 class ShardedRunner:
     """Steps a batch of env lanes in lockstep chunks.
 
     Args:
-      env: the Environment.
-      num_envs: lanes. The runner runs on `env.device`, a mesh of one
-        device, which every `num_envs` divides; several cards wait for
-        `parallel/mesh.py`.
+      env: the Environment, on this rank's device (`mesh.device`).
+      num_envs: global lanes; must divide by the mesh size. Each rank steps
+        `num_envs / mesh.size` of them.
+      mesh: the 1-D 'envs' mesh (`parallel.mesh.env_mesh()`); None is the
+        mesh of one on `env.device`.
       policy: optional `(generator, state) -> actions` batch policy; it must
         draw from `generator` (the env's) and make no host sync, since it is
         captured with the step. Defaults to the env's uniform random action
@@ -172,15 +255,32 @@ class ShardedRunner:
         default is True on a CUDA env and False on a CPU env; True on a CPU
         env raises. A capture that fails raises: nothing falls back to the
         eager step.
+
+    Under a mesh of several ranks, seed `reset` with an int (each rank
+    then seeds `rank_seed(seed, rank)`), or build each rank's env with its
+    own seed: ranks whose generators start equal draw equal lanes.
     """
 
     def __init__(self,
                  env: Environment,
                  num_envs: int,
+                 mesh: Optional[mesh_lib.EnvMesh] = None,
                  policy: Optional[Callable] = None,
                  use_graph: Optional[bool] = None):
         self.env = env
         self.num_envs = int(num_envs)
+        self.mesh = mesh if mesh is not None \
+            else mesh_lib.EnvMesh.single(env.device)
+        if self.num_envs % self.mesh.size:
+            raise ValueError(
+                f"num_envs={num_envs} must divide the mesh size "
+                f"{self.mesh.size}.")
+        if not mesh_lib.same_device(env.device, self.mesh.device):
+            raise ValueError(f"the env runs on {env.device}, this rank of "
+                             f"the mesh on {self.mesh.device}")
+        self.local_envs = self.num_envs // self.mesh.size
+        self._shard = mesh_lib.env_sharding(self.mesh)
+        self._repl = mesh_lib.replicated_sharding(self.mesh)
         self._policy = policy
         is_cuda = env.device.type == "cuda"
         self.use_graph = is_cuda if use_graph is None else bool(use_graph)
@@ -191,39 +291,36 @@ class ShardedRunner:
         self._programs: Dict[tuple, tuple] = {}
         self._ret_acc = None
         # Chunks run again because a rejection node still had pending
-        # elements after its first rounds.
+        # elements after its first rounds (on any rank).
         self.reruns = 0
 
     # ------------------------------------------------------------------ #
     def reset(self, seed=None):
-        """Fresh scenes in every lane: (state, FIRST TimeStep).
+        """Fresh scenes in this rank's lanes: (state, FIRST TimeStep).
 
-        `seed` re-seeds the env's generator (an int) or restores it (a state
-        from `env.generator.get_state()`); None draws on from where it is.
-        The per-lane return accumulator restarts from zero."""
+        `seed` re-seeds the env's generator (an int; rank r of a mesh takes
+        `rank_seed(seed, r)`) or restores it (a state from
+        `env.generator.get_state()`); None draws on from where it is. The
+        per-lane return accumulator restarts from zero."""
         if isinstance(seed, int):
-            self.env.generator.manual_seed(seed)
+            self.env.generator.manual_seed(rank_seed(seed, self.mesh.rank))
         elif seed is not None:
             self.env.generator.set_state(seed)
-        state, ts = self.env.reset_batch(self.num_envs)
-        self._ret_acc = torch.zeros(self.num_envs, dtype=torch.float32,
+        state, ts = self.env.reset_batch(self.local_envs)
+        self._ret_acc = torch.zeros(self.local_envs, dtype=torch.float32,
                                     device=self.env.device)
         return state, ts
 
     def _actions(self, state):
         if self._policy is not None:
             return self._policy(self.env.generator, state)
-        return self.env.sample_action(self.num_envs)
+        return self.env.sample_action(self.local_envs)
 
     def _step(self, carry: _Carry, num_steps: int, with_returns: bool,
-              obs_keys, defer: bool):
-        """One step on `carry`, in place; with `defer`, rejection that runs
-        past its first rounds sets `carry.pending` (no host sync)."""
-        ctx = (distributions.defer_rejection(carry.pending) if defer
-               else contextlib.nullcontext())
-        with ctx:
-            state, ts = self.env.step_batch(carry.state,
-                                            self._actions(carry.state))
+              obs_keys):
+        """One step on `carry`, in place (inside `StepGraph.run`)."""
+        state, ts = self.env.step_batch(carry.state,
+                                        self._actions(carry.state))
 
         last = ts.last()
         reward = torch.nan_to_num(ts.reward)  # nanmean-style exclusion
@@ -265,54 +362,40 @@ class ShardedRunner:
                 buf.index_copy_(0, carry.t, x.unsqueeze(0))
         carry.t.add_(1)
 
-    def _program(self, sig, state: EnvState):
-        """(carry, graph or None) of signature `sig`, built at first use.
+    def _program(self, sig, state: EnvState, use_graph: bool):
+        """(carry, StepGraph) of signature `sig`, built at first use."""
+        key = sig + (use_graph,)
+        if key not in self._programs:
+            carry = _Carry.like(state, self.episode_returns)
+            self._programs[key] = (carry, StepGraph(
+                lambda: self._step(carry, *sig), self.env.generator,
+                carry.pending, use_graph))
+        return self._programs[key]
 
-        A graph is captured after one eager warm-up step (which builds the
-        kernels and fills the device-constant caches); warm-up and capture
-        leave the env's generator where they found it."""
-        if sig in self._programs:
-            return self._programs[sig]
-        carry = _Carry.like(state, self.episode_returns)
-        graph = None
-        if self.use_graph:
-            gen = self.env.generator
-            start = gen.get_state()
-            self._step(carry, *sig, defer=True)
-            graph = torch.cuda.CUDAGraph()
-            # Replays then advance the generator's offset as the eager
-            # steps would, instead of repeating the captured draws.
-            graph.register_generator_state(gen)
-            with torch.cuda.graph(graph):
-                self._step(carry, *sig, defer=True)
-            gen.set_state(start)
-        self._programs[sig] = (carry, graph)
-        return carry, graph
-
-    def _chunk(self, carry, graph, sig, state, ret_acc, defer):
-        """Run one chunk on `carry`; returns the device values read at the
-        boundary: [episodes, successes, return_sum, reward_sum, pending]."""
+    def _chunk(self, carry, program, sig, state, ret_acc, defer):
+        """Run one chunk on `carry`; returns the global values read at the
+        boundary: [episodes, successes, pending, return_sum, reward_sum]."""
         carry.load(state, ret_acc)
-        for _ in range(sig[0]):
-            if graph is not None:
-                graph.replay()
-            else:
-                self._step(carry, *sig, defer=defer)
-        return _to_host(torch.cat([carry.counts.double(),
-                                   carry.sums.double(),
-                                   carry.pending.double()[None]]))
+        program.run(sig[0], lambda: self._step(carry, *sig), defer=defer)
+        counts = torch.cat([carry.counts.to(torch.int64),
+                            carry.pending.to(torch.int64)[None]])
+        sums = carry.sums.clone()
+        self._repl.all_reduce(counts)
+        self._repl.all_reduce(sums)
+        return _to_host(torch.cat([counts.double(), sums.double()]))
 
     # ------------------------------------------------------------------ #
     @property
     def episode_returns(self) -> torch.Tensor:
-        """Per-lane in-flight episode return accumulator (f32[num_envs]).
+        """Per-lane in-flight episode return accumulator of this rank's
+        lanes (f32[num_envs / mesh.size]).
 
         Checkpoint this alongside the EnvState and the env's generator and
         assign it back after `restore_state` — otherwise returns of
         episodes already in flight at save time restart from zero (see
         parallel/checkpoint.py)."""
         if self._ret_acc is None:
-            self._ret_acc = torch.zeros(self.num_envs, dtype=torch.float32,
+            self._ret_acc = torch.zeros(self.local_envs, dtype=torch.float32,
                                         device=self.env.device)
         return self._ret_acc
 
@@ -320,9 +403,9 @@ class ShardedRunner:
     def episode_returns(self, value):
         value = torch.as_tensor(value, dtype=torch.float32,
                                 device=self.env.device)
-        if tuple(value.shape) != (self.num_envs,):
+        if tuple(value.shape) != (self.local_envs,):
             raise ValueError(
-                f"episode_returns must have shape ({self.num_envs},), got "
+                f"episode_returns must have shape ({self.local_envs},), got "
                 f"{tuple(value.shape)}")
         self._ret_acc = value
 
@@ -331,17 +414,20 @@ class ShardedRunner:
                 timestep_obs=None):
         """Run `num_steps` lockstep steps; returns (state, Metrics[, ts]).
 
-        On a CUDA env with `use_graph`, the steps replay a graph captured at
-        the first call of each (num_steps, return_timesteps, timestep_obs).
-        `return_timesteps=True` also stacks every TimeStep as [T, B, ...]
-        (use small chunks: the trace is kept on the device); observation
-        leaves with more than one per-lane dim come back flattened to
-        [T, B, -1], as the JAX runner returns them (an image is
-        [T, B, H*W*3]). `timestep_obs` restricts the stacked observations to
-        the given top-level keys. `episode_returns` seeds the per-lane
-        in-flight return accumulator (e.g. restored from a checkpoint); by
-        default the accumulator carried since the last `reset()` is used.
-        The input state is left as it is.
+        `state` and the returned state hold this rank's lanes; the Metrics
+        are global (every rank returns the same). On a CUDA env with
+        `use_graph`, the steps replay a graph captured at the first call of
+        each (num_steps, return_timesteps, timestep_obs).
+        `return_timesteps=True` also stacks this rank's TimeSteps as
+        [T, B_local, ...] (use small chunks: the trace is kept on the
+        device); observation leaves with more than one per-lane dim come
+        back flattened to [T, B_local, -1], as the JAX runner returns them
+        (an image is [T, B_local, H*W*3]). `timestep_obs` restricts the
+        stacked observations to the given top-level keys.
+        `episode_returns` seeds the per-lane in-flight return accumulator
+        (e.g. restored from a checkpoint); by default the accumulator
+        carried since the last `reset()` is used. The input state is left
+        as it is.
         """
         if episode_returns is not None:
             self.episode_returns = episode_returns
@@ -355,24 +441,25 @@ class ShardedRunner:
         if timestep_obs is not None:
             timestep_obs = tuple(timestep_obs)
         sig = (int(num_steps), bool(return_timesteps), timestep_obs)
-        carry, graph = self._program(sig, state)
+        carry, program = self._program(sig, state, self.use_graph)
         ret_acc = self.episode_returns
         gen_start = self.env.generator.get_state()
-        host = self._chunk(carry, graph, sig, state, ret_acc, defer=True)
-        if host[4]:
-            # A rejection node ran past its first rounds: the same chunk,
-            # eagerly, with host-checked rejection from the same draws.
+        host = self._chunk(carry, program, sig, state, ret_acc, defer=True)
+        if host[2]:
+            # A rejection node ran past its first rounds on some rank:
+            # every rank runs the same chunk again, eagerly, with
+            # host-checked rejection from the same draws.
             self.reruns += 1
             self.env.generator.set_state(gen_start)
-            carry = _Carry.like(state, ret_acc)
-            host = self._chunk(carry, None, sig, state, ret_acc,
+            carry, program = self._program(sig, state, use_graph=False)
+            host = self._chunk(carry, program, sig, state, ret_acc,
                                defer=False)
         new_state = EnvState(**{n: getattr(carry.state, n).clone()
                                 for n in STATE_FIELDS})
         self._ret_acc = carry.ret_acc.clone()
         metrics = Metrics(steps=int(num_steps) * self.num_envs,
                           episodes=int(host[0]), successes=int(host[1]),
-                          return_sum=host[2], reward_sum=host[3])
+                          return_sum=host[3], reward_sum=host[4])
         if return_timesteps:
             return new_state, metrics, TimeStep(*(
                 _map(torch.clone, getattr(carry.stacked, f.name))
@@ -388,9 +475,11 @@ class ShardedRunner:
         (example_run_loop.py:72-80): all lanes run in lockstep chunks from a
         fresh reset (drawn from the env's generator); per-episode returns
         and successes are recovered exactly on the host from the stacked
-        timesteps (NaN rewards excluded the way np.nanmean does). Returns
-        `EvalStats` with mean/std/95%-CI of episode returns and the success
-        rate.
+        timesteps (NaN rewards excluded the way np.nanmean does). Under a
+        mesh the stacked rewards, step types and successes are gathered
+        into global lane order first, so every rank computes the same
+        stats. Returns `EvalStats` with mean/std/95%-CI of episode returns
+        and the success rate.
 
         Episodes still in flight when the target is reached are discarded.
         Within the cutoff chunk, `num_episodes` is hit mid-chunk and the
@@ -412,12 +501,11 @@ class ShardedRunner:
                 state, _, tss = self.rollout(
                     state, chunk_steps, return_timesteps=True,
                     timestep_obs=("success",))
-                rew = np.nan_to_num(tss.reward.cpu().numpy().astype(
-                    np.float64))
-                last = tss.last().cpu().numpy()
-                succ = (tss.observation["success"].cpu().numpy()
-                        if "success" in tss.observation
-                        else np.zeros_like(last))
+                last = tss.last()
+                succ = tss.observation.get("success", torch.zeros_like(last))
+                rew, last, succ = (x.cpu().numpy() for x in self._shard.gather(
+                    (tss.reward, last, succ), axis=1))
+                rew = np.nan_to_num(rew.astype(np.float64))
                 for t in range(rew.shape[0]):
                     acc += rew[t]
                     done = last[t]

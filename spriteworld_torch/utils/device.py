@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import functools
+import subprocess
 
 import numpy as np
 import torch
@@ -62,3 +63,13 @@ def to_host(tensors: dict) -> dict:
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch dtype (bool, integer or float)."""
     return np.dtype(str(dtype).removeprefix("torch."))
+
+
+def card_name_and_power_limit() -> str:
+    """The first card's name and power limit, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
+    them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]

@@ -10,7 +10,8 @@ import pytest
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 _SCRIPTS = ("chip_smoke", "bench_torch", "ablate_kernels",
-            "example_run_loop_torch", "run_demo_torch", "make_gifs_torch")
+            "example_run_loop_torch", "run_demo_torch", "make_gifs_torch",
+            "train_example_torch", "scaling_bench_torch")
 _PORT_FILES = sorted(
     [*(_ROOT / "spriteworld_torch").rglob("*.py"),
      *(_ROOT / f"{name}.py" for name in _SCRIPTS)])
@@ -24,6 +25,7 @@ for name in names:
     importlib.import_module(name)
 import ablate_kernels, bench_torch, chip_smoke
 import example_run_loop_torch, make_gifs_torch, run_demo_torch
+import scaling_bench_torch, train_example_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "spriteworld_tpu")))
@@ -85,6 +87,7 @@ for m in pkgutil.walk_packages(spriteworld_torch.__path__,
         importlib.import_module(m.name)
 import ablate_kernels, bench_torch, chip_smoke
 import example_run_loop_torch, make_gifs_torch, run_demo_torch
+import scaling_bench_torch, train_example_torch
 print(sorted(m for m in sys.modules if m == adapter or m.split(".")[0] in
              ("dm_env", "gym", "matplotlib", "PIL")))
 """
