@@ -291,7 +291,6 @@ def child(share, checked, kernels=KERNELS):
 
     import bench_torch
     import chip_smoke as cs
-    from spriteworld_torch.core import environment as env_lib
     from spriteworld_torch.ops import _build
     from spriteworld_torch.ops import rasterize_cuda as rc
     from spriteworld_torch.utils import colors
@@ -299,8 +298,7 @@ def child(share, checked, kernels=KERNELS):
     cs.check(pathlib.Path(rc.__file__).is_relative_to(pathlib.Path.cwd()),
              f"{rc.__file__} is not the variant's copy")
     _build.build_all()
-    states = cs.path_states(torch, bench_torch, env_lib,
-                            demo="strips" in kernels)
+    states = cs.path_states(torch, bench_torch, demo="strips" in kernels)
     scene_state = states[0]
     demo_state = states[1] if "strips" in kernels else None
     out = {}
@@ -430,8 +428,9 @@ def eager_steps(tree=".", workload="image64", aa=None, lanes=None,
                 steps=20, chunks=4, device="cuda"):
     """The eager environment step of the repo's tree at `tree` (this one,
     or an older commit unpacked with `git archive`), driven the same way
-    for every tree: `BatchedEnvironment.step` on `sample_actions()` from
-    one reset, no observation read. Prints one JSON line: wall ms a step
+    for every tree: `Environment.step_batch` on `sample_action(lanes)` from
+    one `reset_batch`, no observation read (what `BatchedEnvironment.step`
+    ran before it replayed graphs). Prints one JSON line: wall ms a step
     and env-steps/s of `chunks` timed chunks of `steps` steps (after one
     warm-up chunk), and on the card the device busy ms, idle share and
     launches a step of one more chunk under torch.profiler. Run one tree
@@ -444,21 +443,19 @@ def eager_steps(tree=".", workload="image64", aa=None, lanes=None,
     import torch
 
     import bench_torch
-    from spriteworld_torch.core import environment as env_lib
 
     (name, aa, exact), = bench_torch.todo_list(workload, aa, False)
     lanes = lanes or (256 if name == "demo256" else 2048)
     env, _, _ = bench_torch.build(name, aa, exact, device=device, seed=0)
-    benv = env_lib.BatchedEnvironment(env, lanes)
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
     def chunk(state):
         for _ in range(steps):
-            state, _ = benv.step(state, benv.sample_actions())
+            state, _ = env.step_batch(state, env.sample_action(lanes))
         return state
 
-    state = chunk(benv.reset()[0])
+    state = chunk(env.reset_batch(lanes)[0])
     times = []
     for _ in range(chunks):
         sync()

@@ -36,11 +36,12 @@ Phases:
      float32 sine and cosine give; the IMMA instructions in each built
      kernel (cuobjdump -sass);
   4. the main path: bench.py's image64 workload at anti_aliasing=5 over
-     2048 lanes — reset, warm-up, 3 timed chunks of 50 steps, each step
-     followed by torch.cuda.synchronize() — checking that every render went
-     through the scene kernel, images are not blank, rewards are finite
-     (NaN only where the goal filter is empty) and step types follow
-     FIRST/MID/LAST;
+     2048 lanes through BatchedEnvironment(use_graph=False), the eager
+     step (phases 5 and 6 too) — reset, warm-up, 3 timed chunks of 50
+     steps, each step followed by torch.cuda.synchronize() — checking that
+     every render went through the scene kernel, images are not blank,
+     rewards are finite (NaN only where the goal filter is empty) and step
+     types follow FIRST/MID/LAST;
   5. the demo path: the cobra clustering config with the interactive
      demo's overrides (DragAndDrop(scale=0.5), 256x256 HSV images at
      anti_aliasing=10, Success) over 256 lanes — reset, warm-up, 3 chunks of
@@ -94,17 +95,30 @@ Phases:
      packed_raster in both fills at 64x64/AA=1, and the dispatch's pick
      for setup_run_ui's default 256x256/AA=1) at B = 1, 2 and 3 through
      the renderer's dispatch against the plain version, launched once at
-     that batch (`by_batch`); media.record_episode on
+     that batch (`by_batch`); media.record_episode, eager, on
      goal_finding_new_position and sorting (64x64/AA=5), the demo config
      (256x256/AA=10) and image64 (64x64/AA=1) with a deterministic click
      policy, every frame equal to the plain version's render of its state
      and every render through the config's kernels at B=1;
      example_run_loop_torch.run at 4 lanes with images, one log line an
-     episode; the dm_env adapter where dm_env is installed, else a line
-     that says so; make_gifs_torch, writing its GIF where Pillow is
-     installed, else a line that says so; ms a single-env step (median
-     and best of 20), kernel launches and device-busy ms a step
-     (torch.profiler) on each of the four configs, as one JSON line;
+     episode, its reset and step replayed from graphs; the dm_env adapter
+     where dm_env is installed, else a line that says so; make_gifs_torch,
+     writing its GIF where Pillow is installed, else a line that says so;
+     ms an eager single-env step (median and best of 20), kernel launches
+     and device-busy ms a step (torch.profiler) on each of the four
+     configs, as one JSON line (`single_env_step`); then the compiled
+     surface (9.6) on the same configs: BatchedEnvironment at 1 and 4
+     lanes, the dm_env adapter (over a stand-in for dm_env's TimeStep and
+     spec classes where dm_env is not installed) and
+     media.record_episode/step_frame replay captured graphs by default and
+     equal their eager twins (use_graph=False) bit for bit over two
+     episodes and an auto-reset, with eager draws (sample_actions,
+     sample_contained_position, the default policy) between replays, host
+     reads counted under torch.cuda.set_sync_debug_mode("warn"), each
+     kernel launched only to warm up and capture (counted from 0, added to
+     phase 8's launches); the low-acceptance config at B=1 re-run and
+     equal; graph and eager step_frame timed in turn (median and best of
+     20) and profiled, as one JSON line (`single_env_graph`);
  10. the trainer, the mesh and the batch sweep (run after phase 9, before
      phase 8): train_example_torch.train at 1024 lanes x 20 steps, 5
      iterations, with factor and with image observations (packed_raster
@@ -128,6 +142,7 @@ python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 8's split)
 python3 -c 'import chip_smoke; chip_smoke.packed_only()'  (packed_raster)
 """
 
+import contextlib
 import json
 import sys
 import time
@@ -548,7 +563,9 @@ def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
     def step():
         nonlocal state, ts, prev_type, bad_types, bad_rewards, blank, seen
         nonlocal moved
-        before = state
+        # The step donates its state (its buffers come back): keep a copy
+        # of the state the body moved from.
+        before = state.clone() if moved_of is not None else None
         state, ts = benv.step(state, benv.sample_actions())
         torch.cuda.synchronize()
         cur = ts.step_type
@@ -597,7 +614,7 @@ def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
     """Phase 4: image64 at AA=5 over 2048 lanes. Returns (steps/s, state,
     scene_raster launches)."""
     env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
-    benv = env_lib.BatchedEnvironment(env, BATCH)
+    benv = env_lib.BatchedEnvironment(env, BATCH, use_graph=False)
     task = env.task
 
     def bad_rewards(state, ts, first):
@@ -620,7 +637,7 @@ def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
     env = bench_torch.build_demo_env(anti_aliasing=DEMO_AA,
                                      render_size=DEMO_SIZE, device="cuda",
                                      seed=0)
-    benv = env_lib.BatchedEnvironment(env, DEMO_BATCH)
+    benv = env_lib.BatchedEnvironment(env, DEMO_BATCH, use_graph=False)
 
     def bad_rewards(state, ts, first):
         return ~torch.isfinite(ts.reward) & state.task_valid
@@ -673,7 +690,7 @@ def drive_workloads(torch, bench_torch, env_lib, rasterize_cuda, card):
     out = {}
     for label, name, aa, exact, lanes, want in WORKLOADS:
         env, _, _ = bench_torch.build(name, aa, exact, device="cuda", seed=0)
-        benv = env_lib.BatchedEnvironment(env, lanes)
+        benv = env_lib.BatchedEnvironment(env, lanes, use_graph=False)
         task = env.task
         if hasattr(task, "filter_mask"):  # FindGoalPosition
             def bad_rewards(state, ts, first, task=task):
@@ -769,10 +786,13 @@ def metrics_of(tss, ret_acc):
             float(reward.sum()))
 
 
-def low_acceptance_env(bench_torch, env_lib):
+def low_acceptance_env(bench_torch, env_lib, device="cuda",
+                       image_size=(64, 64)):
     """image64 at AA=1 whose sprite x comes from a Selection that accepts
     4% of its proposals: at 2048 lanes x 6 sprites a step's fresh scenes
-    leave elements pending after the first rejection round."""
+    leave elements pending after the first rejection round (an element
+    stays pending with chance 0.96^32 = 0.27, so at one lane most steps
+    do)."""
     from spriteworld_torch.core import actions, renderers
     from spriteworld_torch.core import distributions as d
     from spriteworld_torch.core import generators
@@ -789,9 +809,9 @@ def low_acceptance_env(bench_torch, env_lib):
     return env_lib.Environment(
         task=task, action_space=actions.SelectMove(scale=0.25),
         renderers={"image": renderers.ImageRenderer(
-                       (64, 64), anti_aliasing=1, color_to_rgb="hsv"),
+                       image_size, anti_aliasing=1, color_to_rgb="hsv"),
                    "success": renderers.Success()},
-        init_sprites=sprites, max_episode_length=20, device="cuda", seed=0)
+        init_sprites=sprites, max_episode_length=20, device=device, seed=0)
 
 
 def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
@@ -1048,7 +1068,7 @@ def plain_frames(rasterize_cuda, renderer, factors, num_sprites):
 
 
 def record_single(torch, bench_torch, rasterize_cuda, dev="cuda"):
-    """Phase 9.2: media.record_episode at B=1 on each config of
+    """Phase 9.2: media.record_episode at B=1, eager, on each config of
     `single_env_paths` with `scripted_policy`, up to SINGLE_MAX_STEPS
     steps: every frame equals the plain version's render of its state,
     and every render launched the config's kernels and modes at B=1, once
@@ -1061,7 +1081,8 @@ def record_single(torch, bench_torch, rasterize_cuda, dev="cuda"):
         rc.reset_launch_counts()
         frames, states = media.record_episode(
             env, 0, max_steps=SINGLE_MAX_STEPS,
-            policy=scripted_policy(torch, env), return_states=True)
+            policy=scripted_policy(torch, env), return_states=True,
+            use_graph=False)
         counts = {k: v for k, v in launch_counts(rc).items() if v}
         batches = {k: v for k, v in batch_counts(rc).items() if v}
         renders = len(frames)
@@ -1087,8 +1108,8 @@ def record_single(torch, bench_torch, rasterize_cuda, dev="cuda"):
 
 def run_loop_single(torch, rasterize_cuda, dev="cuda"):
     """Phase 9.3: example_run_loop_torch.run at 4 lanes with images, one
-    episode a lane: one log line per finished episode, every step through
-    scene_raster at B=4."""
+    episode a lane: one log line per finished episode, its reset and step
+    replayed from graphs of scene_raster at B=4."""
     import logging
 
     import example_run_loop_torch
@@ -1118,8 +1139,9 @@ def run_loop_single(torch, rasterize_cuda, dev="cuda"):
           f"{batches}; first: {logged[:1]}")
     check(len(logged) == len(episodes) and 4 <= len(episodes) < 8,
           "example_run_loop_torch.run did not log each episode once")
-    check(set(batches) == {"scene_raster"}
-          and set(batches["scene_raster"]) == {4},
+    # BatchedEnvironment replays graphs: the kernel launched only to warm
+    # up and capture the reset and the step.
+    check(batches == {"scene_raster": {4: 4}},
           f"example_run_loop_torch.run launched {batches}")
 
 
@@ -1171,16 +1193,15 @@ def adapter_single(torch, bench_torch, dev="cuda"):
 
 
 def time_single(torch, bench_torch, rasterize_cuda, card, dev="cuda"):
-    """Phase 9.5: wall ms a single-env step (`media.step_frame`: the step
-    at B=1 and its one device-to-host copy) on each config of
-    `single_env_paths`, median and best of SINGLE_TIMED_STEPS steps of
-    pre-drawn random actions after SINGLE_WARMUP_STEPS; the raster
-    kernels' launches a step from their counters, and every kernel's
-    launches and device-busy ms a step from torch.profiler over
-    SINGLE_PROFILED_STEPS more. Returns {label: {...}}."""
+    """Phase 9.5: wall ms an eager single-env step (`media.step_frame` with
+    use_graph=False: the step at B=1 and its one device-to-host copy) on
+    each config of `single_env_paths`, median and best of
+    SINGLE_TIMED_STEPS steps of pre-drawn random actions after
+    SINGLE_WARMUP_STEPS; the raster kernels' launches a step from their
+    counters, and every kernel's launches and device-busy ms a step from
+    torch.profiler over SINGLE_PROFILED_STEPS more. Returns {label:
+    {...}}."""
     import statistics
-
-    from torch.profiler import ProfilerActivity, profile
 
     from spriteworld_torch.utils import media
 
@@ -1197,47 +1218,496 @@ def time_single(torch, bench_torch, rasterize_cuda, card, dev="cuda"):
             if i == SINGLE_WARMUP_STEPS:
                 rc.reset_launch_counts()
             t0 = time.perf_counter()
-            state, _, _ = media.step_frame(env, state, actions[i])
+            state, _, _ = media.step_frame(env, state, actions[i],
+                                           use_graph=False)
             ms.append((time.perf_counter() - t0) * 1e3)
         ms = ms[SINGLE_WARMUP_STEPS:]
         raster = {k: {m: c / SINGLE_TIMED_STEPS for m, c in v.items()}
                   for k, v in launch_counts(rc).items() if v}
         check(raster == {k: {m: 1.0} for k, m in kernels.items()},
               f"{label}: timed steps launched {raster}")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for a in actions[-SINGLE_PROFILED_STEPS:]:
-                state, _, _ = media.step_frame(env, state, a)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.is_user_annotation]
-        launched = [e for e in events
-                    if not e.key.startswith(("Memcpy", "Memset"))]
-        copies = {}  # by kind: DtoH (each a wait for the device), DtoD
-        for e in events:
-            if e.key.startswith("Memcpy"):
-                kind = e.key.split()[1]
-                copies[kind] = (copies.get(kind, 0)
-                                + e.count / SINGLE_PROFILED_STEPS)
-        out[label] = {
-            "ms_median": statistics.median(ms), "ms_best": min(ms),
-            "kernel_launches_per_step":
-                sum(e.count for e in launched) / SINGLE_PROFILED_STEPS,
-            "copies_per_step": copies,
-            "device_busy_ms_per_step":
-                sum(e.self_device_time_total for e in launched) / 1e3
-                / SINGLE_PROFILED_STEPS,
-            "raster_launches_per_step": raster,
-        }
+        profiled = iter(actions[-SINGLE_PROFILED_STEPS:])
+
+        def step():
+            nonlocal state
+            state, _, _ = media.step_frame(env, state, next(profiled),
+                                           use_graph=False)
+
+        prof = step_profile(torch, step, SINGLE_PROFILED_STEPS)
+        del prof["graph_launches_per_step"]
+        out[label] = {"ms_median": statistics.median(ms), "ms_best": min(ms),
+                      **prof, "raster_launches_per_step": raster}
         print(f"single env step, {label}: {out[label]['ms_median']:.3f} ms "
               f"median, {out[label]['ms_best']:.3f} ms best of "
-              f"{SINGLE_TIMED_STEPS} (B=1, after {SINGLE_WARMUP_STEPS} "
-              f"warm-up steps); "
+              f"{SINGLE_TIMED_STEPS} (B=1, eager, after "
+              f"{SINGLE_WARMUP_STEPS} warm-up steps); "
               f"{out[label]['kernel_launches_per_step']:.1f} kernel "
               f"launches and {out[label]['device_busy_ms_per_step']:.4f} "
-              f"device-busy ms a step, copies a step {copies} "
-              f"(torch.profiler, {SINGLE_PROFILED_STEPS} steps); raster "
-              f"{raster}; on {card}")
+              f"device-busy ms a step, copies a step "
+              f"{out[label]['copies_per_step']} (torch.profiler, "
+              f"{SINGLE_PROFILED_STEPS} steps); raster {raster}; on {card}")
+    return out
+
+
+# The mode of a kernels-line entry named without one.
+DEFAULT_MODES = {"scene_raster": "exact+lanczos",
+                 "strip_raster": "exact+lanczos", "strip_vpass": "lanczos",
+                 "packed_raster": "exact+identity"}
+# Phase 9.6: the compiled step-by-step surface. Graph and eager steps timed
+# in turn after warm-up, and steps profiled of each.
+GRAPH_TIMED_STEPS = 20
+GRAPH_WARMUP_STEPS = 3
+GRAPH_LANES = (1, 4)  # BatchedEnvironment's lanes
+REJECT_STEPS = 12  # the low-acceptance config's steps at B=1
+
+
+@contextlib.contextmanager
+def dm_env_stand_in():
+    """Within the block, `import dm_env` finds the installed package or,
+    where it is not installed, a stand-in with what the port's adapter
+    and action spaces call: `Environment`, `StepType`,
+    `TimeStep`, `restart`/`transition`/`termination` and `specs.Array`,
+    `BoundedArray`, `DiscreteArray` (with `validate`). Yields whether the
+    package is installed."""
+    import collections
+    import enum
+    import importlib.util
+    import types
+
+    if importlib.util.find_spec("dm_env") is not None:
+        yield True
+        return
+
+    class StepType(enum.IntEnum):
+        FIRST = 0
+        MID = 1
+        LAST = 2
+
+    time_step = collections.namedtuple(
+        "TimeStep", "step_type reward discount observation")
+
+    class Array:
+        def __init__(self, shape, dtype, name=None):
+            self.shape, self.dtype, self.name = (tuple(shape),
+                                                 np.dtype(dtype), name)
+
+        def validate(self, value):
+            value = np.asarray(value)
+            if value.shape != self.shape or (
+                    self.dtype != object and value.dtype != self.dtype):
+                raise ValueError(f"{value.shape} {value.dtype} against "
+                                 f"{self.shape} {self.dtype}")
+            return value
+
+    class BoundedArray(Array):
+        def __init__(self, shape, dtype, minimum, maximum, name=None):
+            super().__init__(shape, dtype, name)
+            self.minimum, self.maximum = minimum, maximum
+
+    class DiscreteArray(BoundedArray):
+        def __init__(self, num_values, dtype=np.int32, name=None):
+            super().__init__((), dtype, 0, num_values - 1, name)
+            self.num_values = num_values
+
+    specs = types.ModuleType("dm_env.specs")
+    specs.Array, specs.BoundedArray = Array, BoundedArray
+    specs.DiscreteArray = DiscreteArray
+    mod = types.ModuleType("dm_env")
+    mod.specs, mod.StepType, mod.TimeStep = specs, StepType, time_step
+    mod.Environment = type("Environment", (), {})
+    mod.restart = lambda observation: time_step(
+        StepType.FIRST, None, None, observation)
+    mod.transition = lambda reward, observation, discount=1.0: time_step(
+        StepType.MID, reward, discount, observation)
+    mod.termination = lambda reward, observation: time_step(
+        StepType.LAST, reward, 0.0, observation)
+    sys.modules["dm_env"], sys.modules["dm_env.specs"] = mod, specs
+    try:
+        yield False
+    finally:
+        for name in ("dm_env", "dm_env.specs",
+                     "spriteworld_torch.adapters.dm_env_adapter"):
+            sys.modules.pop(name, None)
+
+
+@contextlib.contextmanager
+def host_reads(torch, counts):
+    """Within the block, torch.cuda.set_sync_debug_mode("warn"); appends
+    to `counts` how many calls in it waited for the device."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counts.append(sum("synchroniz" in str(w.message) for w in caught))
+
+
+def adapter_of(dm_env_adapter, env, use_graph):
+    """The dm_env adapter over `env`'s configuration, seeded 0 like it."""
+    return dm_env_adapter.Environment(
+        task=env.task, action_space=env.action_space,
+        renderers=env.renderers, init_sprites=env._init_sprites,
+        keep_in_frame=env._keep_in_frame,
+        max_episode_length=env.max_episode_length, metadata=env.metadata,
+        seed=0, device=env.device, use_graph=use_graph)
+
+
+def same_host(a, b) -> bool:
+    """Whether two host values (timesteps, observations, sprite lists)
+    are equal, NaN to NaN."""
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a).__name__ == type(b).__name__ and all(
+            same_host(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_host(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)) or (isinstance(a, np.ndarray)
+                                        and a.dtype == object):
+        return len(a) == len(b) and all(same_host(x, y)
+                                        for x, y in zip(a, b))
+    if hasattr(a, "factors"):  # a host Sprite
+        return same_host(dict(a.factors), dict(b.factors))
+    if a is None or b is None:
+        return a is b
+    return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=np.asarray(
+        a).dtype.kind == "f")
+
+
+def same_states(torch, a, b) -> bool:
+    from spriteworld_torch.core.state import STATE_FIELDS
+
+    return all(torch.equal(getattr(a, n), getattr(b, n))
+               for n in STATE_FIELDS)
+
+
+def same_timesteps(torch, a, b) -> bool:
+    """Whether two TimeSteps of tensors are equal, NaN to NaN."""
+    def leaves(tree):
+        if isinstance(tree, (dict, list)):
+            items = tree.values() if isinstance(tree, dict) else tree
+            return [x for v in items for x in leaves(v)]
+        return [tree]
+
+    pairs = zip(leaves([a.step_type, a.reward, a.discount, a.observation]),
+                leaves([b.step_type, b.reward, b.discount, b.observation]))
+    return all(torch.equal(x.nan_to_num(), y.nan_to_num())
+               and torch.equal(x.isnan(), y.isnan()) for x, y in pairs)
+
+
+def episodes_of(step_types) -> bool:
+    """Whether lane-0 step types hold two LASTs and a FIRST after one."""
+    lasts = [i for i, t in enumerate(step_types) if t == 2]
+    return len(lasts) >= 2 and 0 in step_types[lasts[0]:]
+
+
+def run_batched(torch, env, lanes, use_graph, steps):
+    """BatchedEnvironment over `lanes`: reset, then `steps` steps of
+    `sample_actions()` (eager draws between replays). Returns ([(state
+    copy, TimeStep)], host reads of each step, reruns at each step,
+    whether the step holds a rejection node)."""
+    from spriteworld_torch.core import environment as env_lib
+
+    benv = env_lib.BatchedEnvironment(env, lanes, use_graph=use_graph)
+    check(benv.use_graph == use_graph, "BatchedEnvironment's default")
+    reads, reruns = [], []
+    with host_reads(torch, reads):
+        state, ts = benv.reset()
+    out = [(state.clone(), ts)]
+    for _ in range(steps):
+        actions = benv.sample_actions()
+        with host_reads(torch, reads):
+            state, ts = benv.step(state, actions)
+        out.append((state.clone(), ts))
+        reruns.append(benv.reruns)
+    step = benv._compiled._programs["step"]
+    return out, reads, reruns, step.graph is None or step.rejects
+
+
+def run_adapter(torch, dm_env_adapter, env, use_graph, steps):
+    """The dm_env adapter: reset, then `steps` steps of
+    `action_space.sample()`, every third step also `observation()` and
+    `sample_contained_position()` (an eager draw from the env's generator
+    between replays). Returns ([host results], host reads of each step,
+    the adapter)."""
+    adapter = adapter_of(dm_env_adapter, env, use_graph)
+    out, reads = [], []
+    with host_reads(torch, reads):
+        out.append(adapter.reset())
+    for t in range(steps):
+        action = adapter.action_space.sample()
+        with host_reads(torch, reads):
+            out.append(adapter.step(action))
+        if t % 3 == 1:
+            out.append(adapter.observation())
+            out.append(adapter.sample_contained_position())
+    return out, reads, adapter
+
+
+def run_media(torch, media, env, use_graph, steps):
+    """media: record_episode seeded 0, then one drawing on from the env's
+    generator with its states, then step_frame past that episode's LAST
+    (the auto-reset). Returns ([frames and states], host reads of the
+    second episode, its frames, reruns)."""
+    first = media.record_episode(env, 0, max_steps=steps,
+                                 use_graph=use_graph)
+    reads = []
+    compiled = media._compiled(env, use_graph)
+    reruns = compiled.reruns
+    with host_reads(torch, reads):
+        frames, states = media.record_episode(
+            env, env.generator, max_steps=steps, return_states=True,
+            use_graph=use_graph)
+    out = [first, frames, states]
+    state = states[-1]
+    for _ in range(2):
+        state, frame, last = media.step_frame(
+            env, state, env.sample_action(1), use_graph=use_graph)
+        out.append((state.clone(), frame, last))
+    return out, reads[0], len(frames), compiled.reruns - reruns
+
+
+def single_env_graph(torch, bench_torch, rasterize_cuda, card, dev="cuda"):
+    """Phase 9.6, the compiled step-by-step surface on each config of
+    `single_env_paths`: BatchedEnvironment at 1 and 4 lanes, the dm_env
+    adapter and media.record_episode/step_frame replay captured graphs by
+    default, and each equals its eager twin (use_graph=False) bit for bit
+    over two episodes and an auto-reset, with eager draws between replays,
+    both under torch.cuda.set_sync_debug_mode("warn") with the host reads
+    counted (the adapter and media one a step; BatchedEnvironment's graph
+    none, or the rejection flag where its step holds a rejection node;
+    its eager twin the flag every step; one more where a step ran again).
+    The graph paths launch each of the config's kernels only while warming
+    up and capturing (2 a program), counted from 0. Then the low-acceptance
+    config at B=1 (steps run again, equal to the host-checked eager
+    steps), and graph and eager `step_frame` timed in turn and profiled.
+    Returns ({label: times}, {kernel: {mode: launches}} of the graph
+    paths)."""
+    from spriteworld_torch.core import environment as env_lib
+    from spriteworld_torch.utils import media
+
+    rc = rasterize_cuda
+    times, graph_launches = {}, {}
+    with dm_env_stand_in() as installed:
+        from spriteworld_torch.adapters import dm_env_adapter
+
+        if not installed:
+            print("dm_env is not installed on this machine: phase 9.6 "
+                  "drives the adapter with a stand-in for dm_env's "
+                  "TimeStep and spec classes")
+        for i, (label, _, kernels) in enumerate(single_env_paths(
+                bench_torch, dev)):
+            def fresh():
+                return single_env_paths(bench_torch, dev)[i][1]
+
+            steps = 2 * fresh().max_episode_length + 2
+            runs = {}
+            for use_graph in (True, False):
+                rc.reset_launch_counts()
+                batched = {lanes: run_batched(torch, fresh(), lanes,
+                                              use_graph, steps)
+                           for lanes in GRAPH_LANES}
+                adapter = run_adapter(torch, dm_env_adapter, fresh(),
+                                      use_graph, steps)
+                recorded = run_media(torch, media, fresh(), use_graph,
+                                     steps)
+                runs[use_graph] = (batched, adapter, recorded,
+                                   launch_counts(rc), batch_counts(rc))
+            (g_b, g_a, g_m, g_counts, g_batches), (e_b, e_a, e_m, _, _) = (
+                runs[True], runs[False])
+            reruns = {"adapter": g_a[2]._compiled.reruns, "media": g_m[3]}
+            for lanes in GRAPH_LANES:
+                (g_out, g_reads, g_re, g_pends), (e_out, e_reads, e_re, _) = (
+                    g_b[lanes], e_b[lanes])
+                check(len(g_out) == len(e_out) and all(
+                    same_states(torch, gs, es)
+                    and same_timesteps(torch, gts, ets)
+                    for (gs, gts), (es, ets) in zip(g_out, e_out)),
+                    f"{label}: BatchedEnvironment at {lanes} lanes, graph "
+                    f"and eager differ")
+                types = [int(ts.step_type[0]) for _, ts in g_out]
+                check(episodes_of(types), f"{label}: no two episodes and "
+                                          f"an auto-reset in lane 0")
+                # Reads a step after the first (whose capture syncs): the
+                # flag where it can be set, one more where a step re-ran.
+                for name, reads, re, flag in (
+                        ("graph", g_reads, g_re, g_pends),
+                        ("eager", e_reads, e_re, True)):
+                    # A re-run's host-checked rejection reads once or more.
+                    check(all(r == int(flag) if b == a else r > int(flag)
+                              for r, a, b in zip(reads[2:], re, re[1:])),
+                          f"{label}, {lanes} lanes, {name}: host reads "
+                          f"{reads}, reruns {re}")
+                reruns[f"batched {lanes}"] = g_re[-1]
+                print(f"single env graph, {label}, BatchedEnvironment at "
+                      f"{lanes} lanes: {len(g_out) - 1} steps equal to the "
+                      f"eager ones; host reads a step graph "
+                      f"{sorted(set(g_reads[2:]))}, eager "
+                      f"{sorted(set(e_reads[2:]))}; the step holds a "
+                      f"rejection node: {g_pends}; reruns {g_re[-1]}")
+            (g_out, g_reads, g_ad), (e_out, e_reads, e_ad) = g_a, e_a
+            check(len(g_out) == len(e_out) and all(
+                same_host(x, y) for x, y in zip(g_out, e_out)),
+                f"{label}: the adapter's graph and eager steps differ")
+            for name, reads, ad in (("graph", g_reads, g_ad),
+                                    ("eager", e_reads, e_ad)):
+                check(all(r == 1 for r in reads[2:])
+                      or ad._compiled.reruns > 0,
+                      f"{label}: the adapter's {name} steps read the host "
+                      f"{reads} times")
+            print(f"single env graph, {label}, dm_env adapter: reset, "
+                  f"{steps} steps, observations and contained positions "
+                  f"equal to the eager ones; host reads a step graph "
+                  f"{sorted(set(g_reads[2:]))}, eager "
+                  f"{sorted(set(e_reads[2:]))}")
+            (g_out, g_reads, g_frames, g_re), (e_out, e_reads, e_frames,
+                                               e_re) = g_m, e_m
+            check(np.array_equal(g_out[0], e_out[0])
+                  and np.array_equal(g_out[1], e_out[1])
+                  and all(same_states(torch, a, b)
+                          for a, b in zip(g_out[2], e_out[2]))
+                  and all(same_states(torch, a[0], b[0])
+                          and np.array_equal(a[1], b[1]) and a[2] == b[2]
+                          for a, b in zip(g_out[3:], e_out[3:])),
+                  f"{label}: record_episode's graph and eager frames or "
+                  "states differ")
+            check((g_reads == g_frames or g_re) and (e_reads == e_frames
+                                                      or e_re),
+                  f"{label}: record_episode read the host {g_reads} / "
+                  f"{e_reads} times for {g_frames} frames")
+            counts = [int(s[0].step_count) for s in g_out[3:]]
+            check(int(g_out[2][-1].reset_next) and counts[0] == 0,
+                  f"{label}: step_frame past LAST did not reset")
+            print(f"single env graph, {label}, record_episode: "
+                  f"{len(g_out[0])} + {g_frames} frames and 2 steps past "
+                  f"LAST (step counts {counts}) equal to the eager ones; "
+                  f"{g_reads} host reads for {g_frames} frames")
+            # The graph paths: 2 launches a captured program (warm-up and
+            # capture), at B=1 the reset and step of BatchedEnvironment
+            # and media and the adapter's observation too, plus re-runs.
+            at_one = 2 * 7 + reruns["batched 1"] + reruns["adapter"] \
+                + reruns["media"]
+            want = {k: {1: at_one, 4: 4 + reruns["batched 4"]}
+                    for k in kernels}
+            got = {k: v for k, v in g_batches.items() if v}
+            print(f"single env graph, {label}: launches through the "
+                  f"wrappers on the graph paths {got} (reruns {reruns})")
+            check(got == want, f"{label}: the graph paths launched {got}, "
+                               f"not {want}")
+            for k, v in g_counts.items():
+                for m, n in v.items():
+                    graph_launches.setdefault(k, {})
+                    graph_launches[k][m] = graph_launches[k].get(m, 0) + n
+            times[label] = time_graph_steps(torch, media, fresh(), card,
+                                            label)
+        low_acceptance(torch, bench_torch, env_lib, dm_env_adapter)
+    return times, graph_launches
+
+
+def low_acceptance(torch, bench_torch, env_lib, dm_env_adapter):
+    """The low-acceptance config at B=1: BatchedEnvironment's graph steps
+    against the host-checked eager step_batch loop from the same seed, and
+    the adapter's graph steps against its eager ones; steps re-run."""
+    graph = env_lib.BatchedEnvironment(
+        low_acceptance_env(bench_torch, env_lib), 1)
+    plain = low_acceptance_env(bench_torch, env_lib)
+    state, ts = graph.reset()
+    want, wts = plain.reset_batch(1)
+    equal = same_states(torch, state, want) and same_timesteps(torch, ts, wts)
+    for _ in range(REJECT_STEPS):
+        state, ts = graph.step(state, graph.sample_actions())
+        want, wts = plain.step_batch(want, plain.sample_action(1))
+        equal = equal and same_states(torch, state, want) \
+            and same_timesteps(torch, ts, wts)
+    check(graph.use_graph and graph.reruns >= 1 and equal,
+          f"low acceptance, BatchedEnvironment: {graph.reruns} reruns, "
+          f"equal to the host-checked steps: {equal}")
+    runs = [run_adapter(torch, dm_env_adapter,
+                        low_acceptance_env(bench_torch, env_lib), use_graph,
+                        REJECT_STEPS) for use_graph in (True, False)]
+    adapter_reruns = runs[0][2]._compiled.reruns
+    check(adapter_reruns >= 1 and all(
+        same_host(x, y) for x, y in zip(runs[0][0], runs[1][0])),
+        f"low acceptance, adapter: {adapter_reruns} reruns, graph and "
+        "eager differ")
+    print(f"single env graph, low acceptance at B=1: BatchedEnvironment "
+          f"re-ran {graph.reruns} of {REJECT_STEPS + 1} launches and equals "
+          f"the host-checked step_batch loop; the adapter re-ran "
+          f"{adapter_reruns} and equals its eager twin")
+
+
+def step_profile(torch, run, steps: int) -> dict:
+    """Kernels, copies by kind and device-busy ms a step over `steps`
+    calls of `run()` under torch.profiler, and graph launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    launched = [e for e in device
+                if not e.key.startswith(("Memcpy", "Memset"))]
+    copies = {}  # by kind: DtoH (each a wait for the device), DtoD, HtoD
+    for e in device:
+        if e.key.startswith("Memcpy"):
+            kind = e.key.split()[1]
+            copies[kind] = copies.get(kind, 0) + e.count / steps
+    return {
+        "kernel_launches_per_step": sum(e.count for e in launched) / steps,
+        "copies_per_step": copies,
+        "device_busy_ms_per_step":
+            sum(e.self_device_time_total for e in launched) / 1e3 / steps,
+        "graph_launches_per_step": sum(
+            e.count for e in events if e.key == "cudaGraphLaunch") / steps,
+    }
+
+
+def time_graph_steps(torch, media, env, card, label):
+    """Graph and eager `media.step_frame` at B=1 in turn (its action drawn
+    before the clock starts): median and best wall ms of
+    GRAPH_TIMED_STEPS each after GRAPH_WARMUP_STEPS, then
+    SINGLE_PROFILED_STEPS of each under torch.profiler."""
+    import statistics
+
+    state = {use_graph: env.reset_batch(1)[0] for use_graph in (True, False)}
+    ms = {True: [], False: []}
+
+    def step(use_graph):
+        action = env.sample_action(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[use_graph], _, _ = media.step_frame(
+            env, state[use_graph], action, use_graph=use_graph)
+        return (time.perf_counter() - t0) * 1e3
+
+    for i in range(GRAPH_WARMUP_STEPS + GRAPH_TIMED_STEPS):
+        for use_graph in ((True, False) if i % 2 else (False, True)):
+            t = step(use_graph)
+            if i >= GRAPH_WARMUP_STEPS:
+                ms[use_graph].append(t)
+    out = {}
+    for use_graph, name in ((True, "graph"), (False, "eager")):
+        out[name] = {"ms_median": statistics.median(ms[use_graph]),
+                     "ms_best": min(ms[use_graph]),
+                     **step_profile(torch, lambda: step(use_graph),
+                                    SINGLE_PROFILED_STEPS)}
+    print(f"single env graph step, {label}: graph "
+          f"{out['graph']['ms_median']:.3f} ms median, "
+          f"{out['graph']['ms_best']:.3f} best; eager "
+          f"{out['eager']['ms_median']:.3f} / {out['eager']['ms_best']:.3f} "
+          f"(B=1, {GRAPH_TIMED_STEPS} each in turn); a step: graph "
+          f"{out['graph']['kernel_launches_per_step']:.1f} kernels, "
+          f"{out['graph']['device_busy_ms_per_step']:.4f} device-busy ms, "
+          f"{out['graph']['graph_launches_per_step']:.1f} graph launches; "
+          f"eager {out['eager']['kernel_launches_per_step']:.1f} kernels, "
+          f"{out['eager']['device_busy_ms_per_step']:.4f} ms; on {card}")
     return out
 
 
@@ -1245,15 +1715,20 @@ def single_env(torch, bench_torch, rasterize_cuda, colors, card,
                dev="cuda"):
     """Phase 9, the single env at B=1: kernels against plain (9.1),
     record_episode (9.2), example_run_loop_torch (9.3), the dm_env adapter
-    and make_gifs_torch (9.4), then the step's times (9.5), with one JSON
-    line of the times. Returns the largest kernel difference."""
+    and make_gifs_torch (9.4), then the eager step's times (9.5) and the
+    compiled surface against its eager twin with its times (9.6), each
+    with one JSON line of the times. Returns (the largest kernel
+    difference, {kernel: {mode: launches}} of 9.6's graph paths)."""
     worst = single_vs_plain(torch, rasterize_cuda, colors, dev)
     record_single(torch, bench_torch, rasterize_cuda, dev)
     run_loop_single(torch, rasterize_cuda, dev)
     adapter_single(torch, bench_torch, dev)
     times = time_single(torch, bench_torch, rasterize_cuda, card, dev)
     print(json.dumps({"single_env_step": times, "card": card}))
-    return worst
+    graph_times, graph_launches = single_env_graph(
+        torch, bench_torch, rasterize_cuda, card, dev)
+    print(json.dumps({"single_env_graph": graph_times, "card": card}))
+    return worst, graph_launches
 
 
 # Phase 10: the trainer at full width (10.1), the mesh on one card (10.2)
@@ -2061,11 +2536,12 @@ SPLIT_MODES = (("exact+lanczos", True, "lanczos"), ("exact+box", True, "box"),
                ("centroid+box", False, "box"))
 
 
-def path_states(torch, bench_torch, env_lib, steps=2, demo=True):
+def path_states(torch, bench_torch, steps=2, demo=True):
     """(image64 AA=5 state over BATCH lanes, demo256 state over DEMO_BATCH
-    lanes unless not `demo`), each after a reset and `steps` steps: the
-    scenes the kernels render on their paths (packed_raster's image64
-    scenes at AA=1 are the same)."""
+    lanes unless not `demo`), each after a reset and `steps` eager steps:
+    the scenes the kernels render on their paths (packed_raster's image64
+    scenes at AA=1 are the same). Only `Environment.reset_batch`,
+    `step_batch` and `sample_action`, which every tree of the port has."""
     envs = [(bench_torch.build_env(anti_aliasing=5, device="cuda", seed=1),
              BATCH)]
     if demo:
@@ -2074,10 +2550,9 @@ def path_states(torch, bench_torch, env_lib, steps=2, demo=True):
             seed=1), DEMO_BATCH))
     out = []
     for env, lanes in envs:
-        benv = env_lib.BatchedEnvironment(env, lanes)
-        state, _ = benv.reset()
+        state, _ = env.reset_batch(lanes)
         for _ in range(steps):
-            state, _ = benv.step(state, benv.sample_actions())
+            state, _ = env.step_batch(state, env.sample_action(lanes))
         out.append(state)
     torch.cuda.synchronize()
     return out
@@ -2321,7 +2796,6 @@ def packed_only():
     import torch
 
     import bench_torch
-    from spriteworld_torch.core import environment as env_lib
     from spriteworld_torch.ops import _build
     from spriteworld_torch.ops import rasterize_cuda
     from spriteworld_torch.utils import colors
@@ -2330,7 +2804,7 @@ def packed_only():
     card = bench_torch.card_name_and_power_limit()
     print(card)
     _build.build_all()
-    state, = path_states(torch, bench_torch, env_lib, demo=False)
+    state, = path_states(torch, bench_torch, demo=False)
     times = time_packed(torch, rasterize_cuda, colors, state)
     print(json.dumps({"packed": times, "card": card}))
 
@@ -2341,7 +2815,6 @@ def split_only():
     import torch
 
     import bench_torch
-    from spriteworld_torch.core import environment as env_lib
     from spriteworld_torch.ops import _build
     from spriteworld_torch.ops import rasterize_cuda
     from spriteworld_torch.utils import colors
@@ -2350,7 +2823,7 @@ def split_only():
     card = bench_torch.card_name_and_power_limit()
     print(card)
     _build.build_all()
-    scene_state, demo_state = path_states(torch, bench_torch, env_lib)
+    scene_state, demo_state = path_states(torch, bench_torch)
     split = time_split(torch, rasterize_cuda, colors, scene_state,
                        demo_state)
     print(json.dumps({"split": split, "card": card}))
@@ -2409,8 +2882,8 @@ def main():
     print(json.dumps({"runner_env_steps_per_sec": {
         label: {"graph": g, "eager": e}
         for label, (g, e) in runner_rates.items()}, "card": card}))
-    worst_single = single_env(torch, bench_torch, rasterize_cuda, colors,
-                              card)
+    worst_single, graph_launches = single_env(
+        torch, bench_torch, rasterize_cuda, colors, card)
     trainer_launches = trainer_mesh_sweep(torch, bench_torch, rasterize_cuda,
                                           card)
 
@@ -2433,6 +2906,10 @@ def main():
                                worst_modes.get((kernel, mode), 0))
     entries = [entry] + strip_entries + mode_entries
     for e in entries:
+        kernel, _, mode = e["name"].rstrip("]").partition("[")
+        mode = mode or DEFAULT_MODES[kernel]
+        # The single env's graph paths (phase 9.6): warm-up and capture.
+        e["launches"] += graph_launches.get(kernel, {}).get(mode, 0)
         e["max_abs_err"] = max(e["max_abs_err"], worst_single)
         print(f"{e['name']}: kernel {e['ms']:.4f} ms ({e['graph_ms']:.4f} "
               f"ms in a graph), plain "

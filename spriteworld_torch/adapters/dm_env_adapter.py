@@ -11,12 +11,18 @@ way out, converted to reference-shaped host values. The SpriteFactors
 renderer yields a list of per-sprite factor dicts, SpritePassthrough a list
 of `Sprite` objects, Success a Python bool, images uint8 numpy arrays.
 
-The adapter is the host boundary: each `reset`, `step` and `observation`
-moves the leaves it needs to the host in one transfer
-(`utils.device.to_host`), and raises there what the batched engine can
-only flag (`EnvState.sample_ok`, `EnvState.task_valid`). High-throughput
-consumers step `core.environment.Environment` or
-`parallel.ShardedRunner` directly.
+As the JAX adapter jits `reset`, `step` and the observation, this one
+replays them from CUDA graphs on the card (`core.environment.Compiled` at
+one lane; `use_graph=False`, or a CPU env, launches them eagerly). The
+adapter is the host boundary: each `reset`, `step` and `observation`
+replays its program, then moves the leaves it needs to the host in one
+transfer (`utils.device.to_host`), the deferred rejection flag among them,
+and raises there what the batched engine can only flag
+(`EnvState.sample_ok`, `EnvState.task_valid`). Where the flag is set, the
+reset or step runs again eagerly with host-checked rejection from where it
+started, and is fetched again. High-throughput consumers step
+`core.environment.BatchedEnvironment` or `parallel.ShardedRunner`
+directly.
 """
 
 from __future__ import annotations
@@ -45,7 +51,9 @@ class Environment(dm_env.Environment):
     """Reference-compatible dm_env wrapper around the batched core.
 
     The constructor mirrors the reference Environment's, plus `device`
-    (default "cuda"; "cpu" runs the kernels' plain versions).
+    (default "cuda"; "cpu" runs the kernels' plain versions) and
+    `use_graph` (replay reset, step and observation from CUDA graphs: by
+    default on a CUDA env and not on a CPU env; True on a CPU env raises).
     """
 
     def __init__(self,
@@ -58,7 +66,8 @@ class Environment(dm_env.Environment):
                  metadata: Optional[dict] = None,
                  seed: Optional[int] = None,
                  *,
-                 device="cuda"):
+                 device="cuda",
+                 use_graph: Optional[bool] = None):
         self._env = env_lib.Environment(
             task=task,
             action_space=action_space,
@@ -69,6 +78,7 @@ class Environment(dm_env.Environment):
             metadata=metadata,
             device=device,
             seed=0 if seed is None else seed)
+        self._compiled = env_lib.Compiled(self._env.device, 1, use_graph)
         self._int_actions = isinstance(self._env.action_spec(), list)
         # ONE stable host action space per env (the reference property
         # returns the same object every access). Its rng is seeded from the
@@ -128,14 +138,27 @@ class Environment(dm_env.Environment):
                 out[name] = value
         return out
 
-    def _timestep(self, ts: state_lib.TimeStep) -> dm_env.TimeStep:
-        """The host timestep of a [1]-lane engine timestep, after raising
-        what the new state flags."""
-        host, obs = self._fetch(
-            ts.observation, step_type=ts.step_type, reward=ts.reward,
-            num_sprites=self._state.num_sprites,
-            sample_ok=self._state.sample_ok,
-            task_valid=self._state.task_valid)
+    def _fetch_timestep(self):
+        """The current [1]-lane timestep and state flags on the host, with
+        the rejection flag where the launch can have set it."""
+        ts = self._compiled.timestep
+        extra = dict(step_type=ts.step_type, reward=ts.reward,
+                     num_sprites=self._state.num_sprites,
+                     sample_ok=self._state.sample_ok,
+                     task_valid=self._state.task_valid)
+        if self._compiled.pending is not None:
+            extra["pending"] = self._compiled.pending[None]
+        return self._fetch(ts.observation, **extra)
+
+    def _timestep(self, launch) -> dm_env.TimeStep:
+        """Launch a reset or step (`launch() -> (state, timestep)`) and
+        return its host timestep, after raising what the new state flags;
+        where rejection was pending, run it again and fetch again."""
+        self._state, _ = launch()
+        host, obs = self._fetch_timestep()
+        if host.get("pending", False):
+            self._state, _ = self._compiled.rerun(self._env)
+            host, obs = self._fetch_timestep()
         self._check_sample_ok(host)
         obs = self._convert_obs(obs, int(host["num_sprites"]))
         st = int(host["step_type"])
@@ -176,15 +199,13 @@ class Environment(dm_env.Environment):
                 "config's cluster_distribs against its scene distribution.")
 
     def reset(self) -> dm_env.TimeStep:
-        self._state, ts = self._env.reset_batch(1)
-        return self._timestep(ts)
+        return self._timestep(lambda: self._compiled.reset(self._env))
 
     def step(self, action) -> dm_env.TimeStep:
         dtype = np.int32 if self._int_actions else np.float32
-        action = torch.as_tensor(np.asarray(action, dtype=dtype)[None],
-                                 device=self._env.device)
-        self._state, ts = self._env.step_batch(self._state, action)
-        return self._timestep(ts)
+        action = np.asarray(action, dtype=dtype)[None]
+        return self._timestep(
+            lambda: self._compiled.step(self._env, self._state, action))
 
     def observation_spec(self):
         spec = {}
@@ -282,12 +303,11 @@ class Environment(dm_env.Environment):
 
     def observation(self):
         """Render the current state off-cycle (environment.py:136-142):
-        the batched renderers on the current state, converted to
+        the compiled observation of the current state, converted to
         reference-shaped host values."""
-        s = self._state
-        obs = self._env.observation_batch(s.factors, s.num_sprites,
-                                          self._success())
-        host, obs = self._fetch(obs, num_sprites=s.num_sprites)
+        obs = self._compiled.observe(self._env, self._state)
+        self._state = self._compiled.state
+        host, obs = self._fetch(obs, num_sprites=self._state.num_sprites)
         return self._convert_obs(obs, int(host["num_sprites"]))
 
     @property

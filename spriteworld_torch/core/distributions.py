@@ -78,7 +78,7 @@ def defer_rejection(flag: torch.Tensor):
     afterwards and, where it is set, samples again outside this block from
     the same generator state: the first REJECTION_ROUNDS proposals are the
     same draws, and the host-checked ones continue them
-    (`parallel.runner.StepGraph` re-runs such steps). Yields a `Deferral`
+    (`core.step_graph.StepGraph` re-runs such steps). Yields a `Deferral`
     that counts the rejection nodes the block ran."""
     deferral = Deferral(flag)
     token = _DEFERRED.set(deferral)

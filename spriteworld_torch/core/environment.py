@@ -18,20 +18,79 @@ for every lane and the lanes with reset_next select it (`torch.where`), so
 the step never asks the host which lanes those are: it makes no host sync
 and can be captured in a CUDA graph (`parallel.runner`). Each step renders
 once, the selected state.
+
+The single-lane methods (`reset`, `step`, `transition`, `observation`,
+`success`) are the batched ones at one lane. `BatchedEnvironment` replays
+its reset and step as CUDA graphs (`Compiled`), as the JAX package jits
+them; the dm_env adapter and `utils/media.py` replay the same programs at
+one lane.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from spriteworld_torch.core.state import (STATE_FIELDS, EnvState, StepType,
                                           TimeStep)
+from spriteworld_torch.core.step_graph import StepGraph, use_graph_for
 from spriteworld_torch.core.tasks import task_valid
 from spriteworld_torch.ops import geometry
 from spriteworld_torch.utils import device as device_lib
 from spriteworld_torch.utils import profiling
+
+# Added, times the rank, to a rank's seed (mod 2**64): the golden-ratio
+# increment of splitmix64, so nearby ranks get distant seeds.
+_RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The generator seed of `rank` under a mesh: `seed` itself on rank 0,
+    else `(seed + rank * 0x9E3779B97F4A7C15) % 2**64`."""
+    if rank == 0:
+        return int(seed)
+    return (int(seed) + int(rank) * _RANK_SEED_STRIDE) % 2**64
+
+
+def _map(fn, tree):
+    """`fn` over the tensors of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy(dst, src):
+    """Copies the tensors of `src` into those of `dst`: two nested dicts,
+    EnvStates or TimeSteps of one structure."""
+    if dataclasses.is_dataclass(dst):
+        dst, src = vars(dst), vars(src)
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy(v, src[k])
+    else:
+        dst.copy_(src)
+
+
+def _map_state(fn, state: EnvState) -> EnvState:
+    return EnvState(**{n: fn(getattr(state, n)) for n in STATE_FIELDS})
+
+
+def _map_timestep(fn, ts: TimeStep) -> TimeStep:
+    return TimeStep(step_type=fn(ts.step_type), reward=fn(ts.reward),
+                    discount=fn(ts.discount),
+                    observation=_map(fn, ts.observation))
+
+
+def _first_lane(x):
+    return x[0]
+
+
+def _lane_axis(x):
+    return x[None]
 
 
 class Environment:
@@ -101,6 +160,45 @@ class Environment:
         return {name: r.render(factors, num_sprites, success)
                 for name, r in self._renderers.items()}
 
+    # Single-lane methods: the batched ones at one lane (the lane axis is
+    # added on the way in and removed on the way out).
+    def observation(self, factors, num_sprites, success):
+        """The renderers' observation of one scene."""
+        return _map(_first_lane, self.observation_batch(
+            factors[None], num_sprites[None], success[None]))
+
+    def success(self, state: EnvState):
+        """The task's success flag (bool[]) on one lane's state."""
+        return self._task.success(state.factors[None],
+                                  state.num_sprites[None])[0]
+
+    def reset(self):
+        """Sample a fresh scene; returns (EnvState, FIRST TimeStep) of one
+        lane. The JAX method takes a key; here the scene is drawn from
+        `self.generator`."""
+        state, ts = self.reset_batch(1)
+        return (_map_state(_first_lane, state),
+                _map_timestep(_first_lane, ts))
+
+    def transition(self, state: EnvState, action):
+        """One lane's transition with auto-reset, no observation: (EnvState,
+        TimeStep whose observation is ())."""
+        new, ts = self._transition_batch(_map_state(_lane_axis, state),
+                                         self._action(action))
+        return _map_state(_first_lane, new), TimeStep(
+            step_type=ts.step_type[0], reward=ts.reward[0],
+            discount=ts.discount[0], observation=())
+
+    def step(self, state: EnvState, action):
+        """One lane's transition plus observation: (EnvState, TimeStep)."""
+        new, ts = self.step_batch(_map_state(_lane_axis, state),
+                                  self._action(action))
+        return _map_state(_first_lane, new), _map_timestep(_first_lane, ts)
+
+    def _action(self, action):
+        """One lane's action as a [1, ...] tensor on the env's device."""
+        return torch.as_tensor(action, device=self.device)[None]
+
     def _fresh(self, batch: int, reset_next: bool) -> EnvState:
         factors, num, ok = self._init_sprites.sample_with_status(
             self.generator, batch)
@@ -133,11 +231,9 @@ class Environment:
         sampled, and the first step still resets (reset_next=True)."""
         return self._fresh(batch, reset_next=True)
 
-    def step_batch(self, state: EnvState, actions: torch.Tensor):
-        """One transition of every lane plus one render: (state, TimeStep).
-
-        Lanes whose previous step was LAST take a fresh scene and emit FIRST
-        (reward 0, discount 1) instead of stepping."""
+    def _transition_batch(self, state: EnvState, actions: torch.Tensor):
+        """One transition of every lane, no render: (state, TimeStep whose
+        observation is ())."""
         with profiling.annotate("spriteworld.transition"):
             factors, cost = self._action_space.step(
                 actions, state.factors, state.num_sprites,
@@ -181,33 +277,283 @@ class Environment:
                     torch.int32)
             reward = torch.where(reset, 0.0, reward)
             discount = torch.where(reset | ~terminate, 1.0, 0.0)
+        return new, TimeStep(step_type=step_type, reward=reward,
+                             discount=discount, observation=())
 
+    def step_batch(self, state: EnvState, actions: torch.Tensor):
+        """One transition of every lane plus one render: (state, TimeStep).
+
+        Lanes whose previous step was LAST take a fresh scene and emit FIRST
+        (reward 0, discount 1) instead of stepping."""
+        new, ts = self._transition_batch(state, actions)
         with profiling.annotate("spriteworld.render"):
             success = self._task.success(new.factors, new.num_sprites)
             obs = self.observation_batch(new.factors, new.num_sprites,
                                          success)
-        return new, TimeStep(step_type=step_type, reward=reward,
-                             discount=discount, observation=obs)
+        return new, dataclasses.replace(ts, observation=obs)
 
     def sample_action(self, batch: int):
         return self._action_space.sample(self.generator, batch)
 
 
-class BatchedEnvironment:
-    """An Environment stepped over a fixed number of lanes."""
+def _may_pend(program: StepGraph) -> bool:
+    """Whether a launch of `program` can set the rejection flag."""
+    return program.graph is None or program.rejects
 
-    def __init__(self, env: Environment, num_envs: int):
+
+class Compiled:
+    """The reset, step and observation of `lanes` lanes of an Environment,
+    each a `StepGraph`: replayed from a CUDA graph captured at its first
+    call, as the JAX package jits `reset_batch`, `step_batch` and the
+    observation, or launched eagerly without a graph (the default on a CPU
+    environment; `use_graph=True` there raises).
+
+    The programs read and write static buffers: `state`, an EnvState of
+    [lanes, ...] tensors that reset and step write and step and observe
+    read; the actions; `timestep`, the last reset's or step's TimeStep; and
+    the observation that `observe` writes. `step` copies `state` into the
+    state buffers unless it is their own object, and `actions` into the
+    action buffer (one host-to-device copy for an array). A caller reads a
+    program's results before it launches the next, which overwrites them.
+
+    Rejection: every program runs deferred: a rejection node that still
+    has elements after its first rounds sets the device flag `pending`
+    instead of asking the host. `pending` is None where no launch can set
+    it (a captured program that holds no rejection node); a caller that
+    reads it set calls `rerun()`, which restores the state (each step saves
+    its start state on the device) and the generator state that the last
+    launch started from, and runs that program again eagerly with
+    host-checked rejection, continuing the same draws. Without a graph,
+    `pending` is read after every launch; with one, only where the captured
+    program holds a rejection node (JAX's `lax.while_loop` reads nothing).
+
+    The programs hold no reference to the environment, which every call
+    passes in: a cache keyed weakly by the environment (`utils/media.py`)
+    stays weak, and no reference cycle runs through a graph (the garbage
+    collector could free such a graph during another capture).
+    """
+
+    def __init__(self, device, lanes: int, use_graph: Optional[bool] = None):
+        self.lanes = int(lanes)
+        self.device = torch.device(device)
+        self.use_graph = use_graph_for(self.device, use_graph)
+        self.state: Optional[EnvState] = None
+        self.timestep: Optional[TimeStep] = None
+        self._start: Optional[EnvState] = None
+        self._actions: Optional[torch.Tensor] = None
+        self._obs = None
+        self._pending = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._programs: Dict[str, StepGraph] = {}
+        self._last = None  # (program, generator state) of the last launch
+        # Launches run again eagerly because `pending` was set.
+        self.reruns = 0
+
+    # The programs' bodies.
+    def _reset(self, env):
+        self._pending.zero_()
+        self._store(*env.reset_batch(self.lanes))
+
+    def _step(self, env):
+        self._pending.zero_()
+        _copy(self._start, self.state)
+        self._store(*env.step_batch(self.state, self._actions))
+
+    def _observe(self, env):
+        self._pending.zero_()
+        s = self.state
+        obs = env.observation_batch(s.factors, s.num_sprites,
+                                    env.task.success(s.factors,
+                                                     s.num_sprites))
+        if self._obs is None:
+            self._obs = _map(torch.clone, obs)
+        else:
+            _copy(self._obs, obs)
+
+    def _store(self, state: EnvState, ts: TimeStep):
+        if self.state is None:
+            self._alloc_state(state)
+        else:
+            _copy(self.state, state)
+        if self.timestep is None:
+            self.timestep = _map_timestep(torch.clone, ts)
+        else:
+            _copy(self.timestep, ts)
+
+    def _alloc_state(self, like: EnvState):
+        self.state = like.clone()
+        self._start = like.clone()
+
+    # Loading the inputs.
+    def _load_state(self, state: EnvState):
+        if self.state is None:
+            self._alloc_state(state)
+        elif state is not self.state:
+            for n in STATE_FIELDS:
+                buf, x = getattr(self.state, n), getattr(state, n)
+                if buf.shape != x.shape or buf.dtype != x.dtype:
+                    raise ValueError(
+                        f"state field {n} of shape {tuple(x.shape)} and "
+                        f"{x.dtype}: the compiled step has "
+                        f"{tuple(buf.shape)} and {buf.dtype}")
+                buf.copy_(x)
+
+    def _load_actions(self, actions):
+        if not isinstance(actions, torch.Tensor):
+            actions = torch.from_numpy(np.asarray(actions))
+            if self.device.type == "cuda":
+                # Pinned, so the copy is queued and not waited for; the
+                # host allocator keeps the block until the copy has run.
+                actions = actions.pin_memory()
+        if self._actions is None:
+            if actions.shape[:1] != (self.lanes,):
+                raise ValueError(f"actions of shape {tuple(actions.shape)} "
+                                 f"for {self.lanes} lanes")
+            self._actions = torch.empty(actions.shape, dtype=actions.dtype,
+                                        device=self.device)
+        elif (actions.shape != self._actions.shape
+              or actions.dtype != self._actions.dtype):
+            raise ValueError(
+                f"actions of shape {tuple(actions.shape)} and "
+                f"{actions.dtype}: the compiled step has "
+                f"{tuple(self._actions.shape)} and {self._actions.dtype}")
+        self._actions.copy_(actions, non_blocking=True)
+
+    # The calls.
+    def reset(self, env):
+        """Fresh scenes in every lane: (state, FIRST TimeStep), the
+        buffers."""
+        self._launch(env, "reset")
+        return self.state, self.timestep
+
+    def step(self, env, state: EnvState, actions):
+        """One step of every lane from `state` with `actions`: (state,
+        TimeStep), the buffers; `state` is overwritten where it is the
+        state buffers."""
+        self._load_state(state)
+        self._load_actions(actions)
+        self._launch(env, "step")
+        return self.state, self.timestep
+
+    def observe(self, env, state: EnvState):
+        """The renderers' observation of `state` (a buffer)."""
+        self._load_state(state)
+        self._launch(env, "observe")
+        return self._obs
+
+    @property
+    def pending(self) -> Optional[torch.Tensor]:
+        """The last launch's rejection flag (bool[] on the device), or None
+        where that launch cannot have set it."""
+        if not _may_pend(self._programs[self._last[0]]):
+            return None
+        return self._pending
+
+    def rerun(self, env):
+        """The last launch again, eagerly with host-checked rejection, from
+        the state and generator state it started from: (state, TimeStep)."""
+        name, generator_state = self._last
+        self.reruns += 1
+        env.generator.set_state(generator_state)
+        if name == "step":
+            _copy(self.state, self._start)
+        self._programs[name].run(
+            1, functools.partial(getattr(self, "_" + name), env),
+            defer=False)
+        return self.state, self.timestep
+
+    def _launch(self, env, name: str):
+        body = functools.partial(getattr(self, "_" + name), env)
+        if name not in self._programs:
+            # A capture's warm-up runs the body: keep the state as it was.
+            kept = (self.state.clone()
+                    if self.use_graph and self.state is not None else None)
+            self._programs[name] = StepGraph(body, env.generator,
+                                             self._pending, self.use_graph)
+            if kept is not None:
+                _copy(self.state, kept)
+        program = self._programs[name]
+        self._last = (name, env.generator.get_state()
+                      if _may_pend(program) else None)
+        program.run(1, body)
+
+
+class BatchedEnvironment:
+    """An Environment stepped over a fixed number of lanes, its reset and
+    step replayed as CUDA graphs: the counterpart of the JAX package's
+    `BatchedEnvironment` (jit + vmap of an Environment).
+
+    Args:
+      env: the Environment (on this rank's device under a mesh).
+      num_envs: global lanes; must divide by the mesh size. Each rank steps
+        its contiguous `num_envs / mesh.size` of them.
+      mesh: the 1-D 'envs' mesh (`parallel.mesh.env_mesh()`), the
+        counterpart of JAX's `sharding`; None steps every lane here. No
+        collective runs in the step.
+      use_graph: replay the reset and the step from CUDA graphs, each
+        captured at its first call (`Compiled`). The default is True on a
+        CUDA env and False on a CPU env; True on a CPU env raises. A capture
+        that fails raises: nothing falls back to the eager step.
+
+    `step(state, actions)` donates `state`, as JAX's `donate_argnums=(0,)`
+    does: the returned state is the step's own state buffers, which the
+    next reset or step overwrites, so a state passed to `step` must not be
+    read afterwards (clone what must be kept). Passing the state that the
+    last call returned copies nothing. The returned TimeStep is the
+    caller's. Where a scene sampler rejects (a `Selection`), the step reads
+    the device once (the deferred rejection flag); JAX's `lax.while_loop`
+    reads nothing. `sample_actions()` draws eagerly from the env's
+    generator, between replays.
+    """
+
+    def __init__(self, env: Environment, num_envs: int, mesh=None,
+                 use_graph: Optional[bool] = None):
         self.env = env
         self.num_envs = int(num_envs)
+        self.mesh = mesh
+        size, self.rank, device = ((1, 0, env.device) if mesh is None
+                                   else (mesh.size, mesh.rank, mesh.device))
+        if self.num_envs % size:
+            raise ValueError(f"num_envs={num_envs} must divide the mesh "
+                             f"size {size}.")
+        if not device_lib.same_device(env.device, device):
+            raise ValueError(f"the env runs on {env.device}, this rank of "
+                             f"the mesh on {device}")
+        self.local_envs = self.num_envs // size
+        self._compiled = Compiled(env.device, self.local_envs, use_graph)
+        self.use_graph = self._compiled.use_graph
 
-    def reset(self):
-        return self.env.reset_batch(self.num_envs)
+    @property
+    def reruns(self) -> int:
+        """Resets and steps run again because rejection was pending."""
+        return self._compiled.reruns
 
-    def step(self, state, actions):
-        return self.env.step_batch(state, actions)
+    def reset(self, seed=None):
+        """Fresh scenes in this rank's lanes: (state, FIRST TimeStep).
+
+        `seed` re-seeds the env's generator (an int; rank r of a mesh takes
+        `rank_seed(seed, r)`) or restores it (a state from
+        `env.generator.get_state()`); None draws on from where it is."""
+        if isinstance(seed, int):
+            self.env.generator.manual_seed(rank_seed(seed, self.rank))
+        elif seed is not None:
+            self.env.generator.set_state(seed)
+        self._compiled.reset(self.env)
+        return self._finish()
+
+    def step(self, state: EnvState, actions):
+        """One step of this rank's lanes: (state, TimeStep); see the class
+        docstring on donation."""
+        self._compiled.step(self.env, state, actions)
+        return self._finish()
+
+    def _finish(self):
+        c = self._compiled
+        if c.pending is not None and bool(c.pending):
+            c.rerun(self.env)
+        return c.state, _map_timestep(torch.clone, c.timestep)
 
     def sample_actions(self):
-        return self.env.sample_action(self.num_envs)
+        return self.env.sample_action(self.local_envs)
 
     def observation_spec(self):
         return self.env.observation_spec()

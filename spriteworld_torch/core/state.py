@@ -85,6 +85,10 @@ class EnvState:
     # False where the task's reward/success are undefined on this state.
     task_valid: torch.Tensor  # bool[B]
 
+    def clone(self) -> "EnvState":
+        """A copy of every field."""
+        return EnvState(**{n: t.clone() for n, t in vars(self).items()})
+
     @property
     def alive(self) -> torch.Tensor:
         """bool[B, MAX_SPRITES] mask of live sprite slots."""

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils.device import same_device
 
 ENV_AXIS = "envs"
 
@@ -72,19 +73,6 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     dist.init_process_group("nccl" if cuda else "gloo",
                             init_method=init_method, world_size=world,
                             rank=rank)
-
-
-def same_device(a, b) -> bool:
-    """Whether two devices are one (`cuda` is the current card)."""
-    a, b = torch.device(a), torch.device(b)
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    current = torch.cuda.current_device() if torch.cuda.is_available() \
-        else 0
-    return (current if a.index is None else a.index) == (
-        current if b.index is None else b.index)
 
 
 @dataclasses.dataclass(frozen=True)

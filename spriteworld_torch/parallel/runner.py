@@ -51,29 +51,18 @@ other scenes and actions (ROADMAP, "Randomness").
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from spriteworld_torch.core import distributions
-from spriteworld_torch.core.environment import Environment
+from spriteworld_torch.core.environment import (  # noqa: F401
+    Environment, rank_seed)
 from spriteworld_torch.core.state import STATE_FIELDS, EnvState, TimeStep
+from spriteworld_torch.core.step_graph import (  # noqa: F401
+    StepGraph, use_graph_for)
 from spriteworld_torch.parallel import mesh as mesh_lib
-
-# Added, times the rank, to a rank's seed (mod 2**64): the golden-ratio
-# increment of splitmix64, so nearby ranks get distant seeds.
-_RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
-
-
-def rank_seed(seed: int, rank: int) -> int:
-    """The generator seed of `rank` under a mesh: `seed` itself on rank 0,
-    else `(seed + rank * 0x9E3779B97F4A7C15) % 2**64`."""
-    if rank == 0:
-        return int(seed)
-    return (int(seed) + int(rank) * _RANK_SEED_STRIDE) % 2**64
 
 
 @dataclasses.dataclass
@@ -166,8 +155,7 @@ class _Carry:
     def like(cls, state: EnvState, ret_acc: torch.Tensor) -> "_Carry":
         dev = ret_acc.device
         return cls(
-            state=EnvState(**{n: getattr(state, n).clone()
-                              for n in STATE_FIELDS}),
+            state=state.clone(),
             ret_acc=ret_acc.clone(),
             counts=torch.zeros(2, dtype=torch.int32, device=dev),
             sums=torch.zeros(2, dtype=torch.float32, device=dev),
@@ -181,61 +169,6 @@ class _Carry:
         self.ret_acc.copy_(ret_acc)
         for x in (self.counts, self.sums, self.pending, self.t):
             x.zero_()
-
-
-class StepGraph:
-    """One step that reads and writes carried tensors in place, run a
-    number of times: replayed from a CUDA graph or launched eagerly.
-
-    With `use_graph`, `step()` is captured after one eager warm-up step
-    (which builds the kernels and fills the device-constant caches), inside
-    `distributions.defer_rejection(pending)`; the graph registers
-    `generator`, so each replay advances it as the eager step would, and
-    warm-up and capture leave it where they found it. `rejects` says
-    whether the captured step holds a rejection node: where it does not,
-    a replay can never set `pending`, which then need not be read. The
-    runner and the trainer (`train_example_torch.py`) share this: run the
-    steps deferred, read `pending` at the boundary, and where it is set run
-    them again with `run(n, step, defer=False)` from the same start and
-    generator state (host-checked rejection continues the same draws).
-
-    The step is passed again to `run` rather than kept: a step that
-    refers to its owner would make a reference cycle through the owner's
-    programs, and the garbage collector could then free a graph during
-    another capture, which CUDA refuses.
-    """
-
-    def __init__(self, step: Callable[[], None], generator: torch.Generator,
-                 pending: torch.Tensor, use_graph: bool):
-        self.pending = pending
-        self.graph = None
-        self.rejects = False
-        if use_graph:
-            start = generator.get_state()
-            with distributions.defer_rejection(pending) as deferral:
-                step()
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(generator)
-            with torch.cuda.graph(graph):
-                with distributions.defer_rejection(pending):
-                    step()
-            generator.set_state(start)
-            self.graph = graph
-            self.rejects = deferral.nodes > 0
-
-    def run(self, n: int, step: Callable[[], None], defer: bool = True):
-        """`n` steps: replays of the graph, or `step()` launched eagerly
-        (without a graph, or with `defer=False`). With `defer`, rejection
-        that runs past its first rounds sets `pending` (no host sync),
-        else it asks the host."""
-        for _ in range(n):
-            if self.graph is not None and defer:
-                self.graph.replay()
-                continue
-            ctx = (distributions.defer_rejection(self.pending) if defer
-                   else contextlib.nullcontext())
-            with ctx:
-                step()
 
 
 class ShardedRunner:
@@ -282,12 +215,7 @@ class ShardedRunner:
         self._shard = mesh_lib.env_sharding(self.mesh)
         self._repl = mesh_lib.replicated_sharding(self.mesh)
         self._policy = policy
-        is_cuda = env.device.type == "cuda"
-        self.use_graph = is_cuda if use_graph is None else bool(use_graph)
-        if self.use_graph and not is_cuda:
-            raise ValueError(
-                f"use_graph=True needs a CUDA environment; this one runs on "
-                f"{env.device}")
+        self.use_graph = use_graph_for(env.device, use_graph)
         self._programs: Dict[tuple, tuple] = {}
         self._ret_acc = None
         # Chunks run again because a rejection node still had pending
@@ -454,8 +382,7 @@ class ShardedRunner:
             carry, program = self._program(sig, state, use_graph=False)
             host = self._chunk(carry, program, sig, state, ret_acc,
                                defer=False)
-        new_state = EnvState(**{n: getattr(carry.state, n).clone()
-                                for n in STATE_FIELDS})
+        new_state = carry.state.clone()
         self._ret_acc = carry.ret_acc.clone()
         metrics = Metrics(steps=int(num_steps) * self.num_envs,
                           episodes=int(host[0]), successes=int(host[1]),

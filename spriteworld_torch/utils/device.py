@@ -23,6 +23,19 @@ def resolve(device="cuda") -> torch.device:
     return dev
 
 
+def same_device(a, b) -> bool:
+    """Whether two devices are one (`cuda` is the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device() if torch.cuda.is_available() \
+        else 0
+    return (current if a.index is None else a.index) == (
+        current if b.index is None else b.index)
+
+
 @functools.lru_cache(maxsize=None)
 def _constant(array_bytes: bytes, dtype: str, shape: tuple,
               device: torch.device) -> torch.Tensor:

@@ -5,7 +5,7 @@ Counterpart of train_example.py. B environment lanes step in lockstep and
 a policy-gradient update follows each rollout. The rollout (T steps of the
 policy's forward, the env step with its render, the reward-delta
 advantages) is one step captured as a CUDA graph and replayed T times,
-through the runner's mechanism (`parallel.runner.StepGraph`: the env's
+through the runner's mechanism (`core.step_graph.StepGraph`: the env's
 generator registered with the graph, rejection deferred to a device flag,
 an eager re-run where the flag is set); it makes no host sync. The update
 is eager: one batched re-application of the policy over the T x B stored
@@ -52,7 +52,7 @@ from spriteworld_torch.core import distributions as distribs
 from spriteworld_torch.core import environment as env_lib
 from spriteworld_torch.core import generators as sprite_generators
 from spriteworld_torch.core import renderers, tasks
-from spriteworld_torch.core.state import STATE_FIELDS, EnvState
+from spriteworld_torch.core.state import STATE_FIELDS
 from spriteworld_torch.parallel import (StepGraph, env_mesh,
                                         initialize_multihost, rank_seed,
                                         replicated_sharding)
@@ -420,8 +420,7 @@ class Trainer:
     def save_point(self):
         """(state, policy inputs, generator state): where a rollout
         starts, as device copies and the generator's state."""
-        return (EnvState(**{n: getattr(self.state, n).clone()
-                            for n in STATE_FIELDS}),
+        return (self.state.clone(),
                 tuple(x.clone() for x in self.obs),
                 self.env.generator.get_state())
 
