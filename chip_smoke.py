@@ -135,7 +135,22 @@ Phases:
      ShardedRunner(mesh=...) over 2048 lanes of image64 at AA=1 equals
      the runner without a mesh; scaling_bench_torch's batch sweep at 256,
      2048 and 8192 lanes (rows into chiprun_out/scaling_smoke.jsonl);
- 11. the last line: {"ok": true, "device": {...}}.
+ 11. the renderer contract and action dtypes on the card (run after phase
+     10, before phase 8): (a) ImageRenderer.render of one scene equals
+     render_batch at its lane at image64/AA=5 (scene kernel), demo256/AA=10
+     (strips) and image64/AA=1 (packed_raster), each render launching its
+     kernel at B=1 (`by_batch`); (b) a renderer written to the JAX
+     contract (a one-scene `render`, batched by torch.func.vmap) inside
+     BatchedEnvironment's graph at 4 lanes, equal to the eager step and to
+     a hand-batched twin over episodes with auto-resets; (c) float64 numpy
+     actions through BatchedEnvironment's graph and media.step_frame equal
+     to the same actions in float32, rewards float32, and a float32 action
+     after float64 ones steps; (d) ImageRenderer refuses JAX's use_pallas,
+     so no flag sends card tensors to the plain rasterizer, and a
+     SpriteFactors subclass that overrides render batches its own render
+     inside the graph; the phase's seconds beside the card's name and
+     power limit; its launches are added to the `kernels` line;
+ 12. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
 python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 8's split)
@@ -367,8 +382,9 @@ def strips_vs_plain(torch, rasterize_cuda, colors):
         f, n = scene_batch(17, 4, hsv=True)
         f, n = torch.from_numpy(f).cuda(), torch.from_numpy(n).cuda()
         before = (rc.scene_raster.launches, rc.strip_raster.launches)
-        got = renderers.ImageRenderer((size, size), anti_aliasing=aa,
-                                      color_to_rgb="hsv").render(f, n, None)
+        got = renderers.ImageRenderer(
+            (size, size), anti_aliasing=aa,
+            color_to_rgb="hsv").render_batch(f, n, None)
         after = (rc.scene_raster.launches, rc.strip_raster.launches)
         want = rc.render_rgb_batch_plain(
             rc.prepare(f, n, size * aa, size * aa, colors.hsv_to_rgb),
@@ -1829,7 +1845,7 @@ def drive_trainer(torch, rasterize_cuda, card, dev="cuda"):
             vivid = factors.clone()
             vivid[..., state_lib.C1] = 1.0
             vivid[..., state_lib.C2] = 1.0
-            got_vivid = renderer.render(vivid, num, None)
+            got_vivid = renderer.render_batch(vivid, num, None)
             want_vivid = plain_frames(rc, renderer, vivid, num)
             err_v, count_v = compare(got_vivid, want_vivid)
             blank_v = int((want_vivid.amax(dim=(1, 2, 3)) == 0).sum())
@@ -1968,6 +1984,254 @@ def trainer_mesh_sweep(torch, bench_torch, rasterize_cuda, card,
         obs: stats for obs, (stats, _) in trained.items()}, "card": card}))
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     return trained["image"][1].get("packed_raster", {})
+
+
+# Phase 11: the renderer contract and action dtypes. (label, image_size,
+# anti_aliasing, {kernel: mode} a render launches) of (a) and (d).
+CONTRACT_CASES = [
+    ("image64 AA=5, scene", (64, 64), 5, {"scene_raster": "exact+lanczos"}),
+    ("demo256 AA=10, strips", (DEMO_SIZE, DEMO_SIZE), DEMO_AA,
+     {"strip_raster": "exact+lanczos", "strip_vpass": "lanczos"}),
+    ("image64 AA=1, packed", (64, 64), 1,
+     {"packed_raster": "exact+identity"}),
+]
+CONTRACT_LANES = 4
+CONTRACT_EPISODE = 8  # max_episode_length of (b)'s and (c)'s env
+CONTRACT_STEPS = 2 * CONTRACT_EPISODE + 2
+
+
+def contract_renderers(torch, renderers):
+    """A renderer written to the JAX contract (a one-scene `render` only:
+    the masked sum of the live sprites' x and the live mask), so its
+    render_batch is the default torch.func.vmap; and a hand-batched twin."""
+    class SumX(renderers.AbstractRenderer):
+        def render(self, factors, num_sprites, success):
+            del success
+            live = torch.arange(factors.shape[0],
+                                device=factors.device) < num_sprites
+            return {"sum_x": torch.where(live, factors[:, 0], 0.0).sum(),
+                    "live": live}
+
+        def observation_spec(self):
+            return {"sum_x": renderers.ShapeDtype((), torch.float32),
+                    "live": renderers.ShapeDtype((self.max_sprites,),
+                                                 torch.bool)}
+
+    class SumXBatched(SumX):
+        def render_batch(self, factors, num_sprites, success):
+            del success
+            live = (torch.arange(factors.shape[1], device=factors.device)
+                    < num_sprites[:, None])
+            return {"sum_x": torch.where(live, factors[..., 0], 0.0).sum(-1),
+                    "live": live}
+
+    return SumX(), SumXBatched()
+
+
+def doubled_factors(torch, renderers):
+    """A SpriteFactors subclass that overrides `render` (the factors
+    doubled, the mask negated): its render_batch must be the vmap of that
+    `render`, not SpriteFactors' batched body."""
+    class Doubled(renderers.SpriteFactors):
+        def render(self, factors, num_sprites, success):
+            out = super().render(factors, num_sprites, success)
+            return {"factors": 2 * out["factors"], "mask": ~out["mask"]}
+
+    return Doubled()
+
+
+def refuses_use_pallas():
+    """Phase 11 (d), first half: ImageRenderer refuses JAX's use_pallas,
+    the flag that would send card tensors to the plain rasterizer."""
+    from spriteworld_torch.core import renderers
+
+    for value in ("auto", True, False):
+        try:
+            renderers.ImageRenderer((64, 64), use_pallas=value)
+        except TypeError:
+            continue
+        check(False, f"ImageRenderer(use_pallas={value!r}) was accepted")
+    print("renderer contract (d): ImageRenderer(use_pallas=...) is refused "
+          "(TypeError): card tensors render only through the kernels")
+
+
+def contract_env(bench_torch, renderers, extra, dev, seed=0):
+    """bench.py's image64 scene at AA=1 with `extra` renderers beside the
+    image and success, episodes of CONTRACT_EPISODE steps."""
+    from spriteworld_torch.core import actions as action_lib
+    from spriteworld_torch.core import environment as env_lib
+
+    task, init_sprites = bench_torch.goal_finding_parts()
+    return env_lib.Environment(
+        task=task, action_space=action_lib.SelectMove(scale=0.25),
+        renderers=dict(extra, image=renderers.ImageRenderer(
+            (64, 64), anti_aliasing=1, color_to_rgb="hsv"),
+            success=renderers.Success()),
+        init_sprites=init_sprites, max_episode_length=CONTRACT_EPISODE,
+        device=dev, seed=seed)
+
+
+def one_scene_renders(torch, rasterize_cuda, dev="cuda"):
+    """Phase 11 (a): for each case of CONTRACT_CASES, ImageRenderer.render
+    of each scene equals render_batch at its lane, and launched the case's
+    kernel once for the batch and once a scene. Returns ({kernel: {mode: launches}}, the largest difference)."""
+    from spriteworld_torch.core import renderers
+
+    rc = rasterize_cuda
+    b = CONTRACT_LANES
+    launched, worst = {}, 0
+    for i, (label, size, aa, want) in enumerate(CONTRACT_CASES):
+        f, n = scene_batch(110 + i, b, hsv=True)
+        f, n = torch.from_numpy(f).to(dev), torch.from_numpy(n).to(dev)
+        r = renderers.ImageRenderer(size, anti_aliasing=aa,
+                                    color_to_rgb="hsv")
+        rc.reset_launch_counts()
+        batch = r.render_batch(f, n, None)
+        singles = [r.render(f[j], n[j], None) for j in range(b)]
+        ran = {k: v for k, v in launch_counts(rc).items() if v}
+        batches = {k: v for k, v in batch_counts(rc).items() if v}
+        errs = [compare(one, batch[j]) for j, one in enumerate(singles)]
+        worst = max([worst] + [e for e, _ in errs])
+        print(f"renderer contract (a), {label}: render of each of {b} "
+              f"scenes against render_batch at its lane, max |diff| "
+              f"{max(e for e, _ in errs)}, {sum(c for _, c in errs)} "
+              f"differing values; ran {ran} at batches {batches}")
+        check(all(one.shape == batch.shape[1:] for one in singles)
+              and all(c == 0 for _, c in errs),
+              f"{label}: render differs from render_batch")
+        if dev == "cuda":
+            check(ran == {k: {m: 1 + b} for k, m in want.items()},
+                  f"{label}: ran {ran}, not {want} {1 + b} times")
+            check(batches == {k: {b: 1, 1: b} for k in want},
+                  f"{label}: launched at batches {batches}")
+        for k, modes in ran.items():
+            for m, c in modes.items():
+                launched.setdefault(k, {})
+                launched[k][m] = launched[k].get(m, 0) + c
+    return launched, worst
+
+
+def user_renderer_graph(torch, bench_torch, dev="cuda"):
+    """Phase 11 (b): the JAX-contract renderer beside the image inside
+    BatchedEnvironment at CONTRACT_LANES lanes, replayed from a graph (on
+    the card) and eager, over CONTRACT_STEPS steps (an auto-reset in every
+    lane): graph equal to eager, and the vmapped renderer equal to its
+    hand-batched twin at every step; (d), second half: beside them a
+    SpriteFactors subclass that overrides `render` gives that render's
+    output, not SpriteFactors'."""
+    from spriteworld_torch.core import renderers
+
+    runs = {}
+    for use_graph in ((True, False) if dev == "cuda" else (False,)):
+        one_scene, twin = contract_renderers(torch, renderers)
+        env = contract_env(bench_torch, renderers,
+                           {"sum_x": one_scene, "sum_x_twin": twin,
+                            "doubled": doubled_factors(torch, renderers),
+                            "factors": renderers.SpriteFactors()}, dev)
+        runs[use_graph] = run_batched(torch, env, CONTRACT_LANES, use_graph,
+                                      CONTRACT_STEPS)[0]
+    g_out, e_out = runs[dev == "cuda"], runs[False]
+    check(len(g_out) == len(e_out) and all(
+        same_states(torch, gs, es) and same_timesteps(torch, gts, ets)
+        for (gs, gts), (es, ets) in zip(g_out, e_out)),
+        "renderer contract (b): graph and eager steps differ")
+    for t, (state, ts) in enumerate(g_out):
+        obs = ts.observation
+        check(obs["sum_x"]["sum_x"].shape == (CONTRACT_LANES,)
+              and all(torch.equal(obs["sum_x"][k], obs["sum_x_twin"][k])
+                      for k in ("sum_x", "live")),
+              f"renderer contract (b), step {t}: the one-scene renderer "
+              "differs from its hand-batched twin")
+        check(torch.equal(obs["sum_x"]["live"], state.alive),
+              f"renderer contract (b), step {t}: live mask")
+        check(torch.equal(obs["doubled"]["factors"],
+                          2 * obs["factors"]["factors"])
+              and torch.equal(obs["doubled"]["mask"], ~obs["factors"]["mask"]),
+              f"renderer contract (d), step {t}: the SpriteFactors subclass "
+              "did not render through its own render")
+    types = torch.stack([ts.step_type for _, ts in g_out]).cpu().numpy()
+    check(all(episodes_of(list(types[:, lane]))
+              for lane in range(CONTRACT_LANES)),
+          "renderer contract (b): no two episodes and an auto-reset")
+    print(f"renderer contract (b): a one-scene renderer (torch.func.vmap "
+          f"of its render) inside BatchedEnvironment's "
+          f"{'graph' if dev == 'cuda' else 'eager step'} at "
+          f"{CONTRACT_LANES} lanes, {CONTRACT_STEPS} steps with auto-resets:"
+          f" equal to the eager step and to its hand-batched twin")
+    print("renderer contract (d): a SpriteFactors subclass overriding "
+          "render gave its own render's output at every step, in the same "
+          "run")
+
+
+def float64_actions(torch, bench_torch, dev="cuda"):
+    """Phase 11 (c): float64 numpy actions through BatchedEnvironment
+    (graph on the card) and media.step_frame give the states, timesteps
+    and frames of the same actions in float32, bit for bit, with float32
+    rewards; an action of the other dtype after them steps."""
+    from spriteworld_torch.core import environment as env_lib
+    from spriteworld_torch.core import renderers
+    from spriteworld_torch.utils import media
+
+    rng = np.random.default_rng(111)
+    envs = [contract_env(bench_torch, renderers, {}, dev) for _ in range(4)]
+    benvs = [env_lib.BatchedEnvironment(e, CONTRACT_LANES) for e in envs[:2]]
+    states = [b.reset()[0] for b in benvs]
+    frames = [envs[2].initial_state(1), envs[3].initial_state(1)]
+    for t in range(CONTRACT_STEPS):
+        a = rng.uniform(0, 1, (CONTRACT_LANES, 4))
+        pos = states[0].factors[:, 0, 0:2].cpu().numpy()
+        a[::2, :2] = pos[::2]  # clicks on a sprite's centre
+        out = [b.step(s, x) for b, s, x in zip(
+            benvs, states, (a, a.astype(np.float32)))]
+        states = [s for s, _ in out]
+        check(out[0][1].reward.dtype == torch.float32
+              and same_states(torch, *states)
+              and same_timesteps(torch, out[0][1], out[1][1]),
+              f"renderer contract (c), step {t}: float64 actions through "
+              "BatchedEnvironment differ from float32 ones")
+        one = [media.step_frame(e, s, x[:1]) for e, s, x in zip(
+            envs[2:], frames, (a, a.astype(np.float32)))]
+        frames = [s for s, _, _ in one]
+        check(same_states(torch, *frames)
+              and np.array_equal(one[0][1], one[1][1])
+              and one[0][2] == one[1][2],
+              f"renderer contract (c), step {t}: float64 actions through "
+              "media.step_frame differ from float32 ones")
+    for b, s, x in zip(benvs, states, (a.astype(np.float32), a)):
+        check(b.step(s, x)[1].reward.dtype == torch.float32,
+              "renderer contract (c): a reward is not float32")
+    check(all(b._compiled._actions.dtype == torch.float32 for b in benvs),
+          "renderer contract (c): the action buffer is not float32")
+    print(f"renderer contract (c): {CONTRACT_STEPS} steps of float64 numpy "
+          f"actions through BatchedEnvironment ({CONTRACT_LANES} lanes, "
+          f"graph: {benvs[0].use_graph}) and media.step_frame equal to "
+          f"float32 ones bit for bit, rewards float32; a float32 action "
+          f"after float64 ones and a float64 one after float32 ones step")
+
+
+def renderer_contract(torch, bench_torch, rasterize_cuda, card, dev="cuda"):
+    """Phase 11, the renderer contract and action dtypes on the card.
+    Returns ({kernel: {mode: launches}} of (a), (b) and (c), the largest
+    difference of (a))."""
+    t0 = time.perf_counter()
+    launched, worst = one_scene_renders(torch, rasterize_cuda, dev)
+    rasterize_cuda.reset_launch_counts()
+    user_renderer_graph(torch, bench_torch, dev)
+    float64_actions(torch, bench_torch, dev)
+    refuses_use_pallas()
+    for k, modes in launch_counts(rasterize_cuda).items():
+        for m, c in modes.items():
+            launched.setdefault(k, {})
+            launched[k][m] = launched[k].get(m, 0) + c
+    if dev == "cuda":
+        check(launched.get("packed_raster", {}).get("exact+identity", 0)
+              > 1 + CONTRACT_LANES,
+              f"phase 11: packed_raster did not run in (b) and (c): "
+              f"{launched}")
+    print(f"phase 11 (renderer contract, action dtypes) took "
+          f"{time.perf_counter() - t0:.1f} s on {card}; launches "
+          f"{json.dumps(launched)}")
+    return launched, worst
 
 
 _SPIN_RATE = []
@@ -2886,6 +3150,8 @@ def main():
         torch, bench_torch, rasterize_cuda, colors, card)
     trainer_launches = trainer_mesh_sweep(torch, bench_torch, rasterize_cuda,
                                           card)
+    contract_launches, worst_contract = renderer_contract(
+        torch, bench_torch, rasterize_cuda, card)
 
     split = time_split(torch, rasterize_cuda, colors, state, demo_state)
     print(json.dumps({"split": split}))
@@ -2908,9 +3174,12 @@ def main():
     for e in entries:
         kernel, _, mode = e["name"].rstrip("]").partition("[")
         mode = mode or DEFAULT_MODES[kernel]
-        # The single env's graph paths (phase 9.6): warm-up and capture.
+        # The single env's graph paths (phase 9.6): warm-up and capture;
+        # the renderer contract's renders and steps (phase 11).
         e["launches"] += graph_launches.get(kernel, {}).get(mode, 0)
-        e["max_abs_err"] = max(e["max_abs_err"], worst_single)
+        e["launches"] += contract_launches.get(kernel, {}).get(mode, 0)
+        e["max_abs_err"] = max(e["max_abs_err"], worst_single,
+                               worst_contract)
         print(f"{e['name']}: kernel {e['ms']:.4f} ms ({e['graph_ms']:.4f} "
               f"ms in a graph), plain "
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms "

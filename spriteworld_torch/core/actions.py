@@ -86,6 +86,12 @@ class SelectMove:
         return specs.BoundedArray(
             shape=(4,), dtype=np.float32, minimum=0.0, maximum=1.0)
 
+    @property
+    def action_shape_dtype(self):
+        """(shape, dtype) of one lane's action; every action is cast to the
+        dtype on its way into a step."""
+        return (4,), torch.float32
+
 
 class DragAndDrop(SelectMove):
     """Like SelectMove, but the motion is relative to the first click."""
@@ -146,3 +152,9 @@ class Embodied:
             specs.DiscreteArray(num_values=2, dtype=np.int64),
             specs.DiscreteArray(num_values=4, dtype=np.int64),
         ]
+
+    @property
+    def action_shape_dtype(self):
+        """(shape, dtype) of one lane's action; every action is cast to the
+        dtype on its way into a step."""
+        return (2,), torch.int32

@@ -19,8 +19,14 @@ the step never asks the host which lanes those are: it makes no host sync
 and can be captured in a CUDA graph (`parallel.runner`). Each step renders
 once, the selected state.
 
-The single-lane methods (`reset`, `step`, `transition`, `observation`,
-`success`) are the batched ones at one lane. `BatchedEnvironment` replays
+The single-lane methods (`reset`, `step`, `transition`, `success`) are the
+batched ones at one lane; `observation` calls each renderer's one-scene
+`render`, and `observation_batch` its `render_batch`, as in the JAX
+package. Every action is cast to its action space's dtype
+(`action_shape_dtype`) on the way in, as the JAX package with x64 off
+takes a float64 array as float32; an action space without that property
+(one written for the JAX package, which never reads it) gets JAX's rule:
+float64 as float32, int64 as int32. `BatchedEnvironment` replays
 its reset and step as CUDA graphs (`Compiled`), as the JAX package jits
 them; the dm_env adapter and `utils/media.py` replay the same programs at
 one lane.
@@ -46,6 +52,9 @@ from spriteworld_torch.utils import profiling
 # Added, times the rank, to a rank's seed (mod 2**64): the golden-ratio
 # increment of splitmix64, so nearby ranks get distant seeds.
 _RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+# The dtypes JAX with x64 off takes 64-bit arrays as.
+_X64_OFF = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -156,16 +165,23 @@ class Environment:
         return {name: r.observation_spec()
                 for name, r in self._renderers.items()}
 
+    def _action_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        """The dtype an action of `dtype` is cast to on its way into a step:
+        the action space's `action_shape_dtype`, or JAX's x64-off rule for
+        an action space without one."""
+        spec = getattr(self._action_space, "action_shape_dtype", None)
+        return spec[1] if spec is not None else _X64_OFF.get(dtype, dtype)
+
     def observation_batch(self, factors, num_sprites, success):
-        return {name: r.render(factors, num_sprites, success)
+        return {name: r.render_batch(factors, num_sprites, success)
                 for name, r in self._renderers.items()}
 
     # Single-lane methods: the batched ones at one lane (the lane axis is
     # added on the way in and removed on the way out).
     def observation(self, factors, num_sprites, success):
-        """The renderers' observation of one scene."""
-        return _map(_first_lane, self.observation_batch(
-            factors[None], num_sprites[None], success[None]))
+        """The renderers' observation of one scene (each one's `render`)."""
+        return {name: r.render(factors, num_sprites, success)
+                for name, r in self._renderers.items()}
 
     def success(self, state: EnvState):
         """The task's success flag (bool[]) on one lane's state."""
@@ -196,8 +212,10 @@ class Environment:
         return _map_state(_first_lane, new), _map_timestep(_first_lane, ts)
 
     def _action(self, action):
-        """One lane's action as a [1, ...] tensor on the env's device."""
-        return torch.as_tensor(action, device=self.device)[None]
+        """One lane's action as a [1, ...] tensor of the action space's
+        dtype on the env's device."""
+        action = torch.as_tensor(action)
+        return action.to(self.device, self._action_dtype(action.dtype))[None]
 
     def _fresh(self, batch: int, reset_next: bool) -> EnvState:
         factors, num, ok = self._init_sprites.sample_with_status(
@@ -236,8 +254,8 @@ class Environment:
         observation is ())."""
         with profiling.annotate("spriteworld.transition"):
             factors, cost = self._action_space.step(
-                actions, state.factors, state.num_sprites,
-                self._keep_in_frame, self.generator)
+                actions.to(self._action_dtype(actions.dtype)), state.factors,
+                state.num_sprites, self._keep_in_frame, self.generator)
             # Velocity integration for every sprite; dead slots carry zero
             # velocity so padding is unaffected.
             new_pos = factors[..., 0:2] + factors[..., 8:10]
@@ -284,7 +302,8 @@ class Environment:
         """One transition of every lane plus one render: (state, TimeStep).
 
         Lanes whose previous step was LAST take a fresh scene and emit FIRST
-        (reward 0, discount 1) instead of stepping."""
+        (reward 0, discount 1) instead of stepping. `actions` take the
+        action space's dtype."""
         new, ts = self._transition_batch(state, actions)
         with profiling.annotate("spriteworld.render"):
             success = self._task.success(new.factors, new.num_sprites)
@@ -397,25 +416,29 @@ class Compiled:
                         f"{tuple(buf.shape)} and {buf.dtype}")
                 buf.copy_(x)
 
-    def _load_actions(self, actions):
+    def _load_actions(self, env, actions):
+        """Copies `actions` into the action buffer, which has the shape of
+        the action space's `action_shape_dtype` (else of the first actions)
+        and the dtype actions enter a step in (`Environment._action_dtype`):
+        an action of another dtype is cast (a host array on the host,
+        before its copy)."""
         if not isinstance(actions, torch.Tensor):
             actions = torch.from_numpy(np.asarray(actions))
+            actions = actions.to(env._action_dtype(actions.dtype))
             if self.device.type == "cuda":
                 # Pinned, so the copy is queued and not waited for; the
                 # host allocator keeps the block until the copy has run.
                 actions = actions.pin_memory()
         if self._actions is None:
-            if actions.shape[:1] != (self.lanes,):
-                raise ValueError(f"actions of shape {tuple(actions.shape)} "
-                                 f"for {self.lanes} lanes")
-            self._actions = torch.empty(actions.shape, dtype=actions.dtype,
-                                        device=self.device)
-        elif (actions.shape != self._actions.shape
-              or actions.dtype != self._actions.dtype):
+            spec = getattr(env.action_space, "action_shape_dtype", None)
+            shape = tuple(actions.shape[1:] if spec is None else spec[0])
+            self._actions = torch.empty(
+                (self.lanes,) + shape, dtype=env._action_dtype(actions.dtype),
+                device=self.device)
+        if actions.shape != self._actions.shape:
             raise ValueError(
-                f"actions of shape {tuple(actions.shape)} and "
-                f"{actions.dtype}: the compiled step has "
-                f"{tuple(self._actions.shape)} and {self._actions.dtype}")
+                f"actions of shape {tuple(actions.shape)}: the compiled "
+                f"step has {tuple(self._actions.shape)}")
         self._actions.copy_(actions, non_blocking=True)
 
     # The calls.
@@ -430,7 +453,7 @@ class Compiled:
         TimeStep), the buffers; `state` is overwritten where it is the
         state buffers."""
         self._load_state(state)
-        self._load_actions(actions)
+        self._load_actions(env, actions)
         self._launch(env, "step")
         return self.state, self.timestep
 

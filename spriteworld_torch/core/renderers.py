@@ -1,23 +1,33 @@
-"""Renderers: batched observation functions over the factor state.
+"""Renderers: observation functions over the factor state.
 
-Counterpart of `spriteworld_tpu/core/renderers.py`. Each renderer offers
-``render(factors f32[B, K, 10], num_sprites i32[B], success bool[B])``:
+Counterpart of `spriteworld_tpu/core/renderers.py`, with its contract: each
+renderer offers ``render(factors f32[K, 10], num_sprites i32[], success
+bool[])`` of one scene and ``render_batch(factors f32[B, K, 10],
+num_sprites i32[B], success bool[B])`` of a batch, and
+``observation_spec()`` of one scene's observation as `ShapeDtype`s:
 
-  * SpriteFactors — selected factor columns [B, K, F] + live mask [B, K].
-  * SpritePassthrough — the whole factor tensor [B, K, 10] + live counts
-    [B] (the engine's analogue of the reference's Sprite list).
-  * Success — the task success flag [B].
-  * ImageRenderer — RGB pixels u8[B, H, W, 3], in every fill and
-    downsample mode. A CUDA batch goes to a kernel of
-    `ops/rasterize_cuda.py`: the anti_aliasing=1 small-canvas kernel where
-    the JAX package takes its packed mode, else the scene kernel when its
-    canvas fits one block's shared memory and the row-strip kernels
-    otherwise (`kernel_mode`); a CPU batch goes to their plain version.
+  * SpriteFactors — selected factor columns [K, F] + live mask [K].
+  * SpritePassthrough — the whole factor tensor [K, 10] + the live count
+    (the engine's analogue of the reference's Sprite list).
+  * Success — the task success flag.
+  * ImageRenderer — RGB pixels u8[H, W, 3], in every fill and downsample
+    mode. A CUDA batch goes to a kernel of `ops/rasterize_cuda.py`: the
+    anti_aliasing=1 small-canvas kernel where the JAX package takes its
+    packed mode, else the scene kernel when its canvas fits one block's
+    shared memory and the row-strip kernels otherwise (`kernel_mode`); a
+    CPU batch goes to their plain version. One scene is the batch of one.
+
+A renderer that only defines `render` gets `render_batch` as
+`torch.func.vmap(self.render)`, as the JAX package's default is
+`jax.vmap(self.render)`. The built-ins batch with their own bodies, which
+the steps and their CUDA graphs run; a subclass of SpriteFactors,
+SpritePassthrough or Success that overrides `render` gets the vmap of its
+own `render`, as it does in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,8 +38,17 @@ from spriteworld_torch.utils import colors as color_maps
 from spriteworld_torch.utils import device as device_lib
 
 
+class ShapeDtype(NamedTuple):
+    """Shape and dtype of one scene's observation: the counterpart of
+    `jax.ShapeDtypeStruct`, which unpacks as a (shape, dtype) pair."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
 class AbstractRenderer:
-    """Interface: render(factors, num_sprites, success) + observation_spec."""
+    """Interface: render(factors, num_sprites, success) of one scene,
+    render_batch of a batch, and observation_spec."""
 
     max_sprites: Optional[int] = None  # set by the environment at bind time
 
@@ -39,14 +58,43 @@ class AbstractRenderer:
         return self
 
     def render(self, factors, num_sprites, success):
+        """One scene: factors f32[K, 10], num_sprites i32[], success bool[]
+        -> a tensor or a dict of tensors."""
         raise NotImplementedError
+
+    def render_batch(self, factors, num_sprites, success):
+        """A batch: factors f32[B, K, 10], num_sprites i32[B], success
+        bool[B] or None -> `render`'s outputs with a leading B axis.
+
+        The default is `torch.func.vmap(self.render)`. Inside it `render`
+        sees one scene and must not read a tensor's value on the host
+        (`.item()`, `bool()`, a Python `if` on a tensor): vmap refuses that,
+        as `jax.vmap` refuses it under tracing, and so would the capture of
+        a CUDA graph that holds the step. Override it with a batched body
+        where one is at hand.
+        """
+        in_dims = (0, 0, None if success is None else 0)
+        return torch.func.vmap(self.render, in_dims=in_dims)(
+            factors, num_sprites, success)
 
     def observation_spec(self):
-        """(per-lane shape, dtype) of the observation."""
+        """`ShapeDtype` of one scene's observation (a dict of them for a
+        dict-valued observation)."""
         raise NotImplementedError
 
 
-class SpriteFactors(AbstractRenderer):
+class _AnyLeadingAxes(AbstractRenderer):
+    """A built-in whose `render` body holds for any leading axes:
+    `render_batch` runs that body on the batch, unless a subclass overrides
+    `render`, which then gets the default, the vmap of its own `render`."""
+
+    def render_batch(self, factors, num_sprites, success):
+        if type(self).render in _ANY_LEADING_AXES:
+            return self.render(factors, num_sprites, success)
+        return super().render_batch(factors, num_sprites, success)
+
+
+class SpriteFactors(_AnyLeadingAxes):
     """Selected factor columns as a dense tensor + live mask."""
 
     def __init__(self, factors: Sequence[str] = state_lib.FACTOR_NAMES):
@@ -61,6 +109,8 @@ class SpriteFactors(AbstractRenderer):
         return self._factors
 
     def render(self, factors, num_sprites, success):
+        """One scene or, as `render_batch`, a batch: the body holds for any
+        leading axes."""
         del success
         k = factors.shape[-2]
         # The columns as a cached device index: indexing with the Python
@@ -71,16 +121,16 @@ class SpriteFactors(AbstractRenderer):
         return {
             "factors": factors.index_select(-1, columns),
             "mask": (torch.arange(k, device=factors.device)
-                     < num_sprites[:, None]),
+                     < num_sprites[..., None]),
         }
 
     def observation_spec(self):
         k = self.max_sprites
-        return {"factors": ((k, len(self._factors)), torch.float32),
-                "mask": ((k,), torch.bool)}
+        return {"factors": ShapeDtype((k, len(self._factors)), torch.float32),
+                "mask": ShapeDtype((k,), torch.bool)}
 
 
-class SpritePassthrough(AbstractRenderer):
+class SpritePassthrough(_AnyLeadingAxes):
     """The full packed factor state (engine analogue of the Sprite list)."""
 
     def render(self, factors, num_sprites, success):
@@ -88,12 +138,12 @@ class SpritePassthrough(AbstractRenderer):
         return {"factors": factors, "num_sprites": num_sprites}
 
     def observation_spec(self):
-        return {"factors": ((self.max_sprites, state_lib.NUM_FACTORS),
-                            torch.float32),
-                "num_sprites": ((), torch.int32)}
+        return {"factors": ShapeDtype(
+                    (self.max_sprites, state_lib.NUM_FACTORS), torch.float32),
+                "num_sprites": ShapeDtype((), torch.int32)}
 
 
-class Success(AbstractRenderer):
+class Success(_AnyLeadingAxes):
     """Task success flag as a boolean observation."""
 
     def render(self, factors, num_sprites, success):
@@ -101,7 +151,12 @@ class Success(AbstractRenderer):
         return success
 
     def observation_spec(self):
-        return ((), torch.bool)
+        return ShapeDtype((), torch.bool)
+
+
+# The `render`s that `_AnyLeadingAxes.render_batch` runs on a batch.
+_ANY_LEADING_AXES = frozenset(
+    (SpriteFactors.render, SpritePassthrough.render, Success.render))
 
 
 def _resolve_color_map(color_to_rgb) -> Optional[Callable]:
@@ -128,6 +183,9 @@ class ImageRenderer(AbstractRenderer):
     card's shared memory per block; `rasterize_cuda.resolve_kernel_mode`).
     "auto" and "strips" take the anti_aliasing=1 small-canvas kernel where
     `rasterize_cuda.uses_packed` holds.
+
+    The JAX package's `use_pallas` has no counterpart: factors on the card
+    always render through its kernels, and a failing kernel raises.
     """
 
     def __init__(self,
@@ -160,16 +218,27 @@ class ImageRenderer(AbstractRenderer):
     def image_size(self):
         return self._image_size
 
+    def _kwargs(self):
+        return dict(image_size=self._image_size,
+                    anti_aliasing=self._anti_aliasing,
+                    bg_color=self._bg_color, color_to_rgb=self._color_to_rgb,
+                    pil_exact=self._pil_exact, downsample=self._downsample,
+                    kernel_mode=self._kernel_mode)
+
     def render(self, factors, num_sprites, success):
+        """One scene -> u8[H, W, 3]: the batch of one, through the kernel a
+        batch takes."""
         del success
-        return rasterize_cuda.render_rgb_batch(
-            factors, num_sprites, image_size=self._image_size,
-            anti_aliasing=self._anti_aliasing, bg_color=self._bg_color,
-            color_to_rgb=self._color_to_rgb, pil_exact=self._pil_exact,
-            downsample=self._downsample, kernel_mode=self._kernel_mode)
+        return rasterize_cuda.render_rgb(factors, num_sprites,
+                                         **self._kwargs())
+
+    def render_batch(self, factors, num_sprites, success):
+        del success
+        return rasterize_cuda.render_rgb_batch(factors, num_sprites,
+                                               **self._kwargs())
 
     def observation_spec(self):
-        return (self._image_size + (3,), torch.uint8)
+        return ShapeDtype(self._image_size + (3,), torch.uint8)
 
 
 # Familiar alias: reference users construct `PILRenderer`.

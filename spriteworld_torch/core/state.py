@@ -39,6 +39,11 @@ def default_factors(shape, device) -> torch.Tensor:
     return row.expand(*shape, NUM_FACTORS).clone()
 
 
+def default_factor_rows(num_rows: int, device="cuda") -> torch.Tensor:
+    """f32[num_rows, 10] of default sprite factors on `device`."""
+    return default_factors((num_rows,), device_lib.resolve(device))
+
+
 def factors_to_dict(factors: torch.Tensor) -> Dict[str, torch.Tensor]:
     """View a factor tensor [..., 10] as a dict of per-factor tensors [...]."""
     return {name: factors[..., i] for i, name in enumerate(FACTOR_NAMES)}

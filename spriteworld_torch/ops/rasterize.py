@@ -25,8 +25,9 @@ Two polygon-fill modes:
 
 * ``pil_exact=False``: even-odd crossing test at pixel centers.
 
-Rendering works on batches ``factors[B, K, 10]`` and processes a bounded
-number of scenes at a time.
+`render_rgb_batch` renders a batch ``factors[B, K, 10]``, a bounded number
+of scenes at a time; `render_rgb` renders one scene ``factors[K, 10]``, as
+the JAX function of that name does.
 """
 
 from __future__ import annotations
@@ -221,15 +222,32 @@ def sprite_colors(factors, color_to_rgb: Optional[Callable]):
     return colors.clamp(0, 255).to(torch.uint8).to(torch.float32)
 
 
-def render_rgb(factors: torch.Tensor,
-               num_sprites: torch.Tensor,
-               *,
-               image_size: Tuple[int, int] = (64, 64),
-               anti_aliasing: int = 1,
-               bg_color: Optional[Tuple[int, int, int]] = None,
-               color_to_rgb: Optional[Callable] = None,
-               pil_exact: bool = True,
-               downsample: str = "auto") -> torch.Tensor:
+def one_scene(batch_fn: Callable) -> Callable:
+    """`render_rgb(factors, num_sprites, **kwargs)` of one scene over a
+    module's `render_rgb_batch` (`batch_fn`): factors[K, 10] with
+    num_sprites (an int or i32[]) -> u8[H, W, 3], the batch of one, so it
+    runs what a batch runs."""
+
+    def render_rgb(factors: torch.Tensor, num_sprites,
+                   **kwargs) -> torch.Tensor:
+        num = torch.as_tensor(num_sprites, dtype=torch.int32,
+                              device=factors.device)
+        return batch_fn(factors[None], num[None], **kwargs)[0]
+
+    render_rgb.__doc__ = (f"Render one scene: `{batch_fn.__module__}."
+                          f"{batch_fn.__name__}` at B=1 (see `one_scene`).")
+    return render_rgb
+
+
+def render_rgb_batch(factors: torch.Tensor,
+                     num_sprites: torch.Tensor,
+                     *,
+                     image_size: Tuple[int, int] = (64, 64),
+                     anti_aliasing: int = 1,
+                     bg_color: Optional[Tuple[int, int, int]] = None,
+                     color_to_rgb: Optional[Callable] = None,
+                     pil_exact: bool = True,
+                     downsample: str = "auto") -> torch.Tensor:
     """Render scenes factors[B, K, 10] to u8[B, H, W, 3] (math orientation).
 
     downsample: "lanczos" reproduces PIL's resize(ANTIALIAS) exactly; "box"
@@ -248,6 +266,9 @@ def render_rgb(factors: torch.Tensor,
         return torch.zeros((0, h, w, 3), dtype=torch.uint8,
                            device=factors.device)
     return torch.cat(chunks, 0)
+
+
+render_rgb = one_scene(render_rgb_batch)
 
 
 def _render_chunk(factors, num_sprites, image_size, aa, bg_color,

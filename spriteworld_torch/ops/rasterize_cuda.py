@@ -297,7 +297,7 @@ def downsample_mode(anti_aliasing: int, pil_exact: bool,
                     downsample: str) -> int:
     """DS_IDENTITY at anti_aliasing=1 whatever `downsample` says, else
     DS_LANCZOS or DS_BOX; "auto" follows the fill (Lanczos with the exact
-    fill, box with the centroid fill), as `ops.rasterize.render_rgb`."""
+    fill, box with the centroid fill), as `ops.rasterize.render_rgb_batch`."""
     if downsample not in DOWNSAMPLES:
         raise ValueError(f"Unknown downsample: {downsample!r}")
     if anti_aliasing == 1:
@@ -515,7 +515,7 @@ def render_rgb_batch(factors: torch.Tensor,
                      downsample: str = "auto",
                      kernel_mode: str = "auto") -> torch.Tensor:
     """Render factors[B, K, 10] to u8[B, H, W, 3] (math orientation), in
-    every mode of `ops.rasterize.render_rgb` (same arguments).
+    every mode of `ops.rasterize.render_rgb_batch` (same arguments).
 
     CUDA tensors launch a kernel: the anti_aliasing=1 small-canvas kernel
     where `uses_packed` says so; else the scene kernel when `kernel_mode`
@@ -544,6 +544,10 @@ def render_rgb_batch(factors: torch.Tensor,
     if mode == "scene":
         return scene_raster(tables, image_size, bg_color, downsample)
     return render_strips(tables, image_size, bg_color, downsample=downsample)
+
+
+# One scene: a CUDA scene launches the kernel that a batch would.
+render_rgb = rasterize.one_scene(render_rgb_batch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -647,7 +651,8 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
                  bg_color=None, downsample: str = "auto") -> torch.Tensor:
     """Launch the CUDA scene kernel on prepared tables -> u8[B, H, W, 3].
 
-    The tables say which fill; `downsample` is `ops.rasterize.render_rgb`'s.
+    The tables say which fill; `downsample` is that of
+    `ops.rasterize.render_rgb_batch`.
     Runs on the current stream; raises when the kernel cannot launch.
     Each launch adds one to `scene_raster.launches`,
     `scene_raster.by_mode[mode_name(...)]` and `scene_raster.by_batch[B]`.

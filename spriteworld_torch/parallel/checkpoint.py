@@ -98,10 +98,15 @@ def _restore_leaf(value: np.ndarray, like):
     return type(like)(np.asarray(value).item())
 
 
-def save_state(path: str, state: Any) -> None:
+def save_state(path: str, state: Any, *, force: bool = True) -> None:
     """Write a tree of tensors (e.g. an EnvState, or a dict holding one and
-    the env's generator) to `path`.npz."""
+    the env's generator) to `path`.npz. With `force=False` an existing
+    `path`.npz is not overwritten: that raises FileExistsError, as orbax
+    refuses in the JAX package."""
     path = os.path.abspath(path)
+    if not force and os.path.exists(path + ".npz"):
+        raise FileExistsError(f"Checkpoint {path}.npz exists; pass "
+                              "force=True to overwrite it.")
     np.savez(path + ".npz", **{p: _to_numpy(x) for p, x in _flatten(state)})
 
 
@@ -130,9 +135,20 @@ def restore_state(path: str, like: Any) -> Any:
     `like` provides the structure, dtypes and devices (e.g. a freshly reset
     state of the same env and batch); generators in it take their saved
     state. Fields absent from the checkpoint are filled from `like` with a
-    warning instead of failing.
+    warning instead of failing. A legacy positional checkpoint (every array
+    named `arr_<i>`) restores in `like`'s leaf order where the leaf counts
+    match, and raises ValueError where they do not.
     """
     path = os.path.abspath(path)
     with np.load(path + ".npz") as data:
         stored = {k: data[k] for k in data.files}
+    if stored and all(k.startswith("arr_") for k in stored):
+        paths = [p for p, _ in _flatten(like)]
+        if len(stored) != len(paths):
+            raise ValueError(
+                f"Positional (legacy) checkpoint {path}.npz has "
+                f"{len(stored)} leaves but the target state has "
+                f"{len(paths)}; cannot restore safely.")
+        by_path = {p: stored[f"arr_{i}"] for i, p in enumerate(paths)}
+        return _rebuild(like, lambda p, leaf: _restore_leaf(by_path[p], leaf))
     return _fill_from_like(stored, like, source=f"{path}.npz")

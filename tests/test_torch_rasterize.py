@@ -70,8 +70,8 @@ def _jax_render(**kwargs):
 def _torch_render(f, n, hsv=False, **kwargs):
     if hsv:
         kwargs["color_to_rgb"] = tcolors.hsv_to_rgb
-    return trasterize.render_rgb(torch.from_numpy(f), torch.from_numpy(n),
-                                 **kwargs).numpy()
+    return trasterize.render_rgb_batch(torch.from_numpy(f),
+                                       torch.from_numpy(n), **kwargs).numpy()
 
 
 def _pillow_mask(verts, hc, wc):
@@ -265,7 +265,7 @@ def test_scene_kernel_modes_and_devices():
                                              kw.get("downsample", "auto"))
         np.testing.assert_array_equal(got.numpy(), plain.numpy())
         np.testing.assert_array_equal(
-            got.numpy(), trasterize.render_rgb(f, n, **kw).numpy())
+            got.numpy(), trasterize.render_rgb_batch(f, n, **kw).numpy())
         assert got.numpy().any()
     tables = tcuda.prepare(f, n, 32, 32, None)
     for wrapper in (tcuda.scene_raster, tcuda.packed_raster,
@@ -292,9 +292,9 @@ def test_renderer_cpu_paths_match_rasterizer():
     for pil_exact in (True, False):
         r = renderers.ImageRenderer((32, 32), anti_aliasing=2,
                                     color_to_rgb="hsv", pil_exact=pil_exact)
-        want = trasterize.render_rgb(f, n, image_size=(32, 32),
-                                     anti_aliasing=2,
-                                     color_to_rgb=tcolors.hsv_to_rgb,
-                                     pil_exact=pil_exact)
-        np.testing.assert_array_equal(r.render(f, n, None).numpy(),
+        want = trasterize.render_rgb_batch(f, n, image_size=(32, 32),
+                                           anti_aliasing=2,
+                                           color_to_rgb=tcolors.hsv_to_rgb,
+                                           pil_exact=pil_exact)
+        np.testing.assert_array_equal(r.render_batch(f, n, None).numpy(),
                                       want.numpy())

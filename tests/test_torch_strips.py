@@ -167,7 +167,8 @@ def test_strip_wrappers_refuse_cpu_tensors():
     # A CPU batch takes the plain version whatever the mode.
     for mode in ("auto", "scene", "strips"):
         out = trenderers.ImageRenderer((32, 32), anti_aliasing=3,
-                                       kernel_mode=mode).render(f, n, None)
+                                       kernel_mode=mode).render_batch(
+                                           f, n, None)
         np.testing.assert_array_equal(
             out.numpy(), tcuda.render_rgb_batch_plain(tables, (32, 32)))
 
