@@ -398,15 +398,12 @@ def chunk_graphs(steps=20, chunks=6):
         carry, program = runner._programs[sig + (True,)]
         step_graph = program.graph
         whole = torch.cuda.CUDAGraph()
-        whole.register_generator_state(env.generator)
-        gen = env.generator.get_state()
         with torch.cuda.graph(whole), defer_rejection(carry.pending):
             for _ in range(steps):
                 runner._step(carry, *sig)
-        env.generator.set_state(gen)
 
         def chunk(graph, replays):
-            carry.load(state, runner.episode_returns)
+            carry.load(state, runner.episode_returns, runner.action_key)
             for _ in range(replays):
                 graph.replay()
             return runner_lib._to_host(carry.counts)
@@ -450,9 +447,23 @@ def eager_steps(tree=".", workload="image64", aa=None, lanes=None,
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
+    if hasattr(env, "lane_keys"):
+        # A tree whose actions draw from lane keys: a step's keys split
+        # from a carried key, as BatchedEnvironment.sample_actions does.
+        from spriteworld_torch.ops import lane_random
+
+        carried = [lane_random.key(0, env.device)]
+
+        def sample():
+            carried[0], step_key = lane_random.split(carried[0], 2)
+            return env.sample_action(lane_random.split(step_key, lanes))
+    else:
+        def sample():
+            return env.sample_action(lanes)
+
     def chunk(state):
         for _ in range(steps):
-            state, _ = env.step_batch(state, env.sample_action(lanes))
+            state, _ = env.step_batch(state, sample())
         return state
 
     state = chunk(env.reset_batch(lanes)[0])

@@ -39,7 +39,8 @@ Phases:
      2048 lanes through BatchedEnvironment(use_graph=False), the eager
      step (phases 5 and 6 too) — reset, warm-up, 3 timed chunks of 50
      steps, each step followed by torch.cuda.synchronize() — checking that
-     every render went through the scene kernel, images are not blank,
+     every render went through the scene kernel and every draw through
+     the lane_random kernel, images are not blank,
      rewards are finite (NaN only where the goal filter is empty) and step
      types follow FIRST/MID/LAST;
   5. the demo path: the cobra clustering config with the interactive
@@ -62,10 +63,11 @@ Phases:
      chunk of 8 steps replayed from a captured CUDA graph, whose capture
      launched the path's kernels (and no other) through their wrappers,
      equal bit for bit (state, step types, rewards, images, metrics) to
-     the eager runner's chunk from the same generator state, run under
-     torch.cuda.set_sync_debug_mode("error"); metrics against the stacked
-     timesteps; two replays from one state drawing different scenes and
-     actions; graph and eager env-steps/s from alternating chunks; and a
+     the eager runner's chunk from the same state and action key, run
+     under torch.cuda.set_sync_debug_mode("error"); metrics against the
+     stacked timesteps; two replays from one state taking the same fresh
+     scenes (the lanes' keys) and different actions (the action key goes
+     on); graph and eager env-steps/s from alternating chunks; and a
      chunk whose fresh scenes leave rejection elements pending after the
      first round, run again and equal to the eager step loop;
   8. the split: scene_raster at image64/AA=5 (B=2048) and strip_raster +
@@ -125,7 +127,7 @@ Phases:
      launched on the image path, counted into its kernels entry; nothing
      on the factors path), losses finite, a rollout replayed from the
      graph equal bit for bit to the eager one from the same parameters,
-     state and generator state, both under
+     state and key, both under
      torch.cuda.set_sync_debug_mode("error"), the images the policy saw
      at the first step equal to the plain render, the steady-state
      env-steps/s and the rollout/update split, and one rollout and one
@@ -150,7 +152,22 @@ Phases:
      SpriteFactors subclass that overrides render batches its own render
      inside the graph; the phase's seconds beside the card's name and
      power limit; its launches are added to the `kernels` line;
- 12. the last line: {"ok": true, "device": {...}}.
+ 12. per-lane keys (run after phase 11, before phase 8): (a) the
+     lane_random kernel bit-exact against its plain twin, on the card and
+     on the CPU (normals within one float32 ulp of the CPU's, whose
+     float64 erfinv is its own), at B in {1, 3, 2048} and n in {1, 7,
+     64}, in every mode and on strided keys; (b) on the low-acceptance config with action
+     noise, the compiled step replayed from a graph is a function of its
+     state (two steps from one state, half the lanes resetting, equal),
+     and lanes 3, 7 and 12 of 16, stepped alone from the same lane keys
+     and actions, equal those lanes of the batch, rejection deferred or
+     re-run; (c) a runner of 16 lanes equals ranks 0 and 1 of a two-rank
+     mesh stepped one after the other on the card, lane for lane; the
+     phase's seconds beside the card's name and power limit. Phase 8's
+     `kernels` line ends with lane_random: the draws of one image64/AA=5
+     step at 2048 lanes replayed, held against the plain twin and timed
+     beside it, its bound, and the main path's (phase 4's) launches;
+ 13. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
 python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 8's split)
@@ -183,6 +200,13 @@ WORKLOAD_STEPS = 55
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def lane_keys(seed, shape, device="cuda"):
+    """Keys int32[*shape, 2] of `split(key(seed), shape)`."""
+    from spriteworld_torch.ops import lane_random
+
+    return lane_random.split(lane_random.key(seed, device), shape)
 
 
 def check(cond, msg):
@@ -628,7 +652,9 @@ def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
 
 def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
     """Phase 4: image64 at AA=5 over 2048 lanes. Returns (steps/s, state,
-    scene_raster launches)."""
+    scene_raster launches, lane_random launches)."""
+    from spriteworld_torch.ops import lane_random
+
     env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
     benv = env_lib.BatchedEnvironment(env, BATCH, use_graph=False)
     task = env.task
@@ -639,12 +665,17 @@ def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
             | torch.isinf(ts.reward)
 
     rasterize_cuda.reset_launch_counts()
+    lane_random.reset_launch_counts()
     rate, state, renders = drive(torch, benv, STEPS, CHUNKS, WARMUP_STEPS,
                                  (64, 64, 3), bad_rewards, "main path")
     launches = rasterize_cuda.scene_raster.launches
-    print(f"scene_raster launches {launches} for {renders} renders")
+    draws = lane_random.threefry_launch.launches
+    print(f"scene_raster launches {launches} for {renders} renders; "
+          f"lane_random launches {draws} "
+          f"{json.dumps(lane_random.threefry_launch.by_mode)}")
     check(launches == renders, "a render did not go through the kernel")
-    return rate, state, launches
+    check(draws > 0, "no draw went through the lane_random kernel")
+    return rate, state, launches, draws
 
 
 def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
@@ -835,12 +866,14 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
     a graph (one warm-up launch and one captured launch of each of the
     path's kernels, none other; replays add none) and its stacked
     timesteps and metrics must equal, bit for bit, the eager runner's from
-    the same generator state, run under torch.cuda.set_sync_debug_mode
+    the same state and action key, run under torch.cuda.set_sync_debug_mode
     ("error"); the metrics must agree with the timesteps; two replays of a
-    one-step graph from one state must draw different scenes and actions;
+    one-step graph from one state must take the same fresh scenes (the
+    lanes' keys) and different actions (the runner's action key goes on);
     then timed graph/eager chunk pairs. Last, a chunk whose fresh scenes
     leave rejection elements pending runs again, and must equal the plain
     eager step loop. Returns {label: (graph env-steps/s, eager)}."""
+    from spriteworld_torch.ops import lane_random
     from spriteworld_torch.parallel import ShardedRunner
 
     rates = {}
@@ -850,7 +883,7 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
         eager = ShardedRunner(env, lanes, use_graph=False)
         check(graph.use_graph, "the runner does not default to a graph")
         start, _ = graph.reset(1)
-        gen = env.generator.get_state()
+        eager.action_key = graph.action_key
         rasterize_cuda.reset_launch_counts()
         ran_graph = graph.rollout(start, RUNNER_STEPS, return_timesteps=True)
         captured = launch_counts(rasterize_cuda)
@@ -862,7 +895,6 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
         check(captured == want, f"runner {label}: the captured step did "
                                 f"not launch {kernels} (once to warm up, "
                                 "once captured) and nothing else")
-        env.generator.set_state(gen)
         eager.episode_returns = np.zeros(lanes, np.float32)
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -889,16 +921,18 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
               f"runner {label}: images {tuple(image.shape)} or blank")
         print(f"runner {label}: graph and eager chunks equal; {m}")
 
-        # Two replays of one graph from one state draw anew: from the
-        # initial state every lane takes a fresh scene, and a policy that
-        # keeps its actions in a buffer shows them drawn anew.
+        # Two replays of one graph from one state: from the initial state
+        # every lane takes the fresh scene of its key, the same twice,
+        # and a policy that keeps its actions in a buffer shows them
+        # drawn anew from the runner's action key, which goes on.
         a, _ = graph.rollout(env.initial_state(lanes), 1)
         b, _ = graph.rollout(env.initial_state(lanes), 1)
-        fresh = (a.factors != b.factors).flatten(1).any(1)
-        seen = env.sample_action(lanes)
+        fresh = (a.factors == b.factors).flatten(1).all(1)
+        seen = env.sample_action(lane_random.split(
+            lane_random.key(0, env.device), lanes))
 
-        def recording(generator, state, seen=seen, env=env):
-            actions = env.sample_action(lanes)
+        def recording(keys, state, seen=seen, env=env):
+            actions = env.sample_action(keys)
             seen.copy_(actions)
             return actions
 
@@ -908,10 +942,11 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
         recorder.rollout(ran_graph[0], 1)
         drawn = (first != seen).flatten(1).any(1)
         print(f"runner {label}: two replays from one state: fresh scenes "
-              f"differ in {int(fresh.sum())}, actions in "
+              f"equal in {int(fresh.sum())}, actions differ in "
               f"{int(drawn.sum())} of {lanes} lanes")
         check(bool(fresh.all()) and bool(drawn.all()),
-              f"runner {label}: replays repeat their draws")
+              f"runner {label}: a replay's draws are not those of its "
+              "keys")
 
         times, _ = bench_torch.timed_chunks(
             {"graph": graph, "eager": eager}, RUNNER_TIMED_STEPS,
@@ -925,8 +960,8 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
               f"{json.dumps(times)}")
         check(graph.reruns == 0 and eager.reruns == 0,
               f"runner {label}: a chunk ran again")
-        fresh_ms = graph_ms(torch, lambda: env.initial_state(lanes), 10,
-                            env.generator)
+        keys = lane_random.split(lane_random.key(3, env.device), lanes)
+        fresh_ms = graph_ms(torch, lambda: env.initial_state(keys), 10)
         print(f"runner {label}: fresh scenes for all {lanes} lanes, as "
               f"every step samples them: {fresh_ms:.4f} ms of device time "
               f"in a graph, on {card}")
@@ -935,15 +970,16 @@ def drive_runner(torch, bench_torch, env_lib, rasterize_cuda, card):
     env = low_acceptance_env(bench_torch, env_lib)
     runner = ShardedRunner(env, BATCH)
     start, _ = runner.reset(2)
-    gen = env.generator.get_state()
+    action_key = runner.action_key
     ran = runner.rollout(start, 4, return_timesteps=True)
     check(runner.reruns == 1, f"the low-acceptance chunk ran "
                               f"{runner.reruns} times again, not once")
     check(bool(ran[0].sample_ok.all()), "a lane's scene was not sampled")
-    env.generator.set_state(gen)
     state = start
     for t in range(4):
-        state, ts = env.step_batch(state, env.sample_action(BATCH))
+        action_key, step_key = lane_random.split(action_key, 2)
+        state, ts = env.step_batch(state, env.sample_action(
+            lane_random.split(step_key, BATCH)))
         check(torch.equal(ts.observation["image"].reshape(BATCH, -1),
                           ran[2].observation["image"][t])
               and torch.equal(ts.step_type, ran[2].step_type[t]),
@@ -1057,8 +1093,8 @@ def scripted_policy(torch, env):
     drag = isinstance(space, actions.DragAndDrop)
     steps = [0]
 
-    def policy(generator, state):
-        del generator
+    def policy(keys, state):
+        del keys
         host = device_lib.to_host({"pos": state.factors[0, :, 0:2],
                                    "n": state.num_sprites[0]})
         k = steps[0] % max(1, int(host["n"]))
@@ -1225,9 +1261,9 @@ def time_single(torch, bench_torch, rasterize_cuda, card, dev="cuda"):
     out = {}
     for label, env, kernels in single_env_paths(bench_torch, dev):
         state, _ = env.reset_batch(1)
-        actions = [env.sample_action(1) for _ in range(
+        actions = list(env.sample_action(lane_keys(1, (
             SINGLE_WARMUP_STEPS + SINGLE_TIMED_STEPS
-            + SINGLE_PROFILED_STEPS)]
+            + SINGLE_PROFILED_STEPS, 1), env.device)))
         torch.cuda.synchronize()
         ms = []
         for i in range(SINGLE_WARMUP_STEPS + SINGLE_TIMED_STEPS):
@@ -1446,7 +1482,7 @@ def run_batched(torch, env, lanes, use_graph, steps):
 def run_adapter(torch, dm_env_adapter, env, use_graph, steps):
     """The dm_env adapter: reset, then `steps` steps of
     `action_space.sample()`, every third step also `observation()` and
-    `sample_contained_position()` (an eager draw from the env's generator
+    `sample_contained_position()` (an eager split of the adapter's key
     between replays). Returns ([host results], host reads of each step,
     the adapter)."""
     adapter = adapter_of(dm_env_adapter, env, use_graph)
@@ -1464,9 +1500,8 @@ def run_adapter(torch, dm_env_adapter, env, use_graph, steps):
 
 
 def run_media(torch, media, env, use_graph, steps):
-    """media: record_episode seeded 0, then one drawing on from the env's
-    generator with its states, then step_frame past that episode's LAST
-    (the auto-reset). Returns ([frames and states], host reads of the
+    """media: record_episode seeded 0, then one seeded 1 with its states,
+    then step_frame past that episode's LAST (the auto-reset). Returns ([frames and states], host reads of the
     second episode, its frames, reruns)."""
     first = media.record_episode(env, 0, max_steps=steps,
                                  use_graph=use_graph)
@@ -1475,13 +1510,14 @@ def run_media(torch, media, env, use_graph, steps):
     reruns = compiled.reruns
     with host_reads(torch, reads):
         frames, states = media.record_episode(
-            env, env.generator, max_steps=steps, return_states=True,
+            env, 1, max_steps=steps, return_states=True,
             use_graph=use_graph)
     out = [first, frames, states]
     state = states[-1]
-    for _ in range(2):
+    for t in range(2):
         state, frame, last = media.step_frame(
-            env, state, env.sample_action(1), use_graph=use_graph)
+            env, state, env.sample_action(lane_keys(t, 1, env.device)),
+            use_graph=use_graph)
         out.append((state.clone(), frame, last))
     return out, reads[0], len(frames), compiled.reruns - reruns
 
@@ -1633,9 +1669,9 @@ def low_acceptance(torch, bench_torch, env_lib, dm_env_adapter):
     state, ts = graph.reset()
     want, wts = plain.reset_batch(1)
     equal = same_states(torch, state, want) and same_timesteps(torch, ts, wts)
-    for _ in range(REJECT_STEPS):
+    for keys in batched_action_keys(plain.root_key(), 1, REJECT_STEPS):
         state, ts = graph.step(state, graph.sample_actions())
-        want, wts = plain.step_batch(want, plain.sample_action(1))
+        want, wts = plain.step_batch(want, plain.sample_action(keys))
         equal = equal and same_states(torch, state, want) \
             and same_timesteps(torch, ts, wts)
     check(graph.use_graph and graph.reruns >= 1 and equal,
@@ -1653,6 +1689,19 @@ def low_acceptance(torch, bench_torch, env_lib, dm_env_adapter):
           f"re-ran {graph.reruns} of {REJECT_STEPS + 1} launches and equals "
           f"the host-checked step_batch loop; the adapter re-ran "
           f"{adapter_reruns} and equals its eager twin")
+
+
+def batched_action_keys(key, lanes, steps):
+    """The lane action keys of `steps` calls of BatchedEnvironment's
+    `sample_actions()` after `reset(key)`: the action key starts at
+    fold_in(key, 1), and each call splits it into the next one and the
+    call's, split over the lanes."""
+    from spriteworld_torch.ops import lane_random
+
+    action_key = lane_random.fold_in(key, 1)
+    for _ in range(steps):
+        action_key, step_key = lane_random.split(action_key, 2)
+        yield lane_random.split(step_key, lanes)
 
 
 def step_profile(torch, run, steps: int) -> dict:
@@ -1694,9 +1743,11 @@ def time_graph_steps(torch, media, env, card, label):
 
     state = {use_graph: env.reset_batch(1)[0] for use_graph in (True, False)}
     ms = {True: [], False: []}
+    keys = iter(lane_keys(5, (2 * (GRAPH_WARMUP_STEPS + GRAPH_TIMED_STEPS
+                                   + SINGLE_PROFILED_STEPS), 1), env.device))
 
     def step(use_graph):
-        action = env.sample_action(1)
+        action = env.sample_action(next(keys))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state[use_graph], _, _ = media.step_frame(
@@ -1781,7 +1832,7 @@ def drive_trainer(torch, rasterize_cuda, card, dev="cuda"):
     render, then once to warm up and once captured; replays are not
     counted) and no other kernel, the factors mode none. Then, from the
     trained state: one rollout replayed from the graph against the eager
-    rollout from the same parameters, state and generator state, both
+    rollout from the same parameters, state and key, both
     under torch.cuda.set_sync_debug_mode("error"), equal bit for bit;
     the images the policy saw at the first step against the plain render
     of that state. Returns {mode: (stats, launches by mode)}."""
@@ -2237,6 +2288,307 @@ def renderer_contract(torch, bench_torch, rasterize_cuda, card, dev="cuda"):
 _SPIN_RATE = []
 
 
+# Phase 12: per-lane keys. The lane_random kernel against its plain twin
+# at these lane counts and counters, in every mode; the lanes and steps of
+# the pure-step, lane-independence and runner-halves checks.
+LANE_RANDOM_LANES = (1, 3, 2048)
+LANE_RANDOM_COUNTERS = (1, 7, 64)
+KEYS_LANES = 16
+KEYS_STEPS = 6
+KEYS_SUBSET = (3, 7, 12)
+
+
+def lane_random_vs_plain(torch, dev="cuda"):
+    """Phase 12 (a): `threefry_launch` on the card against its plain twin
+    on the same keys, on the card and on the CPU, at every lane count of
+    LANE_RANDOM_LANES and counter count of LANE_RANDOM_COUNTERS, in each
+    mode (keys lanes first and counters first, with a start; bits; uniform
+    on [0, 1) and on [-3, 5.5); randint; normal), and on keys that are a
+    strided slice of a split. Returns the largest difference (0:
+    bit-exact). The normal's float64 erfinv is the card's own in the
+    kernel and in the twin on the card (equal), and the CPU's in the twin
+    on the CPU: there the two may round across a float32 boundary, so
+    its words are counted apart and held within one float32 ulp."""
+    from spriteworld_torch.ops import lane_random as lr
+
+    worst, cases = 0.0, 0
+    normal_cpu = [0, 0]  # float32 words off the CPU twin, largest ulps
+    for lanes in LANE_RANDOM_LANES:
+        keys = lr.split(lr.key(lanes, dev), lanes)
+        views = {"contiguous": keys,
+                 "strided": lr.split(keys, 3)[:, 1]}
+        for n in LANE_RANDOM_COUNTERS:
+            for label, k in views.items():
+                for mode, kw in (
+                        (lr.KEYS, {}), (lr.KEYS, {"start": 5}),
+                        (lr.KEYS, {"counters_first": True, "start": 9}),
+                        (lr.BITS, {}),
+                        (lr.UNIFORM, {}),
+                        (lr.UNIFORM, {"lo": -3.0, "hi": 5.5}),
+                        (lr.RANDINT, {"lo": -2, "hi": 7}),
+                        (lr.NORMAL, {})):
+                    got = lr.threefry_launch(k, n, mode, **kw)
+                    for on_cpu in (False, True):
+                        want = lr.threefry_plain(
+                            k.cpu() if on_cpu else k, n, mode,
+                            **kw).to(got.device)
+                        check(got.shape == want.shape
+                              and got.dtype == want.dtype,
+                              f"lane_random {label} B={lanes} n={n} "
+                              f"{lr.MODE_NAMES[mode]} {kw}: shape")
+                        ulps = (got.view(torch.int32).long()
+                                - want.view(torch.int32).long()).abs()
+                        if on_cpu and mode == lr.NORMAL:
+                            normal_cpu[0] += int((ulps != 0).sum())
+                            normal_cpu[1] = max(normal_cpu[1],
+                                                int(ulps.max()))
+                            continue
+                        worst = max(worst, float((ulps != 0).sum()))
+                    cases += 1
+    print(f"lane_random against its plain twin (card and CPU): {cases} "
+          f"cases, B in {LANE_RANDOM_LANES}, n in {LANE_RANDOM_COUNTERS}, "
+          f"{worst:.0f} words differ; normals against the CPU twin: "
+          f"{normal_cpu[0]} words differ, by {normal_cpu[1]} ulp at most")
+    check(worst == 0, "lane_random differs from its plain twin")
+    check(normal_cpu[1] <= 1, "normals on the card and the CPU differ by "
+                              "more than one float32 ulp")
+    return worst
+
+
+def noisy_low_acceptance_env(bench_torch, env_lib, dev, image_size):
+    """The low-acceptance config, its SelectMove with action noise."""
+    from spriteworld_torch.core import actions
+
+    env = low_acceptance_env(bench_torch, env_lib, device=dev,
+                             image_size=image_size)
+    env._action_space = actions.SelectMove(scale=0.25, noise_scale=0.05)
+    return env
+
+
+def pure_step_and_lanes(torch, bench_torch, env_lib, dev="cuda",
+                        image_size=(64, 64)):
+    """Phase 12 (b): on the low-acceptance config with action noise, the
+    compiled (graph, on the card) step is a function of its state and
+    actions: two steps from one state (half the lanes resetting) give
+    equal states and timesteps; and each lane is a function of its key:
+    KEYS_SUBSET of a KEYS_LANES-lane batch, reset and stepped KEYS_STEPS
+    times in a batch of their own from the same lane keys and actions,
+    equal those lanes of the batch, with rejection deferred (graph) and
+    in the eager re-run alike."""
+    from spriteworld_torch.core.state import STATE_FIELDS
+    from spriteworld_torch.ops import lane_random as lr
+
+    env = noisy_low_acceptance_env(bench_torch, env_lib, dev, image_size)
+    use_graph = dev == "cuda"
+    big = env_lib.Compiled(dev, KEYS_LANES, use_graph)
+    keys = lr.split(lr.key(11, dev), KEYS_LANES)
+    actions = env.sample_action(lr.split(lr.key(12, dev),
+                                         (KEYS_STEPS, KEYS_LANES)))
+
+    def launch(compiled, what):
+        state, ts = what()
+        if compiled.pending is not None and bool(compiled.pending):
+            state, ts = compiled.rerun(env)
+        return state.clone(), env_lib._map_timestep(torch.clone, ts)
+
+    start, _ = launch(big, lambda: big.reset(env, keys))
+    start.reset_next[::2] = True
+    runs = [launch(big, lambda: big.step(env, start.clone(), actions[0]))
+            for _ in range(2)]
+    (sa, ta), (sb, tb) = runs
+    pure = same_states(torch, sa, sb) and same_timesteps(torch, ta, tb)
+    check(pure, "two steps from one state differ")
+    check(bool((ta.step_type[::2] == 0).all()), "the resetting lanes did "
+                                                 "not reset")
+
+    sub = list(KEYS_SUBSET)
+    small = env_lib.Compiled(dev, len(sub), use_graph)
+    state, _ = launch(big, lambda: big.reset(env, keys))
+    part, _ = launch(small, lambda: small.reset(env, keys[sub]))
+    equal = True
+    for t in range(KEYS_STEPS):
+        state, ts = launch(big, lambda: big.step(env, state, actions[t]))
+        part, pts = launch(small, lambda: small.step(env, part,
+                                                     actions[t][sub]))
+        equal = equal and all(torch.equal(getattr(state, n)[sub],
+                                          getattr(part, n))
+                              for n in STATE_FIELDS) \
+            and torch.equal(ts.step_type[sub], pts.step_type) \
+            and torch.equal(ts.observation["image"][sub],
+                            pts.observation["image"])
+    check(equal, f"lanes {sub} of {KEYS_LANES} differ from the same lanes "
+                 "stepped alone")
+    print(f"keys: a step is a function of its state (two steps from one "
+          f"state equal, half the lanes resetting, with action noise); "
+          f"lanes {sub} of {KEYS_LANES} equal the same lane keys stepped "
+          f"{KEYS_STEPS} times alone ({'graph' if use_graph else 'eager'}; "
+          f"re-runs {big.reruns} and {small.reruns})")
+    return big.reruns + small.reruns
+
+
+@contextlib.contextmanager
+def local_metrics(mesh_lib):
+    """Within the block a mesh's metric all-reduce leaves each rank's own
+    sums: ranks of a mesh without a process group then run one after the
+    other in one process."""
+    saved = mesh_lib.Replicated.all_reduce
+    mesh_lib.Replicated.all_reduce = lambda self, tensor, op="sum": tensor
+    try:
+        yield
+    finally:
+        mesh_lib.Replicated.all_reduce = saved
+
+
+def runner_halves(torch, bench_torch, dev="cuda"):
+    """Phase 12 (c): a runner of KEYS_LANES lanes against two runners of
+    half as many, ranks 0 and 1 of a two-rank mesh stepped one after the
+    other on one card (their action keys sliced as the mesh slices them,
+    their metrics left local): every lane's step types, rewards and state,
+    and the summed metrics' counts, equal; the float32 sums to rounding."""
+    from spriteworld_torch.core.state import STATE_FIELDS
+    from spriteworld_torch.parallel import ShardedRunner
+    from spriteworld_torch.parallel import mesh as mesh_lib
+
+    def run(mesh, lanes):
+        env = bench_torch.build_env(anti_aliasing=1, image_size=(16, 16),
+                                    device=dev, seed=0)
+        env._max_episode_length = 3  # auto-resets inside the rollout
+        runner = ShardedRunner(env, lanes, mesh=mesh)
+        state, _ = runner.reset(21)
+        state, m, tss = runner.rollout(state, KEYS_STEPS,
+                                       return_timesteps=True)
+        return state, m, tss
+
+    whole = run(None, KEYS_LANES)
+    with local_metrics(mesh_lib):
+        halves = [run(mesh_lib.EnvMesh(size=2, rank=r,
+                                       device=torch.device(dev)), KEYS_LANES)
+                  for r in range(2)]
+    state = {n: torch.cat([getattr(h[0], n) for h in halves])
+             for n in STATE_FIELDS}
+    equal = all(torch.equal(state[n], getattr(whole[0], n))
+                for n in STATE_FIELDS) and all(
+        torch.equal(torch.cat([getattr(h[2], f) for h in halves], 1)
+                    .nan_to_num(), getattr(whole[2], f).nan_to_num())
+        for f in ("step_type", "reward"))
+    m = [h[1] for h in halves]
+    counts = (m[0].episodes + m[1].episodes,
+              m[0].successes + m[1].successes)
+    sums = m[0].reward_sum + m[1].reward_sum
+    check(equal and counts == (whole[1].episodes, whole[1].successes)
+          and abs(sums - whole[1].reward_sum)
+          <= 1e-5 * max(1.0, abs(whole[1].reward_sum)),
+          f"the two halves differ from the whole runner: lanes equal "
+          f"{equal}, counts {counts} against "
+          f"{(whole[1].episodes, whole[1].successes)}")
+    print(f"keys: a runner of {KEYS_LANES} lanes equals ranks 0 and 1 of "
+          f"two stepped one after the other, lane for lane over "
+          f"{KEYS_STEPS} steps ({whole[1].episodes} episodes)")
+
+
+def record_lane_random(step):
+    """The lane_random draws of `step()`: [(keys, n, mode, start,
+    counters_first, lo, hi)] with each call's keys copied."""
+    from spriteworld_torch.ops import lane_random as lr
+
+    calls, draw = [], lr._threefry
+
+    def recording(keys, n, mode, start=0, counters_first=False, lo=0.0,
+                  hi=1.0):
+        calls.append((keys.clone(), n, mode, start, counters_first, lo, hi))
+        return draw(keys, n, mode, start, counters_first, lo, hi)
+
+    lr._threefry = recording
+    try:
+        step()
+    finally:
+        lr._threefry = draw
+    return calls
+
+
+def time_lane_random(torch, bench_torch, env_lib, card, launches, steps):
+    """The kernels-line entry of lane_random: the draws of one eager
+    image64/AA=5 step at BATCH lanes (recorded, then replayed), kernel
+    against plain twin (held equal), timed together (`ms`, `device_ms`,
+    `graph_ms`) beside the plain twin; the bound counts each call's keys
+    read once (8 bytes a lane) and outputs written once, and its
+    operations (~110 32-bit integer operations a block, at the float32
+    rate outside the tensor cores, the table's nearest); `launches` is
+    the main path's count (phase 4), over `steps` steps."""
+    from spriteworld_torch.ops import lane_random as lr
+
+    env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
+    benv = env_lib.BatchedEnvironment(env, BATCH, use_graph=False)
+    state, _ = benv.reset(3)
+    state, _ = benv.step(state, benv.sample_actions())
+    calls = record_lane_random(
+        lambda: benv.step(state, benv.sample_actions()))
+    worst = 0.0
+    for keys, n, mode, start, first, lo, hi in calls:
+        got = lr.threefry_launch(keys, n, mode, start, first, lo, hi)
+        want = lr.threefry_plain(keys, n, mode, start, first, lo, hi)
+        worst = max(worst, float((got.view(torch.int32)
+                                  != want.view(torch.int32)).sum()))
+    check(worst == 0, "lane_random differs from plain on the step's draws")
+
+    def kernel():
+        for c in calls:
+            lr.threefry_launch(*c)
+
+    def plain():
+        for c in calls:
+            lr.threefry_plain(*c)
+
+    blocks = sum(k[0].numel() // 2 * k[1] for k in calls)
+    nbytes = sum(k[0].numel() * 4 + k[0].numel() // 2 * k[1]
+                 * (8 if k[2] == lr.KEYS else 4) for k in calls)
+    ops = 110.0 * blocks
+    by_mode = {}
+    for k in calls:
+        name = lr.MODE_NAMES[k[2]]
+        by_mode[name] = by_mode.get(name, 0) + 1
+    bound_ms, bound_by = bound(nbytes, 0, ops)
+    entry = {
+        "name": "lane_random", "route": "cuda",
+        "source": "spriteworld_torch/csrc/lane_random.cu",
+        "replaces": "spriteworld_tpu/core/environment.py:105 (XLA's "
+                    "threefry under jax.random; no pallas_call)",
+        "launches": launches, "max_abs_err": worst,
+        "ms": event_ms(torch, kernel, 20),
+        "device_ms": event_ms(torch, kernel, 20, spin=True),
+        "graph_ms": graph_ms(torch, kernel, 10),
+        "plain_ms": event_ms(torch, plain, 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_tc_ms": bound_ms, "bound_tc_by": bound_by,
+        "library_ms": None,
+        "step_draws": len(calls), "step_draws_by_mode": by_mode,
+        "step_blocks": blocks, "launches_per_step": launches / steps}
+    print(f"lane_random: one image64/AA=5 step at {BATCH} lanes draws "
+          f"{len(calls)} times ({by_mode}, {blocks} blocks): kernel "
+          f"{entry['ms']:.4f} ms ({entry['device_ms']:.4f} on the device, "
+          f"{entry['graph_ms']:.4f} in a graph), plain "
+          f"{entry['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); {launches} launches on the main path, "
+          f"{launches / steps:.1f} a step; on {card}")
+    return entry
+
+
+def lane_keys_phase(torch, bench_torch, env_lib, card, dev="cuda"):
+    """Phase 12: per-lane keys on the card (see the module docstring).
+    Returns the largest kernel-against-plain difference."""
+    from spriteworld_torch.ops import lane_random as lr
+
+    t0 = time.perf_counter()
+    worst = lane_random_vs_plain(torch, dev) if dev == "cuda" else 0.0
+    counted = lr.threefry_launch.launches
+    pure_step_and_lanes(torch, bench_torch, env_lib, dev)
+    runner_halves(torch, bench_torch, dev)
+    print(f"phase 12 (per-lane keys; {lr.threefry_launch.launches - counted}"
+          f" lane_random launches) took {time.perf_counter() - t0:.1f} s "
+          f"on {card}")
+    return worst
+
+
 def spin_cycles_per_ms(torch):
     """Cycles of `torch.cuda._sleep` the card spins a millisecond, timed
     once a process between two events."""
@@ -2281,17 +2633,14 @@ def event_ms(torch, fn, reps, spin=False):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(torch, fn, reps, generator=None):
+def graph_ms(torch, fn, reps):
     """Mean device time of one call of `fn` inside a CUDA graph of `reps`
     calls, between two events around one replay after a warm one
     (`graph_ms` in the kernels line: the kernel as the runner's graph
-    replays it, with no wrapper on the host). `fn` may draw from
-    `generator`, which the graph then registers."""
+    replays it, with no wrapper on the host)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
@@ -2805,7 +3154,8 @@ def path_states(torch, bench_torch, steps=2, demo=True):
     lanes unless not `demo`), each after a reset and `steps` eager steps:
     the scenes the kernels render on their paths (packed_raster's image64
     scenes at AA=1 are the same). Only `Environment.reset_batch`,
-    `step_batch` and `sample_action`, which every tree of the port has."""
+    `step_batch` and `sample_action`, which every tree of the port has
+    (`random_actions`)."""
     envs = [(bench_torch.build_env(anti_aliasing=5, device="cuda", seed=1),
              BATCH)]
     if demo:
@@ -2815,11 +3165,20 @@ def path_states(torch, bench_torch, steps=2, demo=True):
     out = []
     for env, lanes in envs:
         state, _ = env.reset_batch(lanes)
-        for _ in range(steps):
-            state, _ = env.step_batch(state, env.sample_action(lanes))
+        for t in range(steps):
+            state, _ = env.step_batch(state, random_actions(env, lanes, t))
         out.append(state)
     torch.cuda.synchronize()
     return out
+
+
+def random_actions(env, lanes, seed):
+    """`lanes` random actions of `env`: from the lane keys of `seed` where
+    the tree's actions draw from keys, else from the env's generator (a
+    tree before per-lane keys)."""
+    if hasattr(env, "lane_keys"):
+        return env.sample_action(lane_keys(seed, lanes, env.device))
+    return env.sample_action(lanes)
 
 
 def time_split(torch, rasterize_cuda, colors, scene_state, demo_state):
@@ -3051,6 +3410,55 @@ def time_packed(torch, rasterize_cuda, colors, state, reps=200):
     return out
 
 
+def fresh_scenes(tree=".", reps=10):
+    """Device ms of fresh scenes for every lane of each RUNNER_PATHS path
+    (`Environment.initial_state`, as every step samples them), in a CUDA
+    graph of `reps` calls, for the tree at `tree` (this one, or an older
+    one unpacked with `git archive`; its package is imported from there):
+    from lane keys where its scenes draw from keys, else from the env's
+    generator, which the graph then registers. Prints one JSON line. Run
+    one tree a process: python3 -c 'import chip_smoke as c;
+    c.fresh_scenes("archive/parent")'."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import bench_torch
+
+    card = bench_torch.card_name_and_power_limit()
+    out = {}
+    for label, name, aa, lanes, _ in RUNNER_PATHS:
+        env, _, _ = bench_torch.build(name, aa, True, device="cuda", seed=0)
+        if hasattr(env, "lane_keys"):
+            keys = lane_keys(3, lanes, env.device)
+
+            def fresh():
+                env.initial_state(keys)
+            generator = None
+        else:
+            def fresh():
+                env.initial_state(lanes)
+            generator = env.generator
+        fresh()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fresh()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[label] = start.elapsed_time(end) / reps
+    print(json.dumps({"fresh_scene_ms": out, "tree": tree, "card": card}))
+
+
 def packed_only():
     """packed_raster alone at image64/AA=1 (B=2048) in both fills, on
     freshly built kernels:
@@ -3130,7 +3538,7 @@ def main():
           + ("not measured (no cuobjdump)" if imma is None
              else json.dumps(imma)))
 
-    steps_per_sec, state, scene_launches = drive_main_path(
+    steps_per_sec, state, scene_launches, draws = drive_main_path(
         torch, bench_torch, env_lib, rasterize_cuda)
     print(f"env_steps_per_sec {steps_per_sec:.1f} (image64, AA=5, "
           f"{BATCH} lanes) on {card}")
@@ -3152,6 +3560,7 @@ def main():
                                           card)
     contract_launches, worst_contract = renderer_contract(
         torch, bench_torch, rasterize_cuda, card)
+    worst_keys = lane_keys_phase(torch, bench_torch, env_lib, card)
 
     split = time_split(torch, rasterize_cuda, colors, state, demo_state)
     print(json.dumps({"split": split}))
@@ -3186,6 +3595,10 @@ def main():
               f"({e['bound_by']}), tensor-core bound "
               f"{e['bound_tc_ms']:.6f} ms ({e['bound_tc_by']}), "
               f"{e['launches']} launches on its path, on {card}")
+    lane_entry = time_lane_random(torch, bench_torch, env_lib, card, draws,
+                                  WARMUP_STEPS + CHUNKS * STEPS)
+    lane_entry["max_abs_err"] = max(lane_entry["max_abs_err"], worst_keys)
+    entries.append(lane_entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

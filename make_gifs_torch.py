@@ -80,8 +80,8 @@ def _goal_policy(env):
             else list(task._subtasks))
     goals = np.stack([np.asarray(t._goal_position) for t in subs])
 
-    def policy(generator, state):
-        del generator
+    def policy(keys, state):
+        del keys
         f, n = state.factors, state.num_sprites
         host = device_lib.to_host({
             "masks": torch.stack([t.filter_mask(f, n)[0] for t in subs]),
@@ -109,8 +109,8 @@ def _clustering_policy(env):
     anchors = np.array([[0.22, 0.30], [0.78, 0.70],
                         [0.22, 0.70], [0.78, 0.30]], np.float32)
 
-    def policy(generator, state):
-        del generator
+    def policy(keys, state):
+        del keys
         f, n = state.factors, state.num_sprites
         host = device_lib.to_host({"member": task.membership(f, n)[0],
                                    "factors": f[0]})

@@ -23,6 +23,11 @@ reset or step runs again eagerly with host-checked rejection from where it
 started, and is fetched again. High-throughput consumers step
 `core.environment.BatchedEnvironment` or `parallel.ShardedRunner`
 directly.
+
+Keys, as in the JAX adapter: the adapter carries a key, `key(seed)` at
+construction, and splits it once for the initial state, once a reset and
+once a `sample_contained_position`, so the lane's state (its key included)
+follows the JAX adapter's from the same seed.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from spriteworld_torch import sprite as sprite_lib
 from spriteworld_torch.core import environment as env_lib
 from spriteworld_torch.core import renderers as renderers_lib
 from spriteworld_torch.core import state as state_lib
-from spriteworld_torch.ops import geometry
+from spriteworld_torch.ops import geometry, lane_random
 from spriteworld_torch.utils import device as device_lib
 
 # Tries of sample_contained_position, and how many of them one CPU call of
@@ -78,6 +83,7 @@ class Environment(dm_env.Environment):
             metadata=metadata,
             device=device,
             seed=0 if seed is None else seed)
+        self._key = self._env.root_key()
         self._compiled = env_lib.Compiled(self._env.device, 1, use_graph)
         self._int_actions = isinstance(self._env.action_spec(), list)
         # ONE stable host action space per env (the reference property
@@ -90,7 +96,14 @@ class Environment(dm_env.Environment):
                 None if seed is None else (seed + 0x5EED)))
         # The reference draws a scene at construction and resets on the
         # first step.
-        self._state = self._env.initial_state(1)
+        self._state = self._env.initial_state(self._next_key()[None])
+
+    def _next_key(self) -> torch.Tensor:
+        """A fresh key int32[2]: the carried key splits into the next
+        carried key and this one."""
+        keys = lane_random.split(self._key, 2)
+        self._key = keys[0]
+        return keys[1]
 
     # ------------------------------------------------------------------ #
     def _fetch(self, observation, **extra):
@@ -199,7 +212,8 @@ class Environment(dm_env.Environment):
                 "config's cluster_distribs against its scene distribution.")
 
     def reset(self) -> dm_env.TimeStep:
-        return self._timestep(lambda: self._compiled.reset(self._env))
+        keys = self._next_key()[None]
+        return self._timestep(lambda: self._compiled.reset(self._env, keys))
 
     def step(self, action) -> dm_env.TimeStep:
         dtype = np.int32 if self._int_actions else np.float32
@@ -273,20 +287,19 @@ class Environment(dm_env.Environment):
     def sample_contained_position(self) -> np.ndarray:
         """Random position inside a random sprite (environment.py:110-126).
 
-        A numpy generator seeded from the env's generator picks the sprite
-        and draws points in its bounding box until one lies inside; the
+        A numpy generator seeded from the adapter's next key picks the
+        sprite and draws points in its bounding box until one lies inside;
+        the
         containment test is `geometry.points_in_polygons` on the host
         copy of the vertices, `_TRIES_AT_ONCE` draws a call. The draws
         come from the numpy stream in the same order one at a time would,
         so the first point inside is the one the one-at-a-time loop finds.
         """
-        dev = self._env.device
         host = device_lib.to_host({
             "factors": self._state.factors[0],
             "num_sprites": self._state.num_sprites[0],
-            "seed": torch.randint(0, 2**31 - 1, (),
-                                  generator=self._env.generator,
-                                  device=dev)})
+            "seed": lane_random.randint(self._next_key(), 1, 0,
+                                        2**31 - 1)[0]})
         rng = np.random.default_rng(int(host["seed"]))
         idx = rng.integers(0, int(host["num_sprites"]))
         verts = geometry.world_vertices(torch.from_numpy(

@@ -12,6 +12,9 @@ Counterpart of `spriteworld_tpu/core/actions.py`:
     right). When carrying, the topmost non-body sprite containing the body's
     centre (decided from positions before the move) moves first, then the
     body; cost = -motion_cost * step_size.
+
+Random actions and action noise draw from per-lane keys int32[B, 2]
+(`ops.lane_random`), one a lane, as the JAX action spaces draw from theirs.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spriteworld_torch.ops import geometry
+from spriteworld_torch.ops import geometry, lane_random
 from spriteworld_torch.utils import device as device_lib
 
 
@@ -53,18 +56,19 @@ class SelectMove:
     def get_motion(self, action):
         return (action[..., 2:] - 0.5) * self._scale
 
-    def apply_noise_to_action(self, action, generator):
+    def apply_noise_to_action(self, action, key):
+        """`action` f32[B, 4] plus Gaussian noise of each lane's key (key
+        int32[B, 2])."""
         if not self._noise_scale:
             return action
-        noise = torch.randn(action.shape, generator=generator,
-                            device=action.device, dtype=action.dtype)
+        noise = lane_random.normal(key, action.shape[-1], action.dtype)
         return action + self._noise_scale * noise
 
     def step(self, action, factors, num_sprites, keep_in_frame: bool,
-             generator: torch.Generator):
-        """action f32[B, 4], factors f32[B, K, 10], num_sprites i32[B] ->
-        (factors', cost f32[B])."""
-        action = self.apply_noise_to_action(action, generator)
+             key: torch.Tensor):
+        """action f32[B, 4], factors f32[B, K, 10], num_sprites i32[B],
+        lane keys int32[B, 2] (the noise's) -> (factors', cost f32[B])."""
+        action = self.apply_noise_to_action(action, key)
         position = action[..., :2]
         motion = self.get_motion(action)
         hits = geometry.sprites_containing_point(factors, position)
@@ -73,10 +77,10 @@ class SelectMove:
         cost = -self._motion_cost * torch.linalg.vector_norm(motion, dim=-1)
         return factors, cost
 
-    def sample(self, generator: torch.Generator, batch: int):
-        """Uniform random actions f32[B, 4]."""
-        return torch.rand((batch, 4), generator=generator,
-                          device=generator.device)
+    def sample(self, key: torch.Tensor):
+        """Uniform random actions f32[B, 4], one a lane key of `key`
+        int32[B, 2]."""
+        return lane_random.uniform(key, 4)
 
     def action_spec(self):
         """The dm_env spec of one lane's action (imported here, so that
@@ -114,10 +118,10 @@ class Embodied:
              [0.0, -step_size], [step_size, 0.0]], dtype=np.float32)
 
     def step(self, action, factors, num_sprites, keep_in_frame: bool,
-             generator: torch.Generator):
+             key: torch.Tensor):
         """action i32[B, 2], factors f32[B, K, 10], num_sprites i32[B] ->
-        (factors', cost f32[B])."""
-        del generator
+        (factors', cost f32[B]); `key` is unused (no noise)."""
+        del key
         b = factors.shape[0]
         motion = device_lib.constant(self._motions, factors.device)[
             action[:, 1].long()]
@@ -135,13 +139,12 @@ class Embodied:
                           dtype=torch.float32, device=factors.device)
         return factors, cost
 
-    def sample(self, generator: torch.Generator, batch: int):
-        """Uniform random actions i32[B, 2]."""
-        dev = generator.device
-        return torch.stack([
-            torch.randint(0, 2, (batch,), generator=generator, device=dev),
-            torch.randint(0, 4, (batch,), generator=generator, device=dev),
-        ], -1).to(torch.int32)
+    def sample(self, key: torch.Tensor):
+        """Uniform random actions i32[B, 2], one a lane key of `key`
+        int32[B, 2] (split in two, as the JAX space splits it)."""
+        keys = lane_random.split(key, 2)
+        return torch.cat([lane_random.randint(keys[..., 0, :], 1, 0, 2),
+                          lane_random.randint(keys[..., 1, :], 1, 0, 4)], -1)
 
     def action_spec(self):
         """The dm_env spec of one lane's action: [carry, direction] as two

@@ -4,9 +4,10 @@ Counterpart of `spriteworld_tpu/core/distributions.py`, with its seven-node
 algebra: `Continuous`, `Discrete`, `Mixture`, `Intersection`, `Product`,
 `SetMinus` and `Selection`. Each node offers
 
-  * ``sample_with_status(generator, shape) -> (dict[str, f32[*shape]],
-    ok bool[*shape])`` — draws from an explicit `torch.Generator`, on that
-    generator's device; ``sample`` drops the status;
+  * ``sample_with_status(key) -> (dict[str, f32[*S]], ok bool[*S])`` —
+    one sample per key of `key` int32[*S, 2] (`ops.lane_random`), on the
+    keys' device, as the JAX node's `sample_with_status(key)` under vmap;
+    ``sample`` drops the status;
   * ``contains(spec) -> bool tensor`` — vectorized over any batch of factor
     values, so one call masks all sprites of all lanes.
 
@@ -20,6 +21,14 @@ Semantics kept from the reference:
   * Rejection is bounded by MAX_REJECTION_TRIES proposals per element;
     ``ok`` is False where the bound ran out or a nested rejection node
     reported exhaustion, which stops the outer loop at once (fail fast).
+
+Keys: each node splits its key as the JAX node does (a Mixture into a
+choice key and a sample key, a Product into one key a component), so two
+nodes never draw from one key; a rejection node takes its round r
+proposal from `fold_in(key, r)`. An element's sample therefore depends on
+its key alone, however many elements share the call and however many
+rounds the other elements needed. The sampled values are the port's own
+(JAX's `choice` and `randint` draw others).
 
 Sampling makes no host sync, so that a step can be captured in a CUDA
 graph: categorical draws invert cached cumulative probabilities, a mixture
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from spriteworld_torch import constants
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.utils import device as device_lib
 
 Spec = Dict[str, torch.Tensor]
@@ -76,8 +86,8 @@ def defer_rejection(flag: torch.Tensor):
     on under a host check. Nothing then reads the device from the host, so
     the block can be captured in a CUDA graph. The caller reads `flag`
     afterwards and, where it is set, samples again outside this block from
-    the same generator state: the first REJECTION_ROUNDS proposals are the
-    same draws, and the host-checked ones continue them
+    the same keys: the first REJECTION_ROUNDS proposals are the same
+    draws, and the host-checked ones continue each element's rounds
     (`core.step_graph.StepGraph` re-runs such steps). Yields a `Deferral`
     that counts the rejection nodes the block ran."""
     deferral = Deferral(flag)
@@ -94,13 +104,13 @@ def cumulative_probs(probs) -> np.ndarray:
     return (np.cumsum(p) / p.sum()).astype(np.float32)
 
 
-def categorical(generator: torch.Generator, cdf: np.ndarray, shape):
-    """i64[*shape] indices drawn with cumulative probabilities `cdf`, by
-    inverting the CDF at uniform draws: unlike `torch.multinomial`, no
-    validity check on the host."""
-    dev = generator.device
-    u = torch.rand(shape, generator=generator, device=dev)
-    idx = torch.bucketize(u, device_lib.constant(cdf, dev), right=True)
+def categorical(key: torch.Tensor, cdf: np.ndarray):
+    """i64[*S] indices drawn with cumulative probabilities `cdf`, one a
+    key of `key` int32[*S, 2], by inverting the CDF at each key's uniform
+    draw: unlike `torch.multinomial`, no validity check on the host."""
+    u = lane_random.uniform(key)[..., 0]
+    idx = torch.bucketize(u, device_lib.constant(cdf, key.device),
+                          right=True)
     return idx.clamp_(max=len(cdf) - 1)
 
 
@@ -114,13 +124,14 @@ def _resolve(key: str, value):
 class AbstractDistribution(abc.ABC):
     """Base class: a distribution over factor dicts ("specs")."""
 
-    def sample(self, generator: torch.Generator, shape=()) -> Spec:
-        """Sample a spec of f32 tensors of `shape` on generator's device."""
-        return self.sample_with_status(generator, shape)[0]
+    def sample(self, key: torch.Tensor) -> Spec:
+        """A spec of f32 tensors [*S], one sample a key of `key`
+        int32[*S, 2], on the keys' device."""
+        return self.sample_with_status(key)[0]
 
     @abc.abstractmethod
-    def sample_with_status(self, generator: torch.Generator, shape=()):
-        """(spec, ok bool[*shape]) — ok=False where a bounded rejection loop
+    def sample_with_status(self, key: torch.Tensor):
+        """(spec, ok bool[*S]) — ok=False where a bounded rejection loop
         found no in-support sample."""
 
     @abc.abstractmethod
@@ -156,13 +167,12 @@ class Continuous(AbstractDistribution):
         self.maxval = maxval
         self.dtype = dtype
 
-    def sample_with_status(self, generator, shape=()):
-        u = torch.rand(shape, generator=generator, device=generator.device)
-        v = u * (self.maxval - self.minval) + self.minval
+    def sample_with_status(self, key):
+        v = lane_random.uniform(key, 1, self.minval, self.maxval)[..., 0]
         # np.cast-style conversion: int dtypes truncate toward zero.
         v = v.to(getattr(torch, np.dtype(self.dtype).name)).to(torch.float32)
-        return {self.key: v}, torch.ones(shape, dtype=torch.bool,
-                                         device=generator.device)
+        return {self.key: v}, torch.ones(v.shape, dtype=torch.bool,
+                                         device=key.device)
 
     def contains(self, spec: Spec) -> torch.Tensor:
         self._require_keys(spec)
@@ -190,16 +200,15 @@ class Discrete(AbstractDistribution):
         self.probs = None if probs is None else np.asarray(probs)
         self._cdf = None if probs is None else cumulative_probs(probs)
 
-    def sample_with_status(self, generator, shape=()):
-        dev = generator.device
+    def sample_with_status(self, key):
+        dev = key.device
         if self._cdf is None:
-            idx = torch.randint(len(self.candidates), shape,
-                                generator=generator, device=dev)
+            idx = lane_random.randint(key, 1, 0, len(self.candidates))[..., 0]
         else:
-            idx = categorical(generator, self._cdf, shape)
+            idx = categorical(key, self._cdf)
         cands = device_lib.constant(self.candidates, dev)
-        return ({self.key: cands[idx]},
-                torch.ones(shape, dtype=torch.bool, device=dev))
+        return ({self.key: cands[idx.long()]},
+                torch.ones(idx.shape, dtype=torch.bool, device=dev))
 
     def contains(self, spec: Spec) -> torch.Tensor:
         self._require_keys(spec)
@@ -227,12 +236,16 @@ def _same_keys_check(components, what):
     return keys
 
 
-def _proposal_rounds(generator, shape, rounds, propose, accept):
-    """`rounds` proposals of every element, drawn at once; of each element's,
-    the first that ends its do-while (accepted, or not ok: fail fast), else
-    the last. Returns (spec, ok, pending bool[*shape]): pending where none
-    of them ended the loop."""
-    spec, ok = propose(generator, (rounds,) + shape)
+def _proposal_rounds(key, first_round, rounds, propose, accept):
+    """Proposals `first_round` .. `first_round + rounds - 1` of every
+    element, drawn at once, proposal r from `fold_in(key, r)`; of each
+    element's, the first that ends its do-while (accepted, or not ok: fail
+    fast), else the last. Returns (spec, ok, pending bool[*S]): pending
+    where none of them ended the loop."""
+    shape = tuple(key.shape[:-1])
+    keys = lane_random.split(key, rounds, start=first_round,
+                             counters_first=True)
+    spec, ok = propose(keys)
     ok = ok.expand((rounds,) + shape)
     stop = accept(spec) | ~ok
     r = torch.arange(rounds, device=ok.device).view((rounds,)
@@ -246,10 +259,10 @@ def _proposal_rounds(generator, shape, rounds, propose, accept):
             ~stop.any(0))
 
 
-def _rejection_sample(generator, shape, propose, accept):
+def _rejection_sample(key, propose, accept):
     """Batched bounded rejection: propose until each element is accepted.
 
-    `propose(generator, shape) -> (Spec, ok)`, `accept(Spec) -> bool`. Every
+    `propose(key) -> (Spec, ok)`, `accept(Spec) -> bool`. Every
     element runs its own do-while loop of at most MAX_REJECTION_TRIES
     proposals, as in the JAX package's `_rejection_sample`; a proposal with
     ok=False (a nested rejection node that ran out) stops that element's
@@ -260,11 +273,12 @@ def _rejection_sample(generator, shape, propose, accept):
     first round makes no host sync. Where an element is still pending after
     it, the node goes on with further rounds while the host finds one
     pending; inside `defer_rejection` it sets the flag instead and stops.
+    Proposal r of an element comes from `fold_in` of its key with r
+    (JAX's loop splits its key once a proposal instead): an element's
+    sample is the same whichever rounds run and whoever else is pending.
     """
-    shape = tuple(shape)
     rounds = min(REJECTION_ROUNDS, MAX_REJECTION_TRIES)
-    spec, ok, pending = _proposal_rounds(generator, shape, rounds, propose,
-                                         accept)
+    spec, ok, pending = _proposal_rounds(key, 0, rounds, propose, accept)
     deferral = _DEFERRED.get()
     if deferral is not None:
         deferral.nodes += 1
@@ -273,8 +287,8 @@ def _rejection_sample(generator, shape, propose, accept):
     tries = rounds
     while tries < MAX_REJECTION_TRIES and bool(pending.any()):
         n = min(REJECTION_ROUNDS, MAX_REJECTION_TRIES - tries)
-        new, new_ok, new_pending = _proposal_rounds(generator, shape, n,
-                                                    propose, accept)
+        new, new_ok, new_pending = _proposal_rounds(key, tries, n, propose,
+                                                    accept)
         spec = {k: torch.where(pending, new[k], v) for k, v in spec.items()}
         ok = torch.where(pending, new_ok, ok)
         pending = pending & new_pending
@@ -292,14 +306,15 @@ class Mixture(AbstractDistribution):
         self._keys = _same_keys_check(self.components, "Mixture")
         self._cdf = cumulative_probs(self.probs)
 
-    def sample_with_status(self, generator, shape=()):
-        shape = tuple(shape)
-        idx = categorical(generator, self._cdf, shape)
-        # Every component draws for every element and each element takes
-        # its own component's draw (JAX's lax.switch under vmap).
+    def sample_with_status(self, key):
+        keys = lane_random.split(key, 2)  # the choice's key, the sample's
+        idx = categorical(keys[..., 0, :], self._cdf)
+        # Every component draws for every element from the sample key and
+        # each element takes its own component's draw (JAX's lax.switch
+        # under vmap).
         out, ok = None, None
         for i, c in enumerate(self.components):
-            spec, c_ok = c.sample_with_status(generator, shape)
+            spec, c_ok = c.sample_with_status(keys[..., 1, :])
             spec = {k: v.to(torch.float32) for k, v in spec.items()}
             if out is None:
                 out, ok = spec, c_ok
@@ -333,10 +348,10 @@ class Intersection(AbstractDistribution):
         self.index_for_sampling = index_for_sampling
         self._keys = _same_keys_check(self.components, "Intersection")
 
-    def sample_with_status(self, generator, shape=()):
+    def sample_with_status(self, key):
         proposal = self.components[self.index_for_sampling]
-        return _rejection_sample(generator, shape,
-                                 proposal.sample_with_status, self.contains)
+        return _rejection_sample(key, proposal.sample_with_status,
+                                 self.contains)
 
     def contains(self, spec: Spec) -> torch.Tensor:
         results = torch.broadcast_tensors(
@@ -369,11 +384,12 @@ class Product(AbstractDistribution):
                 f"are {total - len(union)} overlapping keys.")
         self._keys = union
 
-    def sample_with_status(self, generator, shape=()):
+    def sample_with_status(self, key):
         out: Spec = {}
-        ok = torch.ones(shape, dtype=torch.bool, device=generator.device)
-        for c in self.components:
-            spec, c_ok = c.sample_with_status(generator, shape)
+        ok = torch.ones(key.shape[:-1], dtype=torch.bool, device=key.device)
+        keys = lane_random.split(key, len(self.components))
+        for i, c in enumerate(self.components):
+            spec, c_ok = c.sample_with_status(keys[..., i, :])
             out.update(spec)
             ok = ok & c_ok
         return out, ok
@@ -405,9 +421,8 @@ class SetMinus(AbstractDistribution):
                 f"Keys {sorted(hold_out.keys)} of hold_out is not a subset of "
                 f"keys {sorted(base.keys)} of SetMinus base distribution.")
 
-    def sample_with_status(self, generator, shape=()):
-        return _rejection_sample(generator, shape,
-                                 self.base.sample_with_status,
+    def sample_with_status(self, key):
+        return _rejection_sample(key, self.base.sample_with_status,
                                  lambda s: ~self.hold_out.contains(s))
 
     def contains(self, spec: Spec) -> torch.Tensor:
@@ -436,9 +451,8 @@ class Selection(AbstractDistribution):
                 f"Keys {sorted(filtering.keys)} of filtering is not a subset "
                 f"of keys {sorted(base.keys)} of Selection base distribution.")
 
-    def sample_with_status(self, generator, shape=()):
-        return _rejection_sample(generator, shape,
-                                 self.base.sample_with_status,
+    def sample_with_status(self, key):
+        return _rejection_sample(key, self.base.sample_with_status,
                                  self.filtering.contains)
 
     def contains(self, spec: Spec) -> torch.Tensor:

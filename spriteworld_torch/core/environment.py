@@ -2,9 +2,12 @@
 
 Counterpart of `spriteworld_tpu/core/environment.py`, batch-native. The
 `Environment` holds static configuration (task, action space, renderers,
-scene generator, episode limits), the device and the `torch.Generator` that
-all sampling draws from; dynamic state lives in an :class:`EnvState` with a
-leading lane axis.
+scene generator, episode limits) and the device; dynamic state lives in an
+:class:`EnvState` with a leading lane axis, each lane's random key
+included. As in the JAX package, a fresh scene splits the lane's key into
+the scene's key and the next key, and a step splits it into the next key
+and the action's key (`ops.lane_random`), so a step is a function of its
+state and actions, and a lane's episode depends on its key alone.
 
 Step pipeline (reference environment.py:88-108, preserved order):
   action cost -> velocity integration -> task reward -> observation ->
@@ -45,24 +48,12 @@ from spriteworld_torch.core.state import (STATE_FIELDS, EnvState, StepType,
                                           TimeStep)
 from spriteworld_torch.core.step_graph import StepGraph, use_graph_for
 from spriteworld_torch.core.tasks import task_valid
-from spriteworld_torch.ops import geometry
+from spriteworld_torch.ops import geometry, lane_random
 from spriteworld_torch.utils import device as device_lib
 from spriteworld_torch.utils import profiling
 
-# Added, times the rank, to a rank's seed (mod 2**64): the golden-ratio
-# increment of splitmix64, so nearby ranks get distant seeds.
-_RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
-
 # The dtypes JAX with x64 off takes 64-bit arrays as.
 _X64_OFF = {torch.float64: torch.float32, torch.int64: torch.int32}
-
-
-def rank_seed(seed: int, rank: int) -> int:
-    """The generator seed of `rank` under a mesh: `seed` itself on rank 0,
-    else `(seed + rank * 0x9E3779B97F4A7C15) % 2**64`."""
-    if rank == 0:
-        return int(seed)
-    return (int(seed) + int(rank) * _RANK_SEED_STRIDE) % 2**64
 
 
 def _map(fn, tree):
@@ -106,8 +97,10 @@ class Environment:
     """Static environment configuration + batched transition functions.
 
     The constructor mirrors the reference Environment.__init__ so config
-    dicts translate one-to-one, plus `device` (default "cuda") and `seed`
-    for the environment's generator.
+    dicts translate one-to-one, plus `device` (default "cuda") and `seed`:
+    where a reset or an initial state is given a number of lanes B instead
+    of their keys, the lanes take `split(key(seed), B)`, and a key argument
+    left out is `key(seed)`.
     """
 
     def __init__(self,
@@ -129,8 +122,7 @@ class Environment:
         self._max_episode_length = int(max_episode_length)
         self._metadata = metadata
         self.device = device_lib.resolve(device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.seed = int(seed)
         for r in self._renderers.values():
             r.bind(init_sprites.max_sprites)
 
@@ -188,11 +180,27 @@ class Environment:
         return self._task.success(state.factors[None],
                                   state.num_sprites[None])[0]
 
-    def reset(self):
-        """Sample a fresh scene; returns (EnvState, FIRST TimeStep) of one
-        lane. The JAX method takes a key; here the scene is drawn from
-        `self.generator`."""
-        state, ts = self.reset_batch(1)
+    def root_key(self, key=None) -> torch.Tensor:
+        """One key int32[2] on the env's device: `key` itself (a key), the
+        key of a seed (an int), or `key(self.seed)` (None)."""
+        return lane_random.as_key(self.seed if key is None else key,
+                                  self.device)
+
+    def lane_keys(self, keys) -> torch.Tensor:
+        """Lane keys int32[B, 2] on the env's device: `keys` itself, or,
+        for a number of lanes B, `split(key(self.seed), B)`."""
+        if isinstance(keys, int):
+            return lane_random.split(self.root_key(), keys)
+        if keys.dim() != 2 or keys.shape[-1] != 2:
+            raise ValueError(f"lane keys are int32[B, 2], got "
+                             f"{tuple(keys.shape)}")
+        return keys.to(self.device, torch.int32)
+
+    def reset(self, key=None):
+        """Sample a fresh scene from `key` (a key int32[2], or an int
+        seed; None is `self.seed`); returns (EnvState, FIRST TimeStep) of
+        one lane."""
+        state, ts = self.reset_batch(self.root_key(key)[None])
         return (_map_state(_first_lane, state),
                 _map_timestep(_first_lane, ts))
 
@@ -217,9 +225,12 @@ class Environment:
         action = torch.as_tensor(action)
         return action.to(self.device, self._action_dtype(action.dtype))[None]
 
-    def _fresh(self, batch: int, reset_next: bool) -> EnvState:
+    def _fresh(self, split_keys: torch.Tensor, reset_next: bool) -> EnvState:
+        """Fresh scenes of lanes whose keys split into `split_keys`
+        int32[B, 2, 2]: the scene's key, then the state's next key."""
+        batch = split_keys.shape[0]
         factors, num, ok = self._init_sprites.sample_with_status(
-            self.generator, batch)
+            split_keys[:, 0])
         return EnvState(
             factors=factors,
             num_sprites=num,
@@ -227,12 +238,17 @@ class Environment:
                                    device=self.device),
             reset_next=torch.full((batch,), reset_next, dtype=torch.bool,
                                   device=self.device),
+            key=split_keys[:, 1],
             sample_ok=ok,
             task_valid=task_valid(self._task, factors, num))
 
-    def reset_batch(self, batch: int):
-        """Sample B fresh scenes; returns (EnvState, FIRST TimeStep)."""
-        state = self._fresh(batch, reset_next=False)
+    def reset_batch(self, keys):
+        """Sample B fresh scenes from lane keys `keys` int32[B, 2] (or a
+        number of lanes; see `lane_keys`); returns (EnvState, FIRST
+        TimeStep)."""
+        keys = self.lane_keys(keys)
+        batch = keys.shape[0]
+        state = self._fresh(lane_random.split(keys, 2), reset_next=False)
         success = self._task.success(state.factors, state.num_sprites)
         obs = self.observation_batch(
             state.factors, state.num_sprites, success)
@@ -244,18 +260,25 @@ class Environment:
             observation=obs)
         return state, ts
 
-    def initial_state(self, batch: int) -> EnvState:
-        """State of B freshly constructed reference Environments: sprites
-        sampled, and the first step still resets (reset_next=True)."""
-        return self._fresh(batch, reset_next=True)
+    def initial_state(self, keys) -> EnvState:
+        """State of B freshly constructed reference Environments from lane
+        keys `keys` (or a number of lanes): sprites sampled, and the first
+        step still resets (reset_next=True)."""
+        return self._fresh(lane_random.split(self.lane_keys(keys), 2),
+                           reset_next=True)
 
     def _transition_batch(self, state: EnvState, actions: torch.Tensor):
         """One transition of every lane, no render: (state, TimeStep whose
         observation is ())."""
         with profiling.annotate("spriteworld.transition"):
+            # One split serves both branches, as in the JAX package: a
+            # stepping lane carries the first key on and acts with the
+            # second; a resetting lane draws its scene from the first and
+            # carries the second on.
+            split_keys = lane_random.split(state.key, 2)
             factors, cost = self._action_space.step(
                 actions.to(self._action_dtype(actions.dtype)), state.factors,
-                state.num_sprites, self._keep_in_frame, self.generator)
+                state.num_sprites, self._keep_in_frame, split_keys[:, 1])
             # Velocity integration for every sprite; dead slots carry zero
             # velocity so padding is unaffected.
             new_pos = factors[..., 0:2] + factors[..., 8:10]
@@ -275,12 +298,13 @@ class Environment:
                 num_sprites=num,
                 step_count=step_count,
                 reset_next=terminate,
+                key=split_keys[:, 0],
                 sample_ok=state.sample_ok,
                 task_valid=task_valid(self._task, factors, num))
 
             # Lanes that ended last step start a new episode instead.
             reset = state.reset_next
-            fresh = self._fresh(reset.shape[0], reset_next=False)
+            fresh = self._fresh(split_keys, reset_next=False)
 
             def select(a, b):
                 return torch.where(
@@ -311,8 +335,9 @@ class Environment:
                                          success)
         return new, dataclasses.replace(ts, observation=obs)
 
-    def sample_action(self, batch: int):
-        return self._action_space.sample(self.generator, batch)
+    def sample_action(self, key: torch.Tensor):
+        """Random actions [B, ...], one a lane key of `key` int32[B, 2]."""
+        return self._action_space.sample(key)
 
 
 def _may_pend(program: StepGraph) -> bool:
@@ -328,20 +353,22 @@ class Compiled:
     environment; `use_graph=True` there raises).
 
     The programs read and write static buffers: `state`, an EnvState of
-    [lanes, ...] tensors that reset and step write and step and observe
-    read; the actions; `timestep`, the last reset's or step's TimeStep; and
-    the observation that `observe` writes. `step` copies `state` into the
-    state buffers unless it is their own object, and `actions` into the
-    action buffer (one host-to-device copy for an array). A caller reads a
-    program's results before it launches the next, which overwrites them.
+    [lanes, ...] tensors (the lanes' keys among them) that reset and step
+    write and step and observe read; the reset's lane keys; the actions;
+    `timestep`, the last reset's or step's TimeStep; and the observation
+    that `observe` writes. `reset` copies its keys into the key buffer,
+    `step` copies `state` into the state buffers unless it is their own
+    object, and `actions` into the action buffer (one host-to-device copy
+    for an array). A caller reads a program's results before it launches
+    the next, which overwrites them.
 
     Rejection: every program runs deferred: a rejection node that still
     has elements after its first rounds sets the device flag `pending`
     instead of asking the host. `pending` is None where no launch can set
     it (a captured program that holds no rejection node); a caller that
-    reads it set calls `rerun()`, which restores the state (each step saves
-    its start state on the device) and the generator state that the last
-    launch started from, and runs that program again eagerly with
+    reads it set calls `rerun()`, which restores the state that the last
+    launch started from (each step saves its start state on the device;
+    the keys are part of it) and runs that program again eagerly with
     host-checked rejection, continuing the same draws. Without a graph,
     `pending` is read after every launch; with one, only where the captured
     program holds a rejection node (JAX's `lax.while_loop` reads nothing).
@@ -359,18 +386,19 @@ class Compiled:
         self.state: Optional[EnvState] = None
         self.timestep: Optional[TimeStep] = None
         self._start: Optional[EnvState] = None
+        self._keys: Optional[torch.Tensor] = None
         self._actions: Optional[torch.Tensor] = None
         self._obs = None
         self._pending = torch.zeros((), dtype=torch.bool, device=self.device)
         self._programs: Dict[str, StepGraph] = {}
-        self._last = None  # (program, generator state) of the last launch
+        self._last: Optional[str] = None  # the program launched last
         # Launches run again eagerly because `pending` was set.
         self.reruns = 0
 
     # The programs' bodies.
     def _reset(self, env):
         self._pending.zero_()
-        self._store(*env.reset_batch(self.lanes))
+        self._store(*env.reset_batch(self._keys))
 
     def _step(self, env):
         self._pending.zero_()
@@ -441,10 +469,20 @@ class Compiled:
                 f"step has {tuple(self._actions.shape)}")
         self._actions.copy_(actions, non_blocking=True)
 
+    def _load_keys(self, keys: torch.Tensor):
+        if self._keys is None:
+            self._keys = torch.empty((self.lanes, 2), dtype=torch.int32,
+                                     device=self.device)
+        if tuple(keys.shape) != (self.lanes, 2):
+            raise ValueError(f"lane keys of shape {tuple(keys.shape)}: the "
+                             f"compiled reset has ({self.lanes}, 2)")
+        self._keys.copy_(keys, non_blocking=True)
+
     # The calls.
-    def reset(self, env):
-        """Fresh scenes in every lane: (state, FIRST TimeStep), the
-        buffers."""
+    def reset(self, env, keys: torch.Tensor):
+        """Fresh scenes in every lane from lane keys `keys` int32[lanes,
+        2]: (state, FIRST TimeStep), the buffers."""
+        self._load_keys(keys)
         self._launch(env, "reset")
         return self.state, self.timestep
 
@@ -467,16 +505,15 @@ class Compiled:
     def pending(self) -> Optional[torch.Tensor]:
         """The last launch's rejection flag (bool[] on the device), or None
         where that launch cannot have set it."""
-        if not _may_pend(self._programs[self._last[0]]):
+        if not _may_pend(self._programs[self._last]):
             return None
         return self._pending
 
     def rerun(self, env):
         """The last launch again, eagerly with host-checked rejection, from
-        the state and generator state it started from: (state, TimeStep)."""
-        name, generator_state = self._last
+        the state (or keys) it started from: (state, TimeStep)."""
+        name = self._last
         self.reruns += 1
-        env.generator.set_state(generator_state)
         if name == "step":
             _copy(self.state, self._start)
         self._programs[name].run(
@@ -490,14 +527,12 @@ class Compiled:
             # A capture's warm-up runs the body: keep the state as it was.
             kept = (self.state.clone()
                     if self.use_graph and self.state is not None else None)
-            self._programs[name] = StepGraph(body, env.generator,
-                                             self._pending, self.use_graph)
+            self._programs[name] = StepGraph(body, self._pending,
+                                             self.use_graph)
             if kept is not None:
                 _copy(self.state, kept)
-        program = self._programs[name]
-        self._last = (name, env.generator.get_state()
-                      if _may_pend(program) else None)
-        program.run(1, body)
+        self._last = name
+        self._programs[name].run(1, body)
 
 
 class BatchedEnvironment:
@@ -524,8 +559,14 @@ class BatchedEnvironment:
     last call returned copies nothing. The returned TimeStep is the
     caller's. Where a scene sampler rejects (a `Selection`), the step reads
     the device once (the deferred rejection flag); JAX's `lax.while_loop`
-    reads nothing. `sample_actions()` draws eagerly from the env's
-    generator, between replays.
+    reads nothing.
+
+    Keys: `reset(key)` gives the global lanes `split(key, num_envs)`, as
+    JAX's `reset(key)` does, each rank taking its slice, and
+    `sample_actions(key)` draws lane i's action from lane i of
+    `split(key, num_envs)`: lanes, scenes and actions are the same on any
+    mesh. Without a key, `sample_actions()` splits the action key
+    `action_key`, which `reset(key)` starts at `fold_in(key, 1)`.
     """
 
     def __init__(self, env: Environment, num_envs: int, mesh=None,
@@ -544,23 +585,28 @@ class BatchedEnvironment:
         self.local_envs = self.num_envs // size
         self._compiled = Compiled(env.device, self.local_envs, use_graph)
         self.use_graph = self._compiled.use_graph
+        # The key `sample_actions()` splits (int32[2]), set by `reset`.
+        self.action_key = env.root_key()
 
     @property
     def reruns(self) -> int:
         """Resets and steps run again because rejection was pending."""
         return self._compiled.reruns
 
-    def reset(self, seed=None):
+    def _local_keys(self, key: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of `split(key, num_envs)`."""
+        return lane_random.split(key, self.local_envs,
+                                 start=self.rank * self.local_envs)
+
+    def reset(self, key=None):
         """Fresh scenes in this rank's lanes: (state, FIRST TimeStep).
 
-        `seed` re-seeds the env's generator (an int; rank r of a mesh takes
-        `rank_seed(seed, r)`) or restores it (a state from
-        `env.generator.get_state()`); None draws on from where it is."""
-        if isinstance(seed, int):
-            self.env.generator.manual_seed(rank_seed(seed, self.rank))
-        elif seed is not None:
-            self.env.generator.set_state(seed)
-        self._compiled.reset(self.env)
+        `key` (a key int32[2] or an int seed; None is the env's `seed`)
+        splits over the global lanes; the action key restarts at
+        `fold_in(key, 1)`."""
+        key = self.env.root_key(key)
+        self._compiled.reset(self.env, self._local_keys(key))
+        self.action_key = lane_random.fold_in(key, 1)
         return self._finish()
 
     def step(self, state: EnvState, actions):
@@ -575,8 +621,15 @@ class BatchedEnvironment:
             c.rerun(self.env)
         return c.state, _map_timestep(torch.clone, c.timestep)
 
-    def sample_actions(self):
-        return self.env.sample_action(self.local_envs)
+    def sample_actions(self, key=None):
+        """Random actions of this rank's lanes, lane i's from lane i of
+        `split(key, num_envs)`. Without `key`, the action key splits in
+        two: the first carries on, the second is used."""
+        if key is None:
+            keys = lane_random.split(self.action_key, 2)
+            self.action_key, key = keys[0], keys[1]
+        return self.env.sample_action(
+            self._local_keys(self.env.root_key(key)))
 
     def observation_spec(self):
         return self.env.observation_spec()

@@ -1,9 +1,10 @@
 """Scene generators: distributions -> packed batched sprite factor tensors.
 
 Counterpart of `spriteworld_tpu/core/generators.py`. A generator has a
-static capacity ``max_sprites`` and ``sample_with_status(generator, batch)
--> (factors f32[B, max_sprites, 10], num i32[B], ok bool[B])``, drawing from
-an explicit `torch.Generator`.
+static capacity ``max_sprites`` and ``sample_with_status(key) -> (factors
+f32[B, max_sprites, 10], num i32[B], ok bool[B])``, one scene a lane key of
+`key` int32[B, 2] (`ops.lane_random`), each split as the JAX generator
+splits its key.
 
 Packing invariant: live sprites occupy slots [0, num); slot order is z-order
 (higher slot = foreground). Dead slots hold the default factor row so
@@ -20,6 +21,7 @@ import torch
 
 from spriteworld_torch.core import distributions
 from spriteworld_torch.core import state as state_lib
+from spriteworld_torch.ops import lane_random
 
 
 class RandInt:
@@ -35,11 +37,9 @@ class RandInt:
     def max_value(self) -> int:
         return self.high - 1
 
-    def __call__(self, generator: torch.Generator, batch: int):
-        """i32[batch] of counts."""
-        return torch.randint(self.low, self.high, (batch,),
-                             generator=generator, device=generator.device,
-                             dtype=torch.int32)
+    def __call__(self, key: torch.Tensor):
+        """i32[B] of counts, one a lane key of `key` int32[B, 2]."""
+        return lane_random.randint(key, 1, self.low, self.high)[..., 0]
 
 
 NumSprites = Union[int, Tuple[int, int], RandInt]
@@ -63,19 +63,20 @@ class SpriteGenerator:
 
     max_sprites: int
 
-    def sample(self, generator: torch.Generator, batch: int):
-        """(factors f32[B, max_sprites, 10], num i32[B])."""
-        return self.sample_with_status(generator, batch)[:2]
+    def sample(self, key: torch.Tensor):
+        """(factors f32[B, max_sprites, 10], num i32[B]) of lane keys
+        `key` int32[B, 2]."""
+        return self.sample_with_status(key)[:2]
 
-    def sample_with_status(self, generator: torch.Generator, batch: int):
+    def sample_with_status(self, key: torch.Tensor):
         """(factors, num, ok bool[B]); ok=False flags a scene with a sprite
         whose rejection sampling exhausted its bound."""
         if type(self).sample is SpriteGenerator.sample:
             raise NotImplementedError(
                 "SpriteGenerator subclasses must implement sample() or "
                 "sample_with_status().")
-        factors, num = self.sample(generator, batch)
-        return factors, num, torch.ones(batch, dtype=torch.bool,
+        factors, num = self.sample(key)
+        return factors, num, torch.ones(key.shape[0], dtype=torch.bool,
                                         device=factors.device)
 
 
@@ -91,16 +92,17 @@ class GenerateSprites(SpriteGenerator):
         self.max_sprites = (num_sprites if isinstance(num_sprites, int)
                             else num_sprites.max_value)
 
-    def sample_with_status(self, generator, batch: int):
-        dev = generator.device
+    def sample_with_status(self, key):
+        dev, batch = key.device, key.shape[0]
         kmax = self.max_sprites
+        keys = lane_random.split(key, 2)  # the count's key, the sprites'
         if isinstance(self.num_sprites, int):
             num = torch.full((batch,), self.num_sprites, dtype=torch.int32,
                              device=dev)
         else:
-            num = self.num_sprites(generator, batch)
+            num = self.num_sprites(keys[:, 0])
         specs, ok = self.factor_dist.sample_with_status(
-            generator, (batch, kmax))
+            lane_random.split(keys[:, 1], kmax))
         factors = state_lib.default_factors((batch, kmax), dev)
         for name, values in specs.items():
             factors[..., state_lib.FACTOR_INDEX[name]] = values.to(
@@ -120,11 +122,12 @@ class ChainGenerators(SpriteGenerator):
         self.gens = gens
         self.max_sprites = sum(g.max_sprites for g in gens)
 
-    def sample_with_status(self, generator, batch: int):
+    def sample_with_status(self, key):
         parts, valids = [], []
-        ok = torch.ones(batch, dtype=torch.bool, device=generator.device)
-        for g in self.gens:
-            f, n, g_ok = g.sample_with_status(generator, batch)
+        ok = torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
+        keys = lane_random.split(key, len(self.gens))
+        for i, g in enumerate(self.gens):
+            f, n, g_ok = g.sample_with_status(keys[:, i])
             parts.append(f)
             idx = torch.arange(g.max_sprites, device=f.device)
             valids.append(idx < n[:, None])
@@ -144,18 +147,19 @@ class SampleGenerator(SpriteGenerator):
         self._cdf = None if p is None else distributions.cumulative_probs(p)
         self.max_sprites = max(g.max_sprites for g in self.gens)
 
-    def sample_with_status(self, generator, batch: int):
-        dev = generator.device
+    def sample_with_status(self, key):
+        dev, batch = key.device, key.shape[0]
+        keys = lane_random.split(key, 2)  # the choice's key, the scene's
         if self._cdf is None:
-            idx = torch.randint(len(self.gens), (batch,), generator=generator,
-                                device=dev)
+            idx = lane_random.randint(keys[:, 0], 1, 0, len(self.gens))[:, 0]
         else:
-            idx = distributions.categorical(generator, self._cdf, (batch,))
-        # Every generator draws for every lane and each lane takes its own
-        # generator's scene (JAX's lax.switch under vmap).
+            idx = distributions.categorical(keys[:, 0], self._cdf)
+        # Every generator draws for every lane from the scene key and each
+        # lane takes its own generator's scene (JAX's lax.switch under
+        # vmap).
         factors = num = ok = None
         for i, g in enumerate(self.gens):
-            f, n_i, ok_i = g.sample_with_status(generator, batch)
+            f, n_i, ok_i = g.sample_with_status(keys[:, 1])
             pad = self.max_sprites - g.max_sprites
             if pad:
                 f = torch.cat(
@@ -177,13 +181,13 @@ class Shuffle(SpriteGenerator):
         self.gen = gen
         self.max_sprites = gen.max_sprites
 
-    def sample_with_status(self, generator, batch: int):
-        factors, num, ok = self.gen.sample_with_status(generator, batch)
+    def sample_with_status(self, key):
+        keys = lane_random.split(key, 2)  # the scene's key, the order's
+        factors, num, ok = self.gen.sample_with_status(keys[:, 0])
         k = self.max_sprites
         # Uniform keys for live rows, +inf for dead rows: sorting yields a
         # uniform permutation of the live prefix, dead rows stay at the back.
-        r = torch.rand((batch, k), generator=generator,
-                       device=generator.device)
+        r = lane_random.uniform(keys[:, 1], k)
         live = torch.arange(k, device=r.device) < num[:, None]
         r = torch.where(live, r, torch.full_like(r, torch.inf))
         order = torch.sort(r, dim=-1, stable=True).indices

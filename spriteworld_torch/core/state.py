@@ -4,8 +4,9 @@ Counterpart of `spriteworld_tpu/core/state.py`. One struct of arrays with a
 leading batch axis: a dense factor tensor `f32[B, MAX_SPRITES, 10]` plus a
 live count per lane. Sprites are always *packed* — live sprites occupy the
 slot prefix [0, num_sprites), and slot order is z-order (higher slot =
-foreground). The state holds no random key: the environment owns a
-`torch.Generator` instead.
+foreground). Each lane carries its own random key (`key`, the raw words
+of a threefry key, `ops.lane_random`), as the JAX state does, so a step is
+a function of the state and the action.
 """
 
 from __future__ import annotations
@@ -85,6 +86,8 @@ class EnvState:
     num_sprites: torch.Tensor  # i32[B]
     step_count: torch.Tensor  # i32[B]
     reset_next: torch.Tensor  # bool[B]
+    # The lane's key: the words of a threefry key (jax.random.key_data).
+    key: torch.Tensor  # int32[B, 2]
     # False where the scene's rejection sampling exhausted its bound.
     sample_ok: torch.Tensor  # bool[B]
     # False where the task's reward/success are undefined on this state.
@@ -107,6 +110,7 @@ _FIELD_DTYPES = {
     "num_sprites": torch.int32,
     "step_count": torch.int32,
     "reset_next": torch.bool,
+    "key": torch.int32,
     "sample_ok": torch.bool,
     "task_valid": torch.bool,
 }
@@ -117,14 +121,25 @@ def state_from_numpy(d, device="cuda") -> EnvState:
     """An EnvState on `device` from the fields of the JAX package's EnvState.
 
     `d` maps each field name of `STATE_FIELDS` to an array (a dict, or any
-    object with those attributes, e.g. a JAX EnvState). The JAX state's
-    `key` is not carried over. Arrays keep their batch axis.
+    object with those attributes, e.g. a JAX EnvState). The key is taken
+    as its words (`jax.random.key_data` of a typed JAX key, which is read
+    through its underlying word array; raw uint32[..., 2] key data as it
+    is), held as int32. Arrays keep their batch axis.
     """
     dev = device_lib.resolve(device)
     get = d.__getitem__ if isinstance(d, Mapping) else d.__getattribute__
-    return EnvState(**{
-        name: torch.as_tensor(np.array(get(name)), dtype=dtype, device=dev)
-        for name, dtype in _FIELD_DTYPES.items()})
+
+    def field(name, dtype):
+        value = get(name)
+        if name == "key":
+            # A typed JAX key converts to numpy only through its words.
+            words = np.asarray(getattr(value, "_base_array", value))
+            return torch.from_numpy(np.ascontiguousarray(
+                words.astype(np.uint32)).view(np.int32)).to(dev)
+        return torch.as_tensor(np.array(value), dtype=dtype, device=dev)
+
+    return EnvState(**{name: field(name, dtype)
+                       for name, dtype in _FIELD_DTYPES.items()})
 
 
 def state_to_numpy(s: EnvState) -> Dict[str, np.ndarray]:

@@ -36,16 +36,19 @@ class StepGraph:
 
     With `use_graph`, `step()` is captured after one eager warm-up step
     (which builds the kernels and fills the device-constant caches), inside
-    `distributions.defer_rejection(pending)`; the graph registers
-    `generator`, so each replay advances it as the eager step would, and
-    warm-up and capture leave it where they found it. `rejects` says
+    `distributions.defer_rejection(pending)`. The step's randomness is
+    carried state (the lanes' keys, split in place like any other carried
+    tensor), so a replay draws what the eager step would from the same
+    carried tensors, and nothing but those tensors needs saving. The warm-up
+    writes the carried tensors: a caller that needs them unchanged saves
+    and restores them around the construction. `rejects` says
     whether the captured step holds a rejection node: where it does not,
     a replay can never set `pending`, which then need not be read. The
     runner, the trainer (`train_example_torch.py`) and the environment's
     compiled programs (`core.environment.Compiled`) share this: run the
     steps deferred, read `pending` at the boundary, and where it is set run
-    them again with `run(n, step, defer=False)` from the same start and
-    generator state (host-checked rejection continues the same draws).
+    them again with `run(n, step, defer=False)` from the same start
+    (host-checked rejection continues each element's rounds).
 
     The step is passed again to `run` rather than kept: a step that
     refers to its owner would make a reference cycle through the owner's
@@ -53,21 +56,18 @@ class StepGraph:
     another capture, which CUDA refuses.
     """
 
-    def __init__(self, step: Callable[[], None], generator: torch.Generator,
-                 pending: torch.Tensor, use_graph: bool):
+    def __init__(self, step: Callable[[], None], pending: torch.Tensor,
+                 use_graph: bool):
         self.pending = pending
         self.graph = None
         self.rejects = False
         if use_graph:
-            start = generator.get_state()
             with distributions.defer_rejection(pending) as deferral:
                 step()
             graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(generator)
             with torch.cuda.graph(graph):
                 with distributions.defer_rejection(pending):
                     step()
-            generator.set_state(start)
             self.graph = graph
             self.rejects = deferral.nodes > 0
 

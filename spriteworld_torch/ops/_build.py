@@ -22,7 +22,7 @@ from typing import Dict
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-KERNELS = ("scene_raster", "strip_raster", "packed_raster")
+KERNELS = ("scene_raster", "strip_raster", "packed_raster", "lane_random")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -10,6 +10,6 @@ each rank steps its slice of the lanes, and metric sums are all-reduced.
 from spriteworld_torch.parallel.mesh import (  # noqa: F401
     env_mesh, env_sharding, initialize_multihost, replicated_sharding)
 from spriteworld_torch.parallel.runner import (  # noqa: F401
-    EvalStats, Metrics, ShardedRunner, StepGraph, rank_seed)
+    EvalStats, Metrics, ShardedRunner, StepGraph)
 from spriteworld_torch.parallel.checkpoint import (  # noqa: F401
     restore_state, save_state)

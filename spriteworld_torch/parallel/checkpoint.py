@@ -1,31 +1,37 @@
 """Checkpoint/resume of simulation state: tensors keyed by field path.
 
 Counterpart of `spriteworld_tpu/parallel/checkpoint.py`, without orbax: the
-whole simulation (factor tensors, step counters, flags, batched over lanes)
-is a tree of tensors, and `save_state` writes its leaves into one `.npz`
-keyed by their path in the tree, spelled as `jax.tree_util.keystr` spells
-it (`.factors` for a dataclass field, `['env_state']` for a dict key, `[0]`
-for a sequence index). The state holds no random key: the port draws from
-the environment's `torch.Generator`, and a generator in the tree is saved as
-its state and restored into the generator in `like`, so a restored run
-resumes the same trajectory. The recommended runner checkpoint is::
+whole simulation (factor tensors, step counters, flags, random keys,
+batched over lanes) is a tree of tensors, and `save_state` writes its
+leaves into one `.npz` keyed by their path in the tree, spelled as
+`jax.tree_util.keystr` spells it (`.factors` for a dataclass field,
+`['env_state']` for a dict key, `[0]` for a sequence index). The state
+holds every lane's random key (`.key`, int32[B, 2]: the words of a
+threefry key), so a restored state resumes the same trajectories, and with
+the runner's action key the same run. The recommended runner checkpoint
+is::
 
     ckpt = {"env_state": state, "episode_returns": runner.episode_returns,
-            "generator": env.generator}
+            "action_key": runner.action_key}
     save_state(path, ckpt)
     ...
-    restored = restore_state(path, like=ckpt)  # sets env.generator's state
+    restored = restore_state(path, like=ckpt)
     runner.episode_returns = restored["episode_returns"]
+    runner.action_key = restored["action_key"]
 
 so per-episode returns of episodes in flight at save time survive a
-kill-and-resume.
+kill-and-resume. Lanes are global data: a state gathered over a mesh's
+ranks (`EnvSharding.gather`) restores under any other mesh shape, each rank
+taking its slice (`EnvSharding.shard`), and the run goes on as it would
+have.
 
 Forward migration, as in the JAX package: leaves are keyed by path, so a
 checkpoint taken before a state field existed restores cleanly — missing
 leaves are filled from `like` with a warning, extra leaves are ignored with
-a warning. That is also how a JAX package `.npz` restores: its EnvState's
-`.key` (typed PRNG key data; the generators differ) is dropped, every other
-field restores equal.
+a warning. A checkpoint written before the state held keys (its generator
+states are ignored) therefore restores with `like`'s keys. A JAX package
+`.npz` restores every field, its `.key` (uint32 key data, the words
+`jax.random.key_data` gives) as the lanes' keys.
 """
 
 from __future__ import annotations
@@ -77,22 +83,23 @@ def _rebuild(tree, fn: Callable, path: str = ""):
 
 
 def _to_numpy(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Generator):
-        return leaf.get_state().numpy()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
 def _restore_leaf(value: np.ndarray, like):
-    """`value` in the type, dtype and device of `like`; a generator in
-    `like` takes the state and is returned."""
-    if isinstance(like, torch.Generator):
-        like.set_state(torch.from_numpy(np.asarray(value, np.uint8)))
-        return like
+    """`value` in the type, dtype and device of `like`. Unsigned words
+    restored into a signed tensor of their width keep their bits (JAX's
+    uint32 key data into the port's int32 keys)."""
     if isinstance(like, torch.Tensor):
-        return torch.as_tensor(np.asarray(value), device=like.device).to(
-            like.dtype)
+        value = np.asarray(value)
+        if value.dtype.kind == "u" and like.dtype.is_signed \
+                and not like.dtype.is_floating_point \
+                and value.dtype.itemsize == like.element_size():
+            value = np.ascontiguousarray(value).view(
+                value.dtype.str.replace("u", "i"))
+        return torch.as_tensor(value, device=like.device).to(like.dtype)
     if isinstance(like, np.ndarray):
         return np.asarray(value).astype(like.dtype)
     return type(like)(np.asarray(value).item())
@@ -100,7 +107,7 @@ def _restore_leaf(value: np.ndarray, like):
 
 def save_state(path: str, state: Any, *, force: bool = True) -> None:
     """Write a tree of tensors (e.g. an EnvState, or a dict holding one and
-    the env's generator) to `path`.npz. With `force=False` an existing
+    the runner's action key) to `path`.npz. With `force=False` an existing
     `path`.npz is not overwritten: that raises FileExistsError, as orbax
     refuses in the JAX package."""
     path = os.path.abspath(path)
@@ -133,8 +140,7 @@ def restore_state(path: str, like: Any) -> Any:
     form).
 
     `like` provides the structure, dtypes and devices (e.g. a freshly reset
-    state of the same env and batch); generators in it take their saved
-    state. Fields absent from the checkpoint are filled from `like` with a
+    state of the same env and batch). Fields absent from the checkpoint are filled from `like` with a
     warning instead of failing. A legacy positional checkpoint (every array
     named `arr_<i>`) restores in `like`'s leaf order where the leaf counts
     match, and raises ValueError where they do not.

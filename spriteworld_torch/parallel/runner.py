@@ -17,18 +17,21 @@ Metrics mirror what the reference logs per episode (example_run_loop.py:
 episodes, successes at termination, summed returns (NaN rewards excluded the
 way np.nanmean excludes them).
 
-Randomness: the JAX runner threads a key through every call; here every
-draw (actions, fresh scenes, action noise) comes from the environment's
-`torch.Generator`, which the graph registers, so each replay draws anew and
-a replay draws exactly what the eager step would from the same generator
-state.
+Randomness, as in the JAX runner: every lane carries its key in the state
+(fresh scenes and action noise split it), and the runner carries an action
+key (`action_key`) that each step splits into the next action key and the
+step's key, whose split over the global lanes gives each lane its action
+key. `reset(key)` splits `key` over the global lanes and starts the action
+key at `fold_in(key, 1)`, as JAX's `evaluate` keys its rollouts. The keys
+are carried tensors, written in place, so a replay draws exactly what the
+eager step would from the same carried state.
 
 Rejection sampling: inside a chunk, a rejection node that still has pending
 elements after its first `distributions.REJECTION_ROUNDS` proposals sets a
 flag on the device instead of asking the host (`defer_rejection`). The
 runner reads the flag with the metrics at the chunk boundary and, where it
-is set, runs the chunk again eagerly from its start state and generator
-state with host-checked rejection, which continues the same draws: the
+is set, runs the chunk again eagerly from its start state and action key
+with host-checked rejection, which continues each element's proposals: the
 result is the JAX package's per-element do-while up to MAX_REJECTION_TRIES.
 
 Devices: the runner runs on the environment's device. Under a mesh
@@ -39,14 +42,11 @@ int64: a global chunk can pass 2**31 where no rank's does) and the float32
 sums go through `all_reduce(SUM)` outside the graph, on the same stream,
 before the chunk's one host read, so every rank returns the global metrics.
 
-Randomness under a mesh, the port's one deliberate difference from the JAX
-runner: JAX keys every lane from the key, so its rollout is the same
-whatever the mesh shape. Here each rank draws from its own env's generator,
-seeded by `reset(seed)` with `rank_seed(seed, rank)`; rank 0 takes `seed`
-itself, so rank 0 of a mesh of one is exactly the runner without a mesh,
-and a mesh of n ranks equals n runners without a mesh, each of
-`num_envs / n` lanes seeded with its rank's seed. Another mesh shape draws
-other scenes and actions (ROADMAP, "Randomness").
+Under a mesh every rank holds the same action key and takes its slice of
+each global split (`lane_random.split(..., start=...)` computes only that
+slice), so lane i's keys, scenes and actions are the same whatever the
+mesh shape: a rollout of one rank equals one of any number of ranks, and a
+checkpoint taken under one topology resumes the same run under another.
 """
 
 from __future__ import annotations
@@ -57,11 +57,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from spriteworld_torch.core.environment import (  # noqa: F401
-    Environment, rank_seed)
+from spriteworld_torch.core.environment import Environment
 from spriteworld_torch.core.state import STATE_FIELDS, EnvState, TimeStep
 from spriteworld_torch.core.step_graph import (  # noqa: F401
     StepGraph, use_graph_for)
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.parallel import mesh as mesh_lib
 
 
@@ -139,12 +139,14 @@ def _to_host(t: torch.Tensor) -> list:
 @dataclasses.dataclass
 class _Carry:
     """What one step reads and writes in place: the lanes' state, the
-    per-lane return accumulator, the metric accumulators (i32 episodes and
-    successes, f32 return and reward sums), the rejection flag, and with
-    stacked timesteps the step index and the [T, B, ...] buffers."""
+    per-lane return accumulator, the action key, the metric accumulators
+    (i32 episodes and successes, f32 return and reward sums), the rejection
+    flag, and with stacked timesteps the step index and the [T, B, ...]
+    buffers."""
 
     state: EnvState
     ret_acc: torch.Tensor
+    key: torch.Tensor
     counts: torch.Tensor
     sums: torch.Tensor
     pending: torch.Tensor
@@ -152,21 +154,26 @@ class _Carry:
     stacked: Optional[TimeStep] = None
 
     @classmethod
-    def like(cls, state: EnvState, ret_acc: torch.Tensor) -> "_Carry":
+    def like(cls, state: EnvState, ret_acc: torch.Tensor,
+             key: torch.Tensor) -> "_Carry":
         dev = ret_acc.device
         return cls(
             state=state.clone(),
             ret_acc=ret_acc.clone(),
+            key=key.clone(),
             counts=torch.zeros(2, dtype=torch.int32, device=dev),
             sums=torch.zeros(2, dtype=torch.float32, device=dev),
             pending=torch.zeros((), dtype=torch.bool, device=dev),
             t=torch.zeros(1, dtype=torch.int64, device=dev))
 
-    def load(self, state: EnvState, ret_acc: torch.Tensor):
-        """Start a chunk from `state` and `ret_acc` (device copies only)."""
+    def load(self, state: EnvState, ret_acc: torch.Tensor,
+             key: torch.Tensor):
+        """Start a chunk from `state`, `ret_acc` and the action key `key`
+        (device copies only)."""
         for n in STATE_FIELDS:
             getattr(self.state, n).copy_(getattr(state, n))
         self.ret_acc.copy_(ret_acc)
+        self.key.copy_(key)
         for x in (self.counts, self.sums, self.pending, self.t):
             x.zero_()
 
@@ -180,18 +187,16 @@ class ShardedRunner:
         `num_envs / mesh.size` of them.
       mesh: the 1-D 'envs' mesh (`parallel.mesh.env_mesh()`); None is the
         mesh of one on `env.device`.
-      policy: optional `(generator, state) -> actions` batch policy; it must
-        draw from `generator` (the env's) and make no host sync, since it is
-        captured with the step. Defaults to the env's uniform random action
-        sampler (the reference's RandomAgent, example_run_loop.py:46-59).
+      policy: optional `(keys, state) -> actions` batch policy, `keys` the
+        lanes' action keys int32[num_envs / mesh.size, 2] (this rank's
+        slice of the step's global split); it must draw from those keys
+        alone and make no host sync, since it is captured with the step.
+        Defaults to the env's uniform random action sampler (the
+        reference's RandomAgent, example_run_loop.py:46-59).
       use_graph: replay each chunk's steps as a captured CUDA graph. The
         default is True on a CUDA env and False on a CPU env; True on a CPU
         env raises. A capture that fails raises: nothing falls back to the
         eager step.
-
-    Under a mesh of several ranks, seed `reset` with an int (each rank
-    then seeds `rank_seed(seed, rank)`), or build each rank's env with its
-    own seed: ranks whose generators start equal draw equal lanes.
     """
 
     def __init__(self,
@@ -218,37 +223,45 @@ class ShardedRunner:
         self.use_graph = use_graph_for(env.device, use_graph)
         self._programs: Dict[tuple, tuple] = {}
         self._ret_acc = None
+        self._key = env.root_key()
         # Chunks run again because a rejection node still had pending
         # elements after its first rounds (on any rank).
         self.reruns = 0
 
     # ------------------------------------------------------------------ #
-    def reset(self, seed=None):
+    def _global_split(self, key: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of `split(key, num_envs)`."""
+        return lane_random.split(key, self.local_envs,
+                                 start=self.mesh.rank * self.local_envs)
+
+    def reset(self, key=None):
         """Fresh scenes in this rank's lanes: (state, FIRST TimeStep).
 
-        `seed` re-seeds the env's generator (an int; rank r of a mesh takes
-        `rank_seed(seed, r)`) or restores it (a state from
-        `env.generator.get_state()`); None draws on from where it is. The
-        per-lane return accumulator restarts from zero."""
-        if isinstance(seed, int):
-            self.env.generator.manual_seed(rank_seed(seed, self.mesh.rank))
-        elif seed is not None:
-            self.env.generator.set_state(seed)
-        state, ts = self.env.reset_batch(self.local_envs)
+        `key` (a key int32[2] or an int seed; None is the env's `seed`)
+        splits over the global lanes, this rank taking its slice, and the
+        action key restarts at `fold_in(key, 1)`. The per-lane return
+        accumulator restarts from zero."""
+        key = self.env.root_key(key)
+        state, ts = self.env.reset_batch(self._global_split(key))
+        self._key = lane_random.fold_in(key, 1)
         self._ret_acc = torch.zeros(self.local_envs, dtype=torch.float32,
                                     device=self.env.device)
         return state, ts
 
-    def _actions(self, state):
+    def _actions(self, carry: _Carry):
+        """The step's actions: the action key splits into the next one
+        (carried, in place) and the step's, split over the global lanes."""
+        keys = lane_random.split(carry.key, 2)
+        carry.key.copy_(keys[0])
+        lane_keys = self._global_split(keys[1])
         if self._policy is not None:
-            return self._policy(self.env.generator, state)
-        return self.env.sample_action(self.local_envs)
+            return self._policy(lane_keys, carry.state)
+        return self.env.sample_action(lane_keys)
 
     def _step(self, carry: _Carry, num_steps: int, with_returns: bool,
               obs_keys):
         """One step on `carry`, in place (inside `StepGraph.run`)."""
-        state, ts = self.env.step_batch(carry.state,
-                                        self._actions(carry.state))
+        state, ts = self.env.step_batch(carry.state, self._actions(carry))
 
         last = ts.last()
         reward = torch.nan_to_num(ts.reward)  # nanmean-style exclusion
@@ -294,16 +307,15 @@ class ShardedRunner:
         """(carry, StepGraph) of signature `sig`, built at first use."""
         key = sig + (use_graph,)
         if key not in self._programs:
-            carry = _Carry.like(state, self.episode_returns)
+            carry = _Carry.like(state, self.episode_returns, self._key)
             self._programs[key] = (carry, StepGraph(
-                lambda: self._step(carry, *sig), self.env.generator,
-                carry.pending, use_graph))
+                lambda: self._step(carry, *sig), carry.pending, use_graph))
         return self._programs[key]
 
     def _chunk(self, carry, program, sig, state, ret_acc, defer):
         """Run one chunk on `carry`; returns the global values read at the
         boundary: [episodes, successes, pending, return_sum, reward_sum]."""
-        carry.load(state, ret_acc)
+        carry.load(state, ret_acc, self._key)
         program.run(sig[0], lambda: self._step(carry, *sig), defer=defer)
         counts = torch.cat([carry.counts.to(torch.int64),
                             carry.pending.to(torch.int64)[None]])
@@ -318,7 +330,7 @@ class ShardedRunner:
         """Per-lane in-flight episode return accumulator of this rank's
         lanes (f32[num_envs / mesh.size]).
 
-        Checkpoint this alongside the EnvState and the env's generator and
+        Checkpoint this alongside the EnvState and `action_key` and
         assign it back after `restore_state` — otherwise returns of
         episodes already in flight at save time restart from zero (see
         parallel/checkpoint.py)."""
@@ -336,6 +348,18 @@ class ShardedRunner:
                 f"episode_returns must have shape ({self.local_envs},), got "
                 f"{tuple(value.shape)}")
         self._ret_acc = value
+
+    @property
+    def action_key(self) -> torch.Tensor:
+        """The action key (int32[2], the same on every rank): each step
+        splits it into the next one and the step's lane action keys. Save
+        it with the EnvState and set it back on restore to resume the same
+        run."""
+        return self._key
+
+    @action_key.setter
+    def action_key(self, value):
+        self._key = lane_random.as_key(value, self.env.device)
 
     def rollout(self, state: EnvState, num_steps: int,
                 return_timesteps=False, episode_returns=None,
@@ -371,19 +395,18 @@ class ShardedRunner:
         sig = (int(num_steps), bool(return_timesteps), timestep_obs)
         carry, program = self._program(sig, state, self.use_graph)
         ret_acc = self.episode_returns
-        gen_start = self.env.generator.get_state()
         host = self._chunk(carry, program, sig, state, ret_acc, defer=True)
         if host[2]:
             # A rejection node ran past its first rounds on some rank:
             # every rank runs the same chunk again, eagerly, with
-            # host-checked rejection from the same draws.
+            # host-checked rejection, from the same state and action key.
             self.reruns += 1
-            self.env.generator.set_state(gen_start)
             carry, program = self._program(sig, state, use_graph=False)
             host = self._chunk(carry, program, sig, state, ret_acc,
                                defer=False)
         new_state = carry.state.clone()
         self._ret_acc = carry.ret_acc.clone()
+        self._key = carry.key.clone()
         metrics = Metrics(steps=int(num_steps) * self.num_envs,
                           episodes=int(host[0]), successes=int(host[1]),
                           return_sum=host[3], reward_sum=host[4])
@@ -395,12 +418,14 @@ class ShardedRunner:
 
     # ------------------------------------------------------------------ #
     def evaluate(self, num_episodes: int, chunk_steps: int = 128,
-                 max_chunks: int = 1000) -> EvalStats:
+                 max_chunks: int = 1000, key=None) -> EvalStats:
         """Policy evaluation: run until >= `num_episodes` episodes finish.
 
         The batched replacement for the reference's per-episode eval loop
         (example_run_loop.py:72-80): all lanes run in lockstep chunks from a
-        fresh reset (drawn from the env's generator); per-episode returns
+        fresh reset from `key` (a key or an int seed; None is the env's
+        `seed`), the action key starting at `fold_in(key, 1)`, as JAX's
+        `evaluate(key)` keys them; per-episode returns
         and successes are recovered exactly on the host from the stacked
         timesteps (NaN rewards excluded the way np.nanmean does). Under a
         mesh the stacked rewards, step types and successes are gathered
@@ -414,11 +439,12 @@ class ShardedRunner:
         toward shorter episodes at the margin (bounded by one chunk's worth
         of episodes; shrink `chunk_steps` to shrink it). The in-flight
         episode-return accumulator carried since the caller's last
-        `reset()` is saved and restored around the evaluation.
+        `reset()` and the action key are saved and restored around the
+        evaluation.
         """
-        saved_ret_acc = self._ret_acc
+        saved_ret_acc, saved_key = self._ret_acc, self._key
         try:
-            state, _ = self.reset()
+            state, _ = self.reset(key)
             acc = np.zeros((self.num_envs,), np.float64)
             returns = []
             successes = []
@@ -446,7 +472,7 @@ class ShardedRunner:
                     f"{len(returns)}/{num_episodes} episodes; is the env "
                     "terminating?")
         finally:
-            self._ret_acc = saved_ret_acc
+            self._ret_acc, self._key = saved_ret_acc, saved_key
         returns_arr = np.asarray(returns[:num_episodes], np.float64)
         succ_arr = np.asarray(successes[:num_episodes], np.float64)
         n = len(returns_arr)

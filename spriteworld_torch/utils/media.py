@@ -14,11 +14,11 @@ import weakref
 from typing import Optional
 
 import numpy as np
-import torch
 
 from spriteworld_torch.core import environment as env_lib
 from spriteworld_torch.core.state import StepType
 from spriteworld_torch.core.step_graph import use_graph_for
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.utils import device as device_lib
 
 # The compiled one-lane programs of each env, by use_graph; they hold no
@@ -68,7 +68,7 @@ def step_frame(env, state, action, obs_key: str = "image",
                   lambda: compiled.step(env, state, action), obs_key)
 
 
-def record_episode(env, generator_or_seed, max_steps: int = 100,
+def record_episode(env, key, max_steps: int = 100,
                    obs_key: str = "image", policy=None,
                    return_states: bool = False,
                    use_graph: Optional[bool] = None):
@@ -76,35 +76,36 @@ def record_episode(env, generator_or_seed, max_steps: int = 100,
 
     Runs the batched engine with B=1 (the single-lane view the demo UI
     uses), stepping until the episode's LAST timestep or `max_steps`.
-    `generator_or_seed` is the `torch.Generator` the policy draws from, or
-    an int: then the env's own generator is seeded with it, so the scene
-    and the default policy's actions repeat for one seed.
-    `policy(generator, state) -> action[1, ...]` (a tensor or an array)
-    defaults to the env's uniform random sampler (the reference
-    RandomAgent); it runs outside the graph, between replays, and its
-    action is copied into the compiled step's action buffer. With
+    `key` (a key int32[2] or an int seed) keys the episode as the JAX
+    package's `record_episode(env, key)` does: the lane resets from
+    `split(key, 1)`, and step i's action key is `split(key_i, 1)` with
+    `key_i = fold_in(key_{i-1}, i)`, so one key repeats the scene and the
+    default policy's actions.
+    `policy(keys, state) -> action[1, ...]` (a tensor or an array), `keys`
+    the lane's action key int32[1, 2], defaults to the env's uniform random
+    sampler (the reference RandomAgent); it runs outside the graph, between
+    replays, and its action is copied into the compiled step's action
+    buffer. With
     `return_states`, returns (frames, states): copies of the EnvState of
     every frame, the reset's first. `use_graph` replays the reset and the
     step from CUDA graphs, captured once per env (the default on a CUDA
     env; True on a CPU env raises).
     """
-    if isinstance(generator_or_seed, torch.Generator):
-        generator = generator_or_seed
-    else:
-        generator = env.generator
-        generator.manual_seed(int(generator_or_seed))
+    key = env.root_key(key)
     if policy is None:
-        def policy(g, state):
+        def policy(keys, state):
             del state
-            return env.action_space.sample(g, 1)
+            return env.sample_action(keys)
 
     compiled = _compiled(env, use_graph)
-    state, frame, _ = _frame(env, compiled, lambda: compiled.reset(env),
-                             obs_key)
+    keys = lane_random.split(key, 1)
+    state, frame, _ = _frame(env, compiled,
+                             lambda: compiled.reset(env, keys), obs_key)
     frames = [frame]
     states = [state.clone()] if return_states else None
-    for _ in range(max_steps):
-        action = policy(generator, state)
+    for i in range(max_steps):
+        key = lane_random.fold_in(key, i)
+        action = policy(lane_random.split(key, 1), state)
         state, frame, last = _frame(
             env, compiled, lambda: compiled.step(env, state, action),
             obs_key)

@@ -11,6 +11,7 @@ anti_aliasing=1 pixels exact; anti_aliasing>1 pixels within +-1.
 
 import unittest
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from spriteworld_torch.core import generators as tgenerators
 from spriteworld_torch.core import renderers as trenderers
 from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core import tasks as ttasks
+from spriteworld_torch.ops import lane_random
 
 _JAX = (jactions, jdistribs, jgenerators, jrenderers, jtasks)
 _TORCH = (tactions, tdistribs, tgenerators, trenderers, ttasks)
@@ -83,9 +85,20 @@ def _inject(jenv, tenv, rng):
                                       reset_next=jnp.bool_(False))
     js = jenv._state
     tenv._state = tstate.state_from_numpy(
-        {name: np.asarray(getattr(js, name))[None]
+        {name: np.asarray(jax.random.key_data(js.key) if name == "key"
+                          else getattr(js, name))[None]
          for name in tstate.STATE_FIELDS}, device="cpu")
     return f, n
+
+
+def _assert_keys_equal(jenv, tenv):
+    """The adapters' lane keys and carried keys: JAX's, bit for bit."""
+    np.testing.assert_array_equal(
+        lane_random.key_data(tenv._state.key[0]),
+        np.asarray(jax.random.key_data(jenv._state.key)))
+    np.testing.assert_array_equal(
+        lane_random.key_data(tenv._key),
+        np.asarray(jax.random.key_data(jenv._key)))
 
 
 def _assert_obs_equal(tobs, jobs, aa):
@@ -133,9 +146,11 @@ def test_trajectory_on_injected_scene_equals_jax(aa):
     if aa == 1:
         _assert_obs_equal(tenv.observation(), jenv.observation(), aa)
     steps = 0
+    _assert_keys_equal(jenv, tenv)
     for action in _actions(rng, f, n, 8):
         jts, tts = jenv.step(action), tenv.step(action)
         _assert_timesteps_equal(tts, jts, aa)
+        _assert_keys_equal(jenv, tenv)
         _assert_obs_equal(tenv.observation(), tts.observation, 1)
         steps += 1
         if aa == 1 or jts.last():
@@ -256,10 +271,10 @@ def test_sample_contained_position_matches_the_one_at_a_time_loop():
 
     _, tenv = _adapters(image=False)
     tenv.reset()
-    gen = tenv._env.generator.get_state()
+    key = tenv._key.clone()
     got = tenv.sample_contained_position()
-    tenv._env.generator.set_state(gen)
-    seed = int(torch.randint(0, 2**31 - 1, (), generator=tenv._env.generator))
+    seed = int(lane_random.randint(lane_random.split(key, 2)[1], 1, 0,
+                                   2**31 - 1))
     f = tstate.state_to_numpy(tenv._state)
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, int(f["num_sprites"][0]))

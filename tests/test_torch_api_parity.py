@@ -21,12 +21,18 @@ _PORT = _ROOT / "spriteworld_torch"
 # JAX module -> the port's module of the same role.
 MODULE_MAP = {"ops/rasterize_pallas.py": "ops/rasterize_cuda.py"}
 
-# A JAX PRNG key argument is a torch.Generator (or a seed, or the env's
-# generator) in the port: the port does not port threefry (ROADMAP.md).
-KEY_ARGS = {"key", "keys"}
-
 # (module, symbol, argument or None for the symbol) -> why it differs.
+# A JAX PRNG key argument is a key of the same name in the port (JAX's
+# threefry key contract, `ops.lane_random`), which may also be given as an
+# int seed; where the port keys otherwise, its entry says how.
 ALLOWED = {
+    ("core/environment.py", "Environment.initial_state", "key"):
+        "the port's initial_state is batched: it takes the lanes' keys, "
+        "`keys` int32[B, 2] (or a lane count B), as reset_batch does",
+    ("parallel/runner.py", "ShardedRunner.rollout", "key"):
+        "the runner carries its action key (`ShardedRunner.action_key`, "
+        "which reset(key) starts at fold_in(key, 1), as JAX's evaluate "
+        "keys its rollouts) instead of taking and returning it",
     ("core/environment.py", "BatchedEnvironment.__init__", "sharding"):
         "a jax.sharding.Sharding; the port takes mesh= (parallel.mesh) "
         "plus use_graph=",
@@ -120,7 +126,7 @@ def differences():
 
 
 def _by_design(diff) -> bool:
-    return diff in ALLOWED or diff[2] in KEY_ARGS
+    return diff in ALLOWED
 
 
 def test_every_public_symbol_has_a_counterpart():

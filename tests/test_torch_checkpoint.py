@@ -2,6 +2,7 @@
 `restore_state`, and a JAX package checkpoint restored into the port."""
 
 import importlib
+import warnings
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from spriteworld_tpu.parallel import checkpoint as jcheckpoint
 from spriteworld_torch.core import environment as tenvironment
 from spriteworld_torch.core import renderers as trenderers
 from spriteworld_torch.core import state as tstate
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.parallel import (ShardedRunner, restore_state,
                                         save_state)
 
@@ -30,26 +32,28 @@ def _env(seed=0):
 
 
 def test_roundtrip_resumes_the_identical_trajectory(tmp_path):
-    """Kill and resume: the env state, the generator and the in-flight
-    episode returns restored into a fresh env and runner continue exactly
-    as the uninterrupted run: states, timesteps and metrics equal."""
+    """Kill and resume: the env state (the lanes' keys in it), the
+    runner's action key and the in-flight episode returns restored into a
+    fresh env and runner continue exactly as the uninterrupted run:
+    states, timesteps and metrics equal."""
     env_a = _env()
     runner_a = ShardedRunner(env_a, 8)
     state, _ = runner_a.reset(7)
     state, m1 = runner_a.rollout(state, 7)
     ckpt = {"env_state": state, "episode_returns": runner_a.episode_returns,
-            "generator": env_a.generator}
+            "action_key": runner_a.action_key}
     save_state(str(tmp_path / "ck"), ckpt)
     assert runner_a.episode_returns.abs().sum() > 0  # episodes in flight
     want_state, want_m, want_ts = runner_a.rollout(state, 9,
                                                    return_timesteps=True)
 
-    env_b = _env(seed=123)  # another generator state until restored
+    env_b = _env(seed=123)  # other keys until restored
     runner_b = ShardedRunner(env_b, 8)
     like = {"env_state": env_b.initial_state(8),
-            "episode_returns": torch.zeros(8), "generator": env_b.generator}
+            "episode_returns": torch.zeros(8),
+            "action_key": runner_b.action_key}
     restored = restore_state(str(tmp_path / "ck"), like)
-    assert restored["generator"] is env_b.generator
+    runner_b.action_key = restored["action_key"]
     for name in tstate.STATE_FIELDS:
         assert torch.equal(getattr(restored["env_state"], name),
                            getattr(state, name))
@@ -92,7 +96,8 @@ def test_missing_fields_fill_from_like(tmp_path):
 def test_jax_checkpoint_restores_with_its_keys_dropped(tmp_path,
                                                        monkeypatch):
     """A JAX package EnvState saved in its .npz form restores into the
-    port's EnvState field for field; its typed PRNG key is dropped."""
+    port's EnvState field for field; its typed PRNG key, saved as its key
+    data, is no longer dropped: it restores as the lanes' keys."""
     cfg = importlib.import_module(
         "spriteworld_tpu.configs.cobra.goal_finding_new_shape"
     ).get_config("train")
@@ -110,11 +115,14 @@ def test_jax_checkpoint_restores_with_its_keys_dropped(tmp_path,
 
     like = {"env_state": _env().initial_state(4),
             "episode_returns": torch.zeros(4)}
-    with pytest.warns(UserWarning, match=r"\['env_state'\]\.key"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # every field is there
         restored = restore_state(str(tmp_path / "jax"), like)
     for name in tstate.STATE_FIELDS:
         got = getattr(restored["env_state"], name)
         assert got.dtype == getattr(like["env_state"], name).dtype
-        np.testing.assert_array_equal(got.numpy(),
-                                      np.asarray(getattr(jstate, name)))
+        want = getattr(jstate, name)
+        if name == "key":
+            got, want = lane_random.key_data(got), jax.random.key_data(want)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     assert torch.equal(restored["episode_returns"], torch.arange(4.0))

@@ -33,6 +33,7 @@ from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core import tasks as ttasks
 from spriteworld_torch.core.state import StepType
 from spriteworld_torch.ops import clustering as tclustering_ops
+from spriteworld_torch.ops import lane_random
 
 import bench_torch
 
@@ -207,7 +208,7 @@ def test_drag_and_drop_equals_jax(keep_in_frame):
     want_f, want_c = _jax_drag_and_drop(keep_in_frame)(a, f, n)
     got_f, got_c = tactions.DragAndDrop(scale=0.5, motion_cost=0.5).step(
         torch.from_numpy(a), torch.from_numpy(f), torch.from_numpy(n),
-        keep_in_frame, torch.Generator())
+        keep_in_frame, None)
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=2e-7)
     moved = (got_f.numpy() != f).any(-1).any(-1)
@@ -220,10 +221,10 @@ class _RaggedRows(tgenerators.SpriteGenerator):
     def __init__(self, k):
         self.max_sprites = k
 
-    def sample_with_status(self, generator, batch):
-        k = self.max_sprites
-        f = tstate.default_factors((batch, k), generator.device)
-        num = (torch.arange(batch, device=generator.device) % (k + 1)).to(
+    def sample_with_status(self, key):
+        k, batch = self.max_sprites, key.shape[0]
+        f = tstate.default_factors((batch, k), key.device)
+        num = (torch.arange(batch, device=key.device) % (k + 1)).to(
             torch.int32)
         live = torch.arange(k) < num[:, None]
         f[..., tstate.X] = torch.where(
@@ -235,7 +236,8 @@ def test_shuffle_permutes_the_live_prefix_uniformly():
     k, b = 3, 4000
     gen = tgenerators.shuffle(_RaggedRows(k))
     assert gen.max_sprites == k
-    f, num, ok = gen.sample_with_status(torch.Generator().manual_seed(0), b)
+    f, num, ok = gen.sample_with_status(
+        lane_random.split(lane_random.key(0), b))
     assert ok.all() and num.tolist() == [i % (k + 1) for i in range(b)]
     x = f[..., tstate.X]
     live = torch.arange(k) < num[:, None]
@@ -297,8 +299,8 @@ def test_cobra_clustering_config_equals_jax(mode):
         np.testing.assert_array_equal(td.contains(spec_t).numpy(),
                                       np.asarray(jd.contains(spec_j)))
     # Sampled scenes: two sprites of each cluster, in a shuffled z-order.
-    factors, num, ok = tg.sample_with_status(torch.Generator().manual_seed(0),
-                                             2048)
+    factors, num, ok = tg.sample_with_status(
+        lane_random.split(lane_random.key(0), 2048))
     assert ok.all() and (num == 4).all()
     member = tt.membership(factors, num)
     assert (member.sum(1) == 2).all()
@@ -325,10 +327,11 @@ class _TorchFixed(tgenerators.SpriteGenerator):
         self._factors = torch.from_numpy(np.asarray(factors, np.float32))
         self.max_sprites = self._factors.shape[0]
 
-    def sample(self, generator, batch):
-        f = self._factors.to(generator.device).expand(batch, -1, -1).clone()
+    def sample(self, key):
+        batch = key.shape[0]
+        f = self._factors.to(key.device).expand(batch, -1, -1).clone()
         return f, torch.full((batch,), self.max_sprites, dtype=torch.int32,
-                             device=generator.device)
+                             device=key.device)
 
 
 def _demo_envs(scene, render_size, anti_aliasing, max_episode_length):

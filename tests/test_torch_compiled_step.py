@@ -7,7 +7,7 @@ A CPU environment launches the programs eagerly (`use_graph=False`, the
 default there; True raises), through the same `StepGraph` path, donation
 and deferred rejection as the card's graphs: these tests hold that path
 equal, bit for bit, to the plain eager `reset_batch`/`step_batch` from the
-same seed, the rejection re-run included. Single-lane parity with JAX runs
+same keys, the rejection re-run included. Single-lane parity with JAX runs
 on an injected scene and numpy actions (the method of
 tests/test_trajectory_parity.py): state, rewards, step types and
 anti_aliasing=1 pixels exact, anti_aliasing=5 pixels within +-1.
@@ -39,6 +39,7 @@ from spriteworld_torch.core import generators as tgenerators  # noqa: E402
 from spriteworld_torch.core import renderers as trenderers  # noqa: E402
 from spriteworld_torch.core import tasks as ttasks  # noqa: E402
 from spriteworld_torch.core.state import STATE_FIELDS, StepType  # noqa: E402
+from spriteworld_torch.ops import lane_random  # noqa: E402
 from spriteworld_torch.parallel import mesh as mesh_lib  # noqa: E402
 
 MESH_LANES = 8  # global lanes of the mesh test: 4 a rank on two ranks
@@ -74,7 +75,7 @@ def _low_acceptance(seed=0):
 
     env = chip_smoke.low_acceptance_env(bench_torch, tenvironment,
                                         device="cpu", image_size=(16, 16))
-    env.generator.manual_seed(seed)
+    env.seed = seed
     return env
 
 
@@ -132,10 +133,14 @@ def _pair(scene, aa, max_episode_length):
 
 
 def _assert_lane_equal(tstate, tts, jstate, jts, aa, what):
+    import jax
+
     for n in STATE_FIELDS:
+        want = getattr(jstate, n)
+        if n == "key":  # the lane's key splits as JAX's
+            want = jax.random.key_data(want).view(np.int32)
         np.testing.assert_array_equal(getattr(tstate, n).numpy(),
-                                      np.asarray(getattr(jstate, n)),
-                                      f"{what}: {n}")
+                                      np.asarray(want), f"{what}: {n}")
     for n in ("step_type", "reward", "discount"):
         np.testing.assert_array_equal(getattr(tts, n).numpy(),
                                       np.asarray(getattr(jts, n)),
@@ -207,13 +212,25 @@ def test_single_lane_methods_equal_jax(aa):
 # ---------------------------------------------------------------------- #
 # BatchedEnvironment: the compiled path, eager on the CPU.
 
-def _plain_run(env, lanes, steps):
-    """Today's eager code: reset_batch, then step_batch on sample_action,
-    every result copied."""
-    state, ts = env.reset_batch(lanes)
-    out = [(state.clone(), ts)]
+def _action_keys(key, lanes, steps):
+    """The lane action keys of `steps` calls of `sample_actions()` after
+    `reset(key)`: the action key starts at fold_in(key, 1), and each call
+    splits it into the next one and the call's, split over the lanes."""
+    action_key = lane_random.fold_in(key, 1)
     for _ in range(steps):
-        state, ts = env.step_batch(state, env.sample_action(lanes))
+        action_key, step_key = lane_random.split(action_key, 2)
+        yield lane_random.split(step_key, lanes)
+
+
+def _plain_run(env, lanes, steps):
+    """The plain eager code: reset_batch of the lanes of key(env.seed),
+    then step_batch on sample_action of BatchedEnvironment's action keys,
+    every result copied."""
+    key = lane_random.key(env.seed)
+    state, ts = env.reset_batch(lane_random.split(key, lanes))
+    out = [(state.clone(), ts)]
+    for keys in _action_keys(key, lanes, steps):
+        state, ts = env.step_batch(state, env.sample_action(keys))
         out.append((state.clone(), ts))
     return out
 
@@ -277,13 +294,15 @@ def test_compiled_programs_make_no_host_sync():
 
     env = _small_env(seed=2)
     compiled = tenvironment.Compiled(env.device, 3)
-    state, _ = compiled.reset(env)  # fills the device-constant caches
-    compiled.step(env, state, env.sample_action(3))
+    keys = lane_random.split(lane_random.key(2), (4, 3))
+    state, _ = compiled.reset(env, keys[0])  # fills the constant caches
+    compiled.step(env, state, env.sample_action(keys[1]))
     compiled.observe(env, state)
     with NoHostSync():
-        state, ts = compiled.reset(env)
-        for _ in range(3):
-            state, ts = compiled.step(env, state, env.sample_action(3))
+        state, ts = compiled.reset(env, keys[0])
+        for t in range(3):
+            state, ts = compiled.step(env, state,
+                                      env.sample_action(keys[t + 1]))
         obs = compiled.observe(env, state)
     assert ts.step_type.shape == (3,)
     assert set(obs) == {"factors", "sprites", "image", "success"}
@@ -297,7 +316,7 @@ def test_compiled_programs_make_no_host_sync():
 def test_pending_rejection_reruns_as_the_host_checked_step(lanes):
     """A low-acceptance scene sampler: deferred steps that leave elements
     pending are run again, and every result equals the host-checked eager
-    step from the same seed."""
+    step from the same keys."""
     steps = 6
     want = _plain_run(_low_acceptance(seed=4), lanes, steps)
     env = _low_acceptance(seed=4)
@@ -321,15 +340,16 @@ def test_pending_flag_is_set_by_a_deferred_launch():
     env = _low_acceptance(seed=1)
     plain = _low_acceptance(seed=1)
     compiled = tenvironment.Compiled(env.device, 4)
-    state, _ = compiled.reset(env)
+    keys = lane_random.split(lane_random.key(1), (9, 4))
+    state, _ = compiled.reset(env, keys[0])
     if bool(compiled.pending):
         compiled.rerun(env)
-    want, _ = plain.reset_batch(4)
+    want, _ = plain.reset_batch(keys[0])
     _assert_states_equal(state, want, "reset")
     pended = 0
     for t in range(8):
-        a = env.sample_action(4)
-        want, wts = plain.step_batch(want, plain.sample_action(4))
+        a = env.sample_action(keys[t + 1])
+        want, wts = plain.step_batch(want, a)
         state, ts = compiled.step(env, state, a)
         if bool(compiled.pending):
             pended += 1
@@ -355,10 +375,10 @@ def _adapter_config(env):
                          ids=["goal_finding", "low_acceptance"])
 def test_adapter_steps_as_the_eager_code(make):
     """The adapter's compiled reset and step (eager on the CPU) against
-    today's eager code on an env of the same seed: the construction's scene
-    draw, reset_batch(1), step_batch of the same actions, and
-    sample_contained_position's draw from the env's generator between
-    steps."""
+    the plain eager code on an env of the same seed, keyed as the adapter
+    keys its calls: the construction's scene draw and each reset from the
+    next of the adapter's carried keys, step_batch of the same actions, and
+    sample_contained_position taking a key between steps."""
     from spriteworld_torch.adapters import dm_env_adapter
 
     ref = make(seed=6)
@@ -367,13 +387,20 @@ def test_adapter_steps_as_the_eager_code(make):
     with pytest.raises(ValueError, match="use_graph=True needs a CUDA"):
         dm_env_adapter.Environment(**_adapter_config(make()), seed=6,
                                    device="cpu", use_graph=True)
-    state = ref.initial_state(1)
+    carried = lane_random.key(6)
+
+    def next_key():
+        nonlocal carried
+        carried, key = lane_random.split(carried, 2)
+        return key[None]
+
+    state = ref.initial_state(next_key())
     rng = np.random.default_rng(0)
     lasts = 0
     for t in range(14):
         if t == 0:
             ts = adapter.reset()
-            state, want = ref.reset_batch(1)
+            state, want = ref.reset_batch(next_key())
         else:
             a = rng.uniform(0, 1, 4).astype(np.float32)
             ts = adapter.step(a)
@@ -394,7 +421,7 @@ def test_adapter_steps_as_the_eager_code(make):
                 adapter.observation()["image"],
                 want.observation["image"][0].numpy())
             adapter.sample_contained_position()
-            torch.randint(0, 2**31 - 1, (), generator=ref.generator)
+            next_key()
     if make is _low_acceptance:
         assert adapter._compiled.reruns >= 1
     else:
@@ -438,18 +465,22 @@ def rank_mesh(mesh) -> dict:
 
 
 def _meshless(rank: int) -> dict:
-    from spriteworld_torch.core.environment import rank_seed
-
-    benv = tenvironment.BatchedEnvironment(_small_env(), MESH_LANES // 2)
-    state, ts = benv.reset(rank_seed(MESH_SEED, rank))
-    trace = [ts.step_type.tolist()]
+    """Rank `rank`'s half of the lanes of one BatchedEnvironment of all
+    MESH_LANES lanes without a mesh."""
+    benv = tenvironment.BatchedEnvironment(_small_env(), MESH_LANES)
+    state, ts = benv.reset(MESH_SEED)
+    half = slice(rank * MESH_LANES // 2, (rank + 1) * MESH_LANES // 2)
+    trace = [ts.step_type[half].tolist()]
     for _ in range(MESH_STEPS):
         state, ts = benv.step(state, benv.sample_actions())
-        trace.append(ts.step_type.tolist() + ts.reward.tolist())
-    return {"trace": trace, "factors": state.factors.flatten().tolist()}
+        trace.append(ts.step_type[half].tolist() + ts.reward[half].tolist())
+    return {"trace": trace, "factors": state.factors[half].flatten().tolist()}
 
 
 def test_mesh_of_two_ranks_equals_two_envs_without_a_mesh(tmp_path):
+    """Each rank of two steps its half of the lanes exactly as one env of
+    all the lanes without a mesh steps them: the lanes' keys, scenes and
+    actions do not depend on the mesh."""
     from test_torch_mesh import _worker_env
 
     outs = [json.loads(o.strip().splitlines()[-1]) for o in

@@ -1,8 +1,10 @@
 """Port parity, engine: distributions, generators, SelectMove, tasks, state,
 and whole trajectories against the JAX package.
 
-Random streams differ (threefry vs torch.Generator), so parity runs on
-injected scenes and actions made with numpy; samplers are checked through
+Both packages key every lane with threefry keys that split alike
+(`ops.lane_random`), but their samplers draw other values from them, so
+parity runs on injected scenes and actions made with numpy (where the
+lanes' keys then agree bit for bit too); samplers are checked through
 exact contains-masks and statistics.
 """
 
@@ -29,6 +31,7 @@ from spriteworld_torch.core import renderers as trenderers
 from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core import tasks as ttasks
 from spriteworld_torch.core.state import StepType
+from spriteworld_torch.ops import lane_random
 
 import bench_torch
 
@@ -88,9 +91,9 @@ def test_contains_masks_equal_jax(name):
 
 def test_sampled_scenes_satisfy_contains_with_uniform_statistics():
     task, gen = bench_torch.goal_finding_parts()
-    g = torch.Generator().manual_seed(0)
     n = 4096
-    factors, num, ok = gen.sample_with_status(g, n)
+    factors, num, ok = gen.sample_with_status(
+        lane_random.split(lane_random.key(0), n))
     assert factors.shape == (n, 6, 10) and num.tolist() == [6] * n
     assert ok.all()
     target = _goal_finding_dists(tdistribs)
@@ -113,12 +116,12 @@ def test_sampled_scenes_satisfy_contains_with_uniform_statistics():
 
 
 def test_discrete_probs_and_continuous_int_dtype():
-    g = torch.Generator().manual_seed(1)
+    keys = lane_random.split(lane_random.key(1), 20000)
     d = tdistribs.Discrete("c1", [0.0, 1.0], probs=[0.2, 0.8])
-    v = d.sample(g, (20000,))["c1"]
+    v = d.sample(keys)["c1"]
     assert abs(float(v.mean()) - 0.8) < 0.02
     c = tdistribs.Continuous("c0", 0, 3, dtype="int32")
-    v = c.sample(g, (1000,))["c0"]
+    v = c.sample(keys[:1000])["c0"]
     assert set(v.tolist()) == {0.0, 1.0, 2.0}
 
 
@@ -187,7 +190,7 @@ def test_select_move_equals_jax(keep_in_frame, clicks):
     want_f, want_c = _jax_select_move(0.25, keep_in_frame)(a, f, n)
     got_f, got_c = tactions.SelectMove(scale=0.25, motion_cost=0.5).step(
         torch.from_numpy(a), torch.from_numpy(f), torch.from_numpy(n),
-        keep_in_frame, torch.Generator())
+        keep_in_frame, None)
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=2e-7)
     moved = (got_f.numpy() != f).any(-1).any(-1)
@@ -195,11 +198,16 @@ def test_select_move_equals_jax(keep_in_frame, clicks):
 
 
 def test_select_move_noise_is_drawn_from_the_generator():
+    """The noise is a function of each lane's key: equal keys give equal
+    noise, whatever the other lanes."""
     space = tactions.SelectMove(scale=0.25, noise_scale=0.1)
     a = torch.full((8, 4), 0.5)
-    n1 = space.apply_noise_to_action(a, torch.Generator().manual_seed(3))
-    n2 = space.apply_noise_to_action(a, torch.Generator().manual_seed(3))
+    keys = lane_random.split(lane_random.key(3), 8)
+    n1 = space.apply_noise_to_action(a, keys)
+    n2 = space.apply_noise_to_action(a, keys)
     assert torch.equal(n1, n2) and not torch.equal(n1, a)
+    n3 = space.apply_noise_to_action(a[:3], keys[5:])
+    assert torch.equal(n3, n1[5:])
 
 
 def _goal_tasks(d, t):
@@ -253,6 +261,8 @@ def test_state_round_trip_and_from_jax():
         "num_sprites": rng.integers(0, k + 1, b).astype(np.int32),
         "step_count": rng.integers(0, 9, b).astype(np.int32),
         "reset_next": rng.uniform(size=b) < 0.5,
+        "key": np.asarray(jax.random.key_data(
+            jax.random.split(jax.random.key(0), b))).view(np.int32),
         "sample_ok": np.ones(b, bool),
         "task_valid": rng.uniform(size=b) < 0.8,
     }
@@ -265,7 +275,8 @@ def test_state_round_trip_and_from_jax():
     for name, v in d.items():
         np.testing.assert_array_equal(back[name], v)
         assert back[name].dtype == v.dtype
-    # Straight from a JAX EnvState (attributes, key ignored).
+    # Straight from a JAX EnvState (attributes, the typed key as its
+    # words).
     js = JaxEnvState(factors=jnp.asarray(d["factors"]),
                 num_sprites=jnp.asarray(d["num_sprites"]),
                 step_count=jnp.asarray(d["step_count"]),
@@ -297,10 +308,11 @@ class _TorchFixed(tgenerators.SpriteGenerator):
         self._factors = torch.from_numpy(np.asarray(factors, np.float32))
         self.max_sprites = self._factors.shape[0]
 
-    def sample(self, generator, batch):
-        f = self._factors.to(generator.device).expand(batch, -1, -1).clone()
+    def sample(self, key):
+        batch = key.shape[0]
+        f = self._factors.to(key.device).expand(batch, -1, -1).clone()
         return f, torch.full((batch,), self.max_sprites, dtype=torch.int32,
-                             device=generator.device)
+                             device=key.device)
 
 
 def _envs(factors, max_episode_length):
@@ -361,6 +373,10 @@ def test_trajectory_parity_with_auto_reset():
                                       np.asarray(jstate.step_count))
         np.testing.assert_array_equal(tstate_.reset_next.numpy(),
                                       np.asarray(jstate.reset_next))
+        # The lanes' keys split as JAX's do, resets included.
+        np.testing.assert_array_equal(
+            lane_random.key_data(tstate_.key),
+            np.asarray(jax.random.key_data(jstate.key)))
         for name in ("success",):
             np.testing.assert_array_equal(tts.observation[name].numpy(),
                                           np.asarray(jts.observation[name]))
@@ -379,7 +395,7 @@ def test_first_step_from_initial_state_resets():
     _, tenv = _envs(scene, max_episode_length=5)
     state = tenv.initial_state(3)
     assert state.reset_next.all()
-    state, ts = tenv.step_batch(state, torch.rand(3, 4))
+    state, ts = tenv.step_batch(state, torch.full((3, 4), 0.5))
     assert (ts.step_type == StepType.FIRST).all()
     assert (ts.reward == 0).all() and (ts.discount == 1).all()
     assert not state.reset_next.any() and (state.step_count == 0).all()

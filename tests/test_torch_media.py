@@ -26,6 +26,7 @@ from spriteworld_torch.core import renderers as trenderers
 from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core import tasks as ttasks
 from spriteworld_torch.ops import rasterize_cuda
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.utils import media as tmedia
 
 
@@ -48,10 +49,11 @@ class _TorchFixed(tgenerators.SpriteGenerator):
         self._factors = torch.from_numpy(np.asarray(factors, np.float32))
         self.max_sprites = self._factors.shape[0]
 
-    def sample(self, generator, batch):
-        f = self._factors.to(generator.device).expand(batch, -1, -1).clone()
+    def sample(self, key):
+        batch = key.shape[0]
+        f = self._factors.to(key.device).expand(batch, -1, -1).clone()
         return f, torch.full((batch,), self.max_sprites, dtype=torch.int32,
-                             device=generator.device)
+                             device=key.device)
 
 
 def _scene(rng, k=3):
@@ -136,10 +138,9 @@ def test_stops_at_last_and_a_seed_repeats_the_episode():
     assert a.shape[0] == 4  # reset + 3 steps, the last LAST
     b = tmedia.record_episode(env, 5, max_steps=10)
     np.testing.assert_array_equal(a, b)
-    g = torch.Generator().manual_seed(5)
-    c = tmedia.record_episode(env, g, max_steps=2, policy=lambda gen, s:
-                              env.action_space.sample(gen, 1))
-    assert c.shape[0] == 3
+    c = tmedia.record_episode(env, lane_random.key(5), max_steps=10,
+                              policy=lambda keys, s: env.sample_action(keys))
+    np.testing.assert_array_equal(c, a)  # the default policy, keyed alike
 
 
 def test_save_gif_round_trip(tmp_path):

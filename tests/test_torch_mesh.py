@@ -1,18 +1,21 @@
 """The port's mesh: `spriteworld_torch.parallel.mesh` and
 `ShardedRunner(mesh=...)` over `torch.distributed` (gloo) on the CPU.
 
-The JAX runner keys every lane, so its rollout is the same on every mesh
-shape (tests/test_distributed.py). The port draws from one generator a
-rank, seeded `rank_seed(seed, rank)`, so the checks here are the port's
-own: a one-rank group equals the runner without a mesh; two ranks of 8
-lanes equal two runs without a mesh of 8 lanes each, seeded as the ranks
-are, exactly (counts, float32 sums added once, image checksums, states);
-`evaluate` agrees on both ranks; a checkpoint gathered under two ranks
-restores lane for lane under one, and a two-rank resume continues equal to
-the run it was cut from.
+The port keys every lane as the JAX runner does (each lane's key in the
+state, the runner's action key split over the global lanes), so its
+rollout is the same on every mesh shape, as tests/test_distributed.py holds
+the JAX runner's: a one-rank group equals the runner without a mesh; one
+gloo rank of 16 lanes and two of 8 step every lane alike (step types,
+rewards, factors, image checksums exactly; the metrics' counts exactly,
+their float32 sums, added in another order, to rounding); `evaluate`
+agrees on both ranks; a checkpoint gathered under two ranks equals the
+one-rank checkpoint bit for bit, and a checkpoint saved under either
+topology resumes under the other to the uninterrupted run.
 
 Run as a script (`python test_torch_mesh.py <task> <dir> <rank> <world>
-<address>`), this file is one rank of such a group (`mesh.run_ranks`).
+<address>`), this file is one rank of such a group (`mesh.run_ranks`);
+`<dir>` holds the checkpoint, `ckpt<world>` for a run of `<world>` ranks;
+`resume<n>` restores `ckpt<n>`.
 """
 
 import json
@@ -20,7 +23,6 @@ import os
 import pathlib
 import sys
 
-import numpy as np
 import pytest
 import torch
 
@@ -86,14 +88,20 @@ def metrics_dict(m) -> dict:
             "reward_sum": m.reward_sum}
 
 
-def checkpoint_like(env, lanes: int, ranks: int = 2) -> dict:
-    """The tree `rank_run` saves: global lanes and each rank's generator
-    state in a row."""
-    gen = env.generator.get_state()
+def checkpoint_like(env, lanes: int) -> dict:
+    """The tree `rank_run` saves: the global lanes' state and in-flight
+    returns, and the runner's action key."""
     return {"env_state": env.initial_state(lanes),
             "episode_returns": torch.zeros(lanes),
-            "generators": torch.zeros((ranks, gen.numel()),
-                                      dtype=torch.uint8)}
+            "action_key": env.root_key()}
+
+
+def lane_trace(sharding, tss) -> dict:
+    """Stacked timesteps of every lane in global lane order: step types
+    and rewards (NaN as -1), [T][lanes]."""
+    step_type, reward = sharding.gather(
+        (tss.step_type, tss.reward.nan_to_num(-1.0)), axis=1)
+    return {"step_type": step_type.tolist(), "reward": reward.tolist()}
 
 
 # ---------------------------------------------------------------------- #
@@ -101,42 +109,53 @@ def checkpoint_like(env, lanes: int, ranks: int = 2) -> dict:
 
 def rank_run(mesh, out_dir: str) -> dict:
     """Reset, STEPS_BEFORE steps, a checkpoint gathered over the ranks
-    (rank 0 writes it), STEPS_AFTER more steps, then evaluate."""
+    (rank 0 writes it), STEPS_AFTER more steps, then evaluate; every
+    lane's timesteps and final factors in global order."""
     env = build_env()
     runner = runner_lib.ShardedRunner(env, NUM_ENVS, mesh=mesh)
-    state, _ = runner.reset(SEED)
-    state, m1 = runner.rollout(state, STEPS_BEFORE)
     sharding = mesh_lib.env_sharding(mesh)
+    state, _ = runner.reset(SEED)
+    state, m1, tss1 = runner.rollout(state, STEPS_BEFORE,
+                                     return_timesteps=True)
     # The image checksum is a collective too: each rank's exact int64
     # sum, all-reduced.
     pixels = torch.tensor([image_sum(env, state)], dtype=torch.int64)
     mesh_lib.replicated_sharding(mesh).all_reduce(pixels)
     ckpt = sharding.gather({
-        "env_state": state, "episode_returns": runner.episode_returns,
-        "generators": env.generator.get_state()[None]})
+        "env_state": state, "episode_returns": runner.episode_returns})
+    ckpt["action_key"] = runner.action_key
     if mesh.rank == 0:
-        checkpoint.save_state(os.path.join(out_dir, "ckpt"), ckpt)
-    state, m2 = runner.rollout(state, STEPS_AFTER)
+        checkpoint.save_state(
+            os.path.join(out_dir, f"ckpt{mesh.size}"), ckpt)
+    state, m2, tss2 = runner.rollout(state, STEPS_AFTER,
+                                     return_timesteps=True)
     stats = runner.evaluate(EVAL_EPISODES, chunk_steps=4)
     return {"m1": metrics_dict(m1), "image_sum": int(pixels),
             "m2": metrics_dict(m2), "eval": stats.__dict__,
-            "local_lanes": runner.local_envs}
+            "local_lanes": runner.local_envs,
+            "trace1": lane_trace(sharding, tss1),
+            "trace2": lane_trace(sharding, tss2),
+            "factors": sharding.gather(state.factors).flatten().tolist()}
 
 
-def rank_resume(mesh, out_dir: str) -> dict:
-    """Restore the gathered checkpoint, take this rank's lanes and
-    generator, and continue STEPS_AFTER steps."""
-    env = build_env(seed=123)  # another generator until restored
+def rank_resume(mesh, out_dir: str, saved_by: int) -> dict:
+    """Restore the checkpoint that a run of `saved_by` ranks gathered,
+    take this rank's lanes and the action key, and continue STEPS_AFTER
+    steps."""
+    env = build_env(seed=123)  # other keys until restored
     restored = checkpoint.restore_state(
-        os.path.join(out_dir, "ckpt"), checkpoint_like(env, NUM_ENVS))
-    local = mesh_lib.env_sharding(mesh).shard(
-        {"env_state": restored["env_state"],
-         "episode_returns": restored["episode_returns"]})
-    env.generator.set_state(restored["generators"][mesh.rank].clone())
+        os.path.join(out_dir, f"ckpt{saved_by}"),
+        checkpoint_like(env, NUM_ENVS))
+    sharding = mesh_lib.env_sharding(mesh)
+    local = sharding.shard({"env_state": restored["env_state"],
+                            "episode_returns": restored["episode_returns"]})
     runner = runner_lib.ShardedRunner(env, NUM_ENVS, mesh=mesh)
-    _, m2 = runner.rollout(local["env_state"], STEPS_AFTER,
-                           episode_returns=local["episode_returns"])
-    return {"m2": metrics_dict(m2)}
+    runner.action_key = restored["action_key"]
+    state, m2, tss2 = runner.rollout(
+        local["env_state"], STEPS_AFTER, return_timesteps=True,
+        episode_returns=local["episode_returns"])
+    return {"m2": metrics_dict(m2), "trace2": lane_trace(sharding, tss2),
+            "factors": sharding.gather(state.factors).flatten().tolist()}
 
 
 def rank_single(mesh, out_dir: str) -> dict:
@@ -169,8 +188,10 @@ def rank_main(task: str, out_dir: str, rank: str, world: str, address: str):
     mesh_lib.initialize_multihost(address, int(world), int(rank),
                                   device="cpu")
     mesh = mesh_lib.env_mesh(device="cpu")
-    out = {"run": rank_run, "resume": rank_resume,
-           "single": rank_single}[task](mesh, out_dir)
+    if task.startswith("resume"):
+        out = rank_resume(mesh, out_dir, int(task[len("resume"):]))
+    else:
+        out = {"run": rank_run, "single": rank_single}[task](mesh, out_dir)
     out.update(rank=mesh.rank, size=mesh.size)
     print(json.dumps(out), flush=True)
     torch.distributed.destroy_process_group()
@@ -192,38 +213,71 @@ def _worker_env():
     return env
 
 
-def _run_two_ranks(task: str, out_dir) -> list:
-    outs = mesh_lib.run_ranks([__file__, task, str(out_dir)], 2,
+def _run_ranks(task: str, out_dir, world: int = 2) -> list:
+    outs = mesh_lib.run_ranks([__file__, task, str(out_dir)], world,
                               timeout=120, env=_worker_env())
     return [json.loads(o.strip().splitlines()[-1]) for o in outs]
 
 
-def _meshless(rank: int):
-    """What rank `rank` of two should step: 8 lanes, its derived seed,
-    without a mesh. Returns (env, runner, state and metrics after
-    STEPS_BEFORE, metrics of the STEPS_AFTER that follow)."""
+def _meshless():
+    """The run without a mesh: one runner of all NUM_ENVS lanes. Returns
+    (the state, in-flight returns, action key and image checksum after
+    STEPS_BEFORE; the metrics before and after; every lane's timesteps
+    and final factors, as `rank_run` reports them)."""
     env = build_env()
-    runner = runner_lib.ShardedRunner(env, NUM_ENVS // 2)
-    state, _ = runner.reset(runner_lib.rank_seed(SEED, rank))
-    state, m1 = runner.rollout(state, STEPS_BEFORE)
+    runner = runner_lib.ShardedRunner(env, NUM_ENVS)
+    one = mesh_lib.env_sharding(mesh_lib.EnvMesh.single(env.device))
+    state, _ = runner.reset(SEED)
+    state, m1, tss1 = runner.rollout(state, STEPS_BEFORE,
+                                     return_timesteps=True)
     cut = {"env_state": state, "episode_returns": runner.episode_returns,
-           "generator": env.generator.get_state(), "image_sum":
-           image_sum(env, state)}
-    _, m2 = runner.rollout(state, STEPS_AFTER)
-    return cut, m1, m2
+           "action_key": runner.action_key,
+           "image_sum": image_sum(env, state)}
+    state, m2, tss2 = runner.rollout(state, STEPS_AFTER,
+                                     return_timesteps=True)
+    lanes = {"trace1": lane_trace(one, tss1), "trace2": lane_trace(one, tss2),
+             "factors": state.factors.flatten().tolist()}
+    return cut, metrics_dict(m1), metrics_dict(m2), lanes
+
+
+def _assert_metrics_equal(got: dict, want: dict, exact: bool):
+    """Counts exactly; the float32 sums exactly where they were added in
+    the same order (the same topology), else to rounding."""
+    for key in ("steps", "episodes", "successes"):
+        assert got[key] == want[key], (key, got, want)
+    for key in ("return_sum", "reward_sum"):
+        assert got[key] == (want[key] if exact else pytest.approx(
+            want[key], rel=1e-5, abs=1e-5)), (key, got, want)
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("mesh")
-    return out_dir, _run_two_ranks("run", out_dir)
+    return out_dir, _run_ranks("run", out_dir)
 
 
-def test_rank_seed_keeps_seed_on_rank_zero():
-    assert runner_lib.rank_seed(SEED, 0) == SEED
-    seeds = {runner_lib.rank_seed(SEED, r) for r in range(64)}
-    assert len(seeds) == 64
-    assert all(0 <= s < 2**64 for s in seeds)
+@pytest.fixture(scope="module")
+def one_rank(two_ranks):
+    """The same run on a one-rank gloo group of all 16 lanes, its
+    checkpoint beside the two ranks' (ckpt1, ckpt2)."""
+    out_dir, _ = two_ranks
+    return _run_ranks("run", out_dir, world=1)[0]
+
+
+def test_one_gloo_rank_and_two_step_every_lane_alike(two_ranks, one_rank):
+    """One gloo rank of 16 lanes against two of 8 (the rollout is the same
+    on any mesh, as tests/test_parallel.py holds the JAX runner's): every
+    lane's step types, rewards and final factors, the image checksum and
+    the evaluation exactly, the metrics' counts exactly and their float32
+    sums to rounding."""
+    _, outs = two_ranks
+    assert (one_rank["size"], one_rank["local_lanes"]) == (1, NUM_ENVS)
+    for o in outs:
+        for key in ("trace1", "trace2", "factors", "image_sum", "eval"):
+            assert o[key] == one_rank[key], key
+        for key in ("m1", "m2"):
+            _assert_metrics_equal(o[key], one_rank[key], exact=False)
+    assert one_rank["m1"]["episodes"] > 0
 
 
 def test_initialize_without_address_stays_single_process(monkeypatch):
@@ -276,25 +330,19 @@ def test_one_rank_group_equals_the_runner_without_a_mesh(tmp_path):
 
 
 def test_two_ranks_equal_two_runs_without_a_mesh(two_ranks):
+    """Each rank's lanes are those of the run without a mesh: the two
+    ranks' gathered lanes equal the lanes of one runner of all 16 without
+    a mesh, their metrics' counts exactly and float32 sums to rounding."""
     _, outs = two_ranks
     assert [(o["rank"], o["size"], o["local_lanes"]) for o in outs] == [
         (0, 2, 8), (1, 2, 8)]
-    cuts, m1s, m2s = zip(*(_meshless(r) for r in range(2)))
-    for key, ms in (("m1", m1s), ("m2", m2s)):
-        want = {
-            "steps": ms[0].steps + ms[1].steps,
-            "episodes": ms[0].episodes + ms[1].episodes,
-            "successes": ms[0].successes + ms[1].successes,
-            # float32 sums, added once across the two ranks.
-            "return_sum": float(np.float32(ms[0].return_sum)
-                                + np.float32(ms[1].return_sum)),
-            "reward_sum": float(np.float32(ms[0].reward_sum)
-                                + np.float32(ms[1].reward_sum)),
-        }
-        for o in outs:
-            assert o[key] == want, (key, o[key], want)
-    assert outs[0]["image_sum"] == outs[1]["image_sum"] == (
-        cuts[0]["image_sum"] + cuts[1]["image_sum"])
+    cut, m1, m2, lanes = _meshless()
+    for o in outs:
+        for key in ("trace1", "trace2", "factors"):
+            assert o[key] == lanes[key], key
+        _assert_metrics_equal(o["m1"], m1, exact=False)
+        _assert_metrics_equal(o["m2"], m2, exact=False)
+        assert o["image_sum"] == cut["image_sum"]
     assert outs[0]["m1"]["episodes"] > 0 and outs[0]["image_sum"] > 0
 
 
@@ -305,34 +353,57 @@ def test_evaluate_agrees_on_both_ranks(two_ranks):
 
 
 def test_gathered_checkpoint_restores_lane_for_lane(two_ranks):
-    """The two ranks' gathered state, restored under one rank: lanes 0-7
-    are rank 0's, lanes 8-15 rank 1's, as the runs without a mesh left
-    them, and each rank's generator state is in its row."""
+    """The two ranks' gathered state, restored under one rank, is the
+    state of the run without a mesh, lane for lane and key for key, with
+    its in-flight returns and action key; one rank steps all 16 restored
+    lanes on to the uninterrupted run's metrics."""
     out_dir, _ = two_ranks
-    env = build_env()
-    restored = checkpoint.restore_state(str(out_dir / "ckpt"),
+    env = build_env(seed=123)
+    restored = checkpoint.restore_state(str(out_dir / "ckpt2"),
                                         checkpoint_like(env, NUM_ENVS))
-    for rank in range(2):
-        cut, _, _ = _meshless(rank)
-        lanes = slice(8 * rank, 8 * rank + 8)
-        for name in STATE_FIELDS:
-            assert torch.equal(getattr(restored["env_state"], name)[lanes],
-                               getattr(cut["env_state"], name)), name
-        assert torch.equal(restored["episode_returns"][lanes],
-                           cut["episode_returns"])
-        assert torch.equal(restored["generators"][rank], cut["generator"])
-    # One rank steps all 16 restored lanes on.
+    cut, _, m2, _ = _meshless()
+    for name in STATE_FIELDS:
+        assert torch.equal(getattr(restored["env_state"], name),
+                           getattr(cut["env_state"], name)), name
+    assert torch.equal(restored["episode_returns"], cut["episode_returns"])
+    assert torch.equal(restored["action_key"], cut["action_key"])
     runner = runner_lib.ShardedRunner(env, NUM_ENVS)
+    runner.action_key = restored["action_key"]
     _, m = runner.rollout(restored["env_state"], STEPS_AFTER,
                           episode_returns=restored["episode_returns"])
-    assert m.steps == NUM_ENVS * STEPS_AFTER and m.episodes > 0
+    _assert_metrics_equal(metrics_dict(m), m2, exact=True)
+    assert m.episodes > 0
 
 
 def test_two_rank_resume_continues_the_run(two_ranks):
     out_dir, outs = two_ranks
-    resumed = _run_two_ranks("resume", out_dir)
+    resumed = _run_ranks("resume2", out_dir)
     for o in resumed:
         assert o["m2"] == outs[0]["m2"]
+        assert o["trace2"] == outs[0]["trace2"]
+        assert o["factors"] == outs[0]["factors"]
+
+
+def test_checkpoint_of_one_rank_resumes_under_two(two_ranks, one_rank):
+    """Cross-topology resume (tests/test_distributed.py holds the JAX
+    runner's): the one-rank run's checkpoint, restored under two ranks,
+    continues to the uninterrupted one-rank run, lane for lane."""
+    out_dir, _ = two_ranks
+    for o in _run_ranks("resume1", out_dir):
+        assert o["trace2"] == one_rank["trace2"]
+        assert o["factors"] == one_rank["factors"]
+        _assert_metrics_equal(o["m2"], one_rank["m2"], exact=False)
+
+
+def test_checkpoint_of_two_ranks_resumes_under_one(two_ranks, one_rank):
+    """And the reverse: the two ranks' checkpoint, restored under one gloo
+    rank, continues to the uninterrupted runs (exactly the one-rank run's
+    metrics, whose sums add in the same order)."""
+    out_dir, outs = two_ranks
+    o = _run_ranks("resume2", out_dir, world=1)[0]
+    assert o["trace2"] == outs[0]["trace2"] == one_rank["trace2"]
+    assert o["factors"] == one_rank["factors"]
+    _assert_metrics_equal(o["m2"], one_rank["m2"], exact=True)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ from spriteworld_torch.core import renderers as trenderers
 from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core import tasks as ttasks
 from spriteworld_torch.core.state import StepType
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.parallel import EvalStats, Metrics, ShardedRunner
 
 B, K = 8, 3  # B divides the JAX tests' 8 virtual CPU devices
@@ -68,10 +69,11 @@ class _TorchFixed(tgenerators.SpriteGenerator):
         self._factors = torch.from_numpy(np.asarray(factors, np.float32))
         self.max_sprites = self._factors.shape[0]
 
-    def sample(self, generator, batch):
-        f = self._factors.to(generator.device).expand(batch, -1, -1).clone()
+    def sample(self, key):
+        batch = key.shape[0]
+        f = self._factors.to(key.device).expand(batch, -1, -1).clone()
         return f, torch.full((batch,), self.max_sprites, dtype=torch.int32,
-                             device=generator.device)
+                             device=key.device)
 
 
 def _config(d, t, a, r, gen, scene, aa, max_episode_length, image=True):
@@ -107,8 +109,8 @@ def _jax_policy(key, state):
     return jnp.concatenate([click, jnp.where(click < 0.5, 0.75, 0.25)], -1)
 
 
-def _torch_policy(generator, state):
-    del generator
+def _torch_policy(keys, state):
+    del keys
     j = (state.step_count % state.num_sprites).long()
     click = state.factors.gather(
         1, j[:, None, None].expand(-1, 1, state.factors.shape[-1]))[:, 0, :2]
@@ -141,6 +143,7 @@ def test_rollout_equals_jax(aa):
     jstate, _ = jrun.reset(jax.random.key(0))
     tst, _ = trun.reset(0)
     key = jax.random.key(1)
+    trun.action_key = lane_random.key(1)  # JAX's rollout key
     total = Metrics.zero()
     for chunk in range(2):
         jstate, key, jm, jts = jrun.rollout(jstate, key, 5,
@@ -162,8 +165,15 @@ def test_rollout_equals_jax(aa):
         assert img_t.shape == img_j.shape == (5, B, 16 * 16 * 3)
         assert np.abs(img_t - img_j).max() <= (1 if aa > 1 else 0)
         for name in tstate.STATE_FIELDS:
+            want = getattr(jstate, name)
+            if name == "key":
+                want = jax.random.key_data(want).view(np.int32)
             np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                          np.asarray(getattr(jstate, name)))
+                                          np.asarray(want), name)
+        # The carried action keys split alike.
+        np.testing.assert_array_equal(
+            lane_random.key_data(trun.action_key),
+            np.asarray(jax.random.key_data(key)))
         assert (tm.steps, tm.episodes, tm.successes) == (
             int(jm.steps), int(jm.episodes), int(jm.successes))
         np.testing.assert_allclose(tm.return_sum, float(jm.return_sum),
@@ -186,7 +196,7 @@ def test_metrics_agree_with_timesteps_and_chunks_accumulate():
     env = _torch_env(scene, max_episode_length=4, image=False)
     runner = ShardedRunner(env, B)
     start, _ = runner.reset(5)
-    gen_start = env.generator.get_state()
+    key_start = runner.action_key
     state, total = start, Metrics.zero()
     acc = np.zeros(B)
     for _ in range(3):
@@ -199,7 +209,7 @@ def test_metrics_agree_with_timesteps_and_chunks_accumulate():
         total = total + m
     assert total.episodes > 0 and 0 <= total.success_rate <= 1
 
-    env.generator.set_state(gen_start)
+    runner.action_key = key_start
     runner.episode_returns = np.zeros(B, np.float32)
     state2, whole = runner.rollout(start, 18)
     for name in tstate.STATE_FIELDS:
@@ -237,8 +247,7 @@ def test_evaluate_statistics_against_host_recomputation():
     scene[:, tstate.C0] = 0.2
     env = _torch_env(scene, max_episode_length=5, image=False)
     ref = ShardedRunner(env, B)
-    env.generator.manual_seed(9)
-    state, _ = ref.reset()
+    state, _ = ref.reset(9)
     _, m, tss = ref.rollout(state, 24, return_timesteps=True,
                             timestep_obs=("success",))
     reward = np.nan_to_num(tss.reward.numpy().astype(np.float64))
@@ -253,8 +262,7 @@ def test_evaluate_statistics_against_host_recomputation():
     n = len(returns) - 3
     assert n > 3
 
-    env.generator.manual_seed(9)
-    stats = ShardedRunner(env, B).evaluate(n, chunk_steps=8)
+    stats = ShardedRunner(env, B).evaluate(n, chunk_steps=8, key=9)
     want = np.asarray(returns[:n])
     assert isinstance(stats, EvalStats) and stats.episodes == n
     assert stats.mean_return == pytest.approx(want.mean(), rel=1e-6)
@@ -274,9 +282,11 @@ def test_evaluate_preserves_inflight_returns():
     state, _ = runner.reset(5)
     state, _ = runner.rollout(state, 4)
     before = runner.episode_returns.clone()
+    key = runner.action_key
     assert before.abs().sum() > 0  # episodes genuinely mid-flight
     runner.evaluate(num_episodes=5, chunk_steps=8)
     assert torch.equal(runner.episode_returns, before)
+    assert torch.equal(runner.action_key, key)
 
 
 def test_guards():

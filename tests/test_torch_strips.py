@@ -180,7 +180,7 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {name: _build.library_path(name) for name in _build.KERNELS}
     assert set(_build.KERNELS) == {"scene_raster", "strip_raster",
-                                   "packed_raster"}
+                                   "packed_raster", "lane_random"}
     header = csrc / "raster_fill.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.KERNELS}

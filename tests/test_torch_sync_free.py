@@ -26,6 +26,7 @@ from spriteworld_torch.core import generators as tgenerators
 from spriteworld_torch.core import renderers as trenderers
 from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core.state import StepType
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.parallel import ShardedRunner
 from spriteworld_torch.parallel import runner as runner_lib
 
@@ -101,12 +102,13 @@ _ENVS = {
 def test_reset_and_step_make_no_host_sync(name):
     env = _ENVS[name]()
     b = 4
-    state, _ = env.reset_batch(b)  # fills the device-constant caches
-    env.step_batch(state, env.sample_action(b))
+    keys = lane_random.split(lane_random.key(0), (5, b))
+    state, _ = env.reset_batch(keys[0])  # fills the device-constant caches
+    env.step_batch(state, env.sample_action(keys[1]))
     with NoHostSync():
-        state, ts = env.reset_batch(b)
-        for _ in range(4):
-            state, ts = env.step_batch(state, env.sample_action(b))
+        state, ts = env.reset_batch(keys[0])
+        for t in range(4):
+            state, ts = env.step_batch(state, env.sample_action(keys[t + 1]))
     assert ts.step_type.shape == (b,)
 
 
@@ -149,11 +151,9 @@ def test_reset_lanes_take_the_fresh_scene():
     state, _ = env.reset_batch(b)
     state.reset_next = torch.arange(b) % 3 == 0
     state.step_count = torch.full((b,), 7, dtype=torch.int32)
-    actions = env.sample_action(b)
-    gen = env.generator.get_state()
+    actions = env.sample_action(lane_random.split(lane_random.key(4), b))
     new, ts = env.step_batch(state, actions)
-    env.generator.set_state(gen)
-    # The same draws, no lane resetting: the stepped state of every lane.
+    # The same keys, no lane resetting: the stepped state of every lane.
     calm = tstate.EnvState(**{n: getattr(state, n).clone()
                               for n in tstate.STATE_FIELDS})
     calm.reset_next = torch.zeros(b, dtype=torch.bool)
@@ -177,19 +177,19 @@ def test_masked_mixture_and_sample_generator_keep_their_statistics():
     """Every component draws for every element; each element keeps its own
     component's draw, with the mixture's probabilities (a zero-probability
     component never)."""
-    g = torch.Generator().manual_seed(11)
+    keys = lane_random.split(lane_random.key(11), 20000)
     mix = tdistribs.Mixture([tdistribs.Continuous("x", 0.0, 0.1),
                              tdistribs.Continuous("x", 0.4, 0.5),
                              tdistribs.Continuous("x", 0.8, 0.9)],
                             probs=[0.2, 0.0, 0.8])
     n = 20000
-    x = mix.sample(g, (n,))["x"]
+    x = mix.sample(keys)["x"]
     low = (x < 0.1).double().mean()
     assert abs(float(low) - 0.2) < 0.015
     assert ((x < 0.1) | ((x >= 0.8) & (x < 0.9))).all()
     assert abs(float(x[x >= 0.8].double().mean()) - 0.85) < 0.002
     d = tdistribs.Discrete("c0", [1.0, 2.0, 3.0], probs=[3, 0, 1])
-    v = d.sample(g, (n,))["c0"]
+    v = d.sample(keys)["c0"]
     assert not (v == 2.0).any()
     assert abs(float((v == 1.0).double().mean()) - 0.75) < 0.015
 
@@ -198,7 +198,7 @@ def test_masked_mixture_and_sample_generator_keep_their_statistics():
     two = tgenerators.generate_sprites(
         tdistribs.Continuous("x", 0.6, 0.7), num_sprites=2)
     pick = tgenerators.sample_generator([one, two], p=[0.7, 0.3])
-    f, num, ok = pick.sample_with_status(g, n)
+    f, num, ok = pick.sample_with_status(keys)
     assert ok.all() and set(num.unique().tolist()) == {1, 2}
     assert abs(float((num == 1).double().mean()) - 0.7) < 0.015
     xs = f[..., tstate.X]
@@ -214,8 +214,8 @@ class _Recorded(tdistribs.Continuous):
         super().__init__(*args)
         self.blocks = []
 
-    def sample_with_status(self, generator, shape=()):
-        spec, ok = super().sample_with_status(generator, shape)
+    def sample_with_status(self, key):
+        spec, ok = super().sample_with_status(key)
         self.blocks.append(spec[self.key].clone())
         return spec, ok
 
@@ -238,8 +238,8 @@ def test_rejection_rounds_equal_the_per_element_loop(rounds, monkeypatch):
     monkeypatch.setattr(tdistribs, "REJECTION_ROUNDS", rounds)
     base = _Recorded("x", 0.0, 1.0)
     sel = tdistribs.Selection(base, tdistribs.Continuous("x", 0.0, 0.03))
-    spec, ok = sel.sample_with_status(torch.Generator().manual_seed(2),
-                                      (64,))
+    spec, ok = sel.sample_with_status(
+        lane_random.split(lane_random.key(2), (64,)))
     assert len(base.blocks) > 1  # rounds past the first ran
     want, found = _first_accepted(base.blocks, lambda v: v < 0.03,
                                   tdistribs.MAX_REJECTION_TRIES)
@@ -250,16 +250,16 @@ def test_rejection_rounds_equal_the_per_element_loop(rounds, monkeypatch):
 def test_deferred_rejection_flags_pending_and_keeps_the_draws():
     """Inside defer_rejection the node stops after its first round and sets
     the flag where elements are pending (reporting them not ok); outside,
-    from the same generator state, its first round draws the same."""
+    from the same keys, its first round draws the same."""
     sel = tdistribs.Selection(tdistribs.Continuous("x", 0.0, 1.0),
                               tdistribs.Continuous("x", 0.0, 0.03))
     flag = torch.zeros((), dtype=torch.bool)
     with tdistribs.defer_rejection(flag):
-        spec, ok = sel.sample_with_status(torch.Generator().manual_seed(4),
-                                          (256,))
+        spec, ok = sel.sample_with_status(
+            lane_random.split(lane_random.key(4), (256,)))
     assert bool(flag) and not ok.all() and ok.any()
-    full, full_ok = sel.sample_with_status(torch.Generator().manual_seed(4),
-                                           (256,))
+    full, full_ok = sel.sample_with_status(
+        lane_random.split(lane_random.key(4), (256,)))
     assert full_ok.all()
     assert torch.equal(spec["x"][ok], full["x"][ok])
 
@@ -267,11 +267,11 @@ def test_deferred_rejection_flags_pending_and_keeps_the_draws():
                               tdistribs.Continuous("x", 0.0, 0.25))
     flag.zero_()
     with tdistribs.defer_rejection(flag):
-        spec, ok = easy.sample_with_status(torch.Generator().manual_seed(5),
-                                           (256,))
+        spec, ok = easy.sample_with_status(
+            lane_random.split(lane_random.key(5), (256,)))
     assert not bool(flag) and ok.all()
-    again, _ = easy.sample_with_status(torch.Generator().manual_seed(5),
-                                       (256,))
+    again, _ = easy.sample_with_status(
+        lane_random.split(lane_random.key(5), (256,)))
     assert torch.equal(spec["x"], again["x"])
 
 
@@ -284,18 +284,19 @@ def test_fail_fast_gives_ok_false(monkeypatch):
     calls = []
     orig = empty.sample_with_status
 
-    def counted(g, shape):
-        calls.append(shape)
-        return orig(g, shape)
+    def counted(key):
+        calls.append(tuple(key.shape[:-1]))
+        return orig(key)
 
     empty.sample_with_status = counted
     outer = tdistribs.Selection(empty, tdistribs.Continuous("x", 0.0, 0.5))
-    _, ok = outer.sample_with_status(torch.Generator().manual_seed(0), (5,))
+    _, ok = outer.sample_with_status(
+        lane_random.split(lane_random.key(0), (5,)))
     assert not ok.any() and len(calls) == 1
     flag = torch.zeros((), dtype=torch.bool)
     with tdistribs.defer_rejection(flag):
-        _, ok = outer.sample_with_status(torch.Generator().manual_seed(0),
-                                         (5,))
+        _, ok = outer.sample_with_status(
+            lane_random.split(lane_random.key(0), (5,)))
     assert not ok.any() and len(calls) == 2 and bool(flag)
 
 
@@ -327,15 +328,16 @@ def test_runner_reruns_a_chunk_whose_rejection_ran_past_its_rounds():
     env = _low_acceptance_env()
     runner = ShardedRunner(env, 16)
     start, _ = runner.reset(1)
-    gen = env.generator.get_state()
+    action_key = runner.action_key
     state, _, tss = runner.rollout(start, 4, return_timesteps=True)
     assert runner.reruns == 1
     assert state.sample_ok.all()
 
-    env.generator.set_state(gen)
     want = start
     for t in range(4):
-        want, ts = env.step_batch(want, env.sample_action(16))
+        action_key, step_key = lane_random.split(action_key, 2)
+        want, ts = env.step_batch(
+            want, env.sample_action(lane_random.split(step_key, 16)))
         assert torch.equal(ts.observation["image"].reshape(16, -1),
                            tss.observation["image"][t])
         assert torch.equal(ts.step_type, tss.step_type[t])
@@ -373,9 +375,9 @@ def test_rejection_rounds_cover_the_rejecting_configs(name, capsys):
     mod = importlib.import_module(f"spriteworld_torch.configs.{name}")
     nodes = _rejection_nodes(mod.get_config("train")["init_sprites"])
     assert nodes
-    g = torch.Generator().manual_seed(0)
+    keys = lane_random.split(lane_random.key(0), 200_000)
     for propose, accept in nodes:
-        rate = float(accept(propose.sample(g, (200_000,))).double().mean())
+        rate = float(accept(propose.sample(keys)).double().mean())
         pending = (1 - rate) ** tdistribs.REJECTION_ROUNDS
         with capsys.disabled():
             print(f"\n{name}: acceptance {rate:.4f}, pending after "

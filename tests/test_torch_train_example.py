@@ -280,10 +280,11 @@ class _InjectedScenes(SpriteGenerator):
         self._factors = torch.tensor(factors)
         self.max_sprites = 1
 
-    def sample(self, generator, batch):
+    def sample(self, key):
+        batch = key.shape[0]
         assert batch == self._factors.shape[0]
-        return (self._factors.to(generator.device).clone(),
-                torch.ones(batch, dtype=torch.int32, device=generator.device))
+        return (self._factors.to(key.device).clone(),
+                torch.ones(batch, dtype=torch.int32, device=key.device))
 
 
 _BUILD_TRAIN_ENV = tt.build_train_env
@@ -314,7 +315,7 @@ def test_rollout_bookkeeping_matches_numpy(monkeypatch):
     zs = rng.normal(0, 1.5, (steps, lanes, 4)).astype(np.float32)
     calls = []
 
-    def injected(mu, log_std, generator):
+    def injected(mu, log_std, keys):
         z = torch.tensor(zs[len(calls)])
         calls.append(1)
         return torch.sigmoid(z), z

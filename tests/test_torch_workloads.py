@@ -3,9 +3,11 @@ distance's rounding, RandInt/SampleGenerator, the rejecting distributions,
 every config, every bench_torch.py builder, and the sorting and embodied
 trajectories against the JAX package.
 
-Random streams differ (threefry vs torch.Generator), so parity runs on
-injected scenes and actions made with numpy; samplers are checked through
-exact contains-masks and statistics.
+Both packages key every lane with threefry keys that split alike, but
+their samplers draw other values from them, so parity runs on injected
+scenes and actions made with numpy (where the lanes' keys agree bit for
+bit too); samplers are checked through exact contains-masks and
+statistics.
 """
 
 import importlib
@@ -33,6 +35,7 @@ from spriteworld_torch.core import state as tstate
 from spriteworld_torch.core import tasks as ttasks
 from spriteworld_torch.core.state import StepType
 from spriteworld_torch.parallel import ShardedRunner
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.parallel import runner as runner_lib
 
 import bench_torch
@@ -121,8 +124,7 @@ def test_embodied_step_equals_jax(keep_in_frame):
         lambda a_, f_, n_: js.step(a_, f_, n_, keep_in_frame, None)))(a, f, n)
     ts = tactions.Embodied(step_size=0.05, motion_cost=0.3)
     got_f, got_c = ts.step(torch.from_numpy(a), torch.from_numpy(f),
-                           torch.from_numpy(n), keep_in_frame,
-                           torch.Generator())
+                           torch.from_numpy(n), keep_in_frame, None)
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
     moved = (got_f.numpy() != f).any(-1)
@@ -134,7 +136,7 @@ def test_embodied_step_equals_jax(keep_in_frame):
     assert moved[lanes, body][n > 0].all() if not keep_in_frame else \
         moved[lanes, body][(n > 0) & (lanes % 4 != 2)].all()
     assert not moved[n == 0].any()
-    sample = ts.sample(torch.Generator().manual_seed(0), 1000)
+    sample = ts.sample(lane_random.split(lane_random.key(0), 1000))
     assert sample.dtype == torch.int32 and sample.shape == (1000, 2)
     assert set(sample[:, 0].tolist()) == {0, 1}
     assert set(sample[:, 1].tolist()) == {0, 1, 2, 3}
@@ -232,8 +234,8 @@ def test_rejecting_distributions_equal_jax(name):
     got = td.contains(tstate.factors_to_dict(torch.from_numpy(f))).numpy()
     np.testing.assert_array_equal(got, want)
     assert 0 < want.sum() < len(want)
-    spec, ok = td.sample_with_status(torch.Generator().manual_seed(1),
-                                     (4000,))
+    spec, ok = td.sample_with_status(
+        lane_random.split(lane_random.key(1), (4000,)))
     assert ok.all() and td.contains(spec).all()
     if name == "mixture":
         hi = (spec["c0"] >= 0.7).double().mean()
@@ -256,29 +258,31 @@ def test_rejection_exhaustion_sets_ok_false(monkeypatch):
     monkeypatch.setattr(tdistribs, "MAX_REJECTION_TRIES", 20)
     empty = tdistribs.SetMinus(tdistribs.Continuous("x", 0.0, 1.0),
                                tdistribs.Continuous("x", 0.0, 1.0))
-    spec, ok = empty.sample_with_status(torch.Generator().manual_seed(0),
-                                        (3, 4))
+    spec, ok = empty.sample_with_status(
+        lane_random.split(lane_random.key(0), (3, 4)))
     assert spec["x"].shape == (3, 4) and not ok.any()
     calls = []
     orig = empty.sample_with_status
 
-    def counted(g, shape):
-        calls.append(shape)
-        return orig(g, shape)
+    def counted(key):
+        calls.append(tuple(key.shape[:-1]))
+        return orig(key)
 
     empty.sample_with_status = counted
     outer = tdistribs.Selection(empty, tdistribs.Continuous("x", 0.0, 0.5))
-    _, ok = outer.sample_with_status(torch.Generator().manual_seed(0), (5,))
+    _, ok = outer.sample_with_status(
+        lane_random.split(lane_random.key(0), (5,)))
     assert not ok.any() and len(calls) == 1
     # Half the support rejected: everything accepted well within the bound.
     half = tdistribs.SetMinus(tdistribs.Continuous("x", 0.0, 1.0),
                               tdistribs.Continuous("x", 0.0, 0.5))
-    spec, ok = half.sample_with_status(torch.Generator().manual_seed(0),
-                                       (1000,))
+    spec, ok = half.sample_with_status(
+        lane_random.split(lane_random.key(0), (1000,)))
     assert ok.all() and (spec["x"] >= 0.5).all()
     # A dead slot's exhausted draw does not poison the scene.
     gen = tgenerators.GenerateSprites(empty, num_sprites=(0, 2))
-    _, num, ok = gen.sample_with_status(torch.Generator().manual_seed(0), 64)
+    _, num, ok = gen.sample_with_status(
+        lane_random.split(lane_random.key(0), 64))
     assert torch.equal(ok, num == 0) and ok.any() and not ok.all()
 
 
@@ -288,11 +292,11 @@ def test_randint_and_sample_generator():
     probabilities and pads to the largest capacity, as JAX does."""
     d = tdistribs.Product([tdistribs.Continuous("x", 0.2, 0.4),
                            tdistribs.Discrete("shape", ["star_5"])])
-    g = torch.Generator().manual_seed(3)
+    keys = lane_random.split(lane_random.key(3), 4000)
     gen = tgenerators.generate_sprites(d,
                                        num_sprites=tgenerators.RandInt(1, 4))
     assert gen.max_sprites == 3
-    f, num, ok = gen.sample_with_status(g, 3000)
+    f, num, ok = gen.sample_with_status(keys[:3000])
     assert ok.all() and set(num.tolist()) == {1, 2, 3}
     assert abs(float(num.double().mean()) - 2.0) < 0.06
     alive = torch.arange(3) < num[:, None]
@@ -311,7 +315,7 @@ def test_randint_and_sample_generator():
                            tdistribs.Discrete("shape", ["circle"])]), 3)
     pick = tgenerators.sample_generator([small, big], p=[0.25, 0.75])
     assert pick.max_sprites == 3
-    f, num, ok = pick.sample_with_status(g, 4000)
+    f, num, ok = pick.sample_with_status(keys)
     assert ok.all() and f.shape == (4000, 3, 10)
     chose_big = num == 3
     assert set(num.tolist()) == {1, 3}
@@ -454,10 +458,11 @@ class _TorchFixed(tgenerators.SpriteGenerator):
         self._factors = torch.from_numpy(np.asarray(factors, np.float32))
         self.max_sprites = self._factors.shape[0]
 
-    def sample(self, generator, batch):
-        f = self._factors.to(generator.device).expand(batch, -1, -1).clone()
+    def sample(self, key):
+        batch = key.shape[0]
+        f = self._factors.to(key.device).expand(batch, -1, -1).clone()
         return f, torch.full((batch,), self.max_sprites, dtype=torch.int32,
-                             device=generator.device)
+                             device=key.device)
 
 
 def _envs(path, scene, action_space):
@@ -499,6 +504,10 @@ def _run_both(jenv, tenv, b, steps, actions_of):
                                           f"{name}, t={t}")
         np.testing.assert_array_equal(tts.observation["success"].numpy(),
                                       np.asarray(jts.observation["success"]))
+        # The lanes' keys split as JAX's, success-triggered resets included.
+        np.testing.assert_array_equal(
+            lane_random.key_data(tst.key),
+            np.asarray(jax.random.key_data(jst.key)), f"key, t={t}")
         seen += np.bincount(tts.step_type.numpy(), minlength=3)
     return seen, tts
 

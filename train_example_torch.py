@@ -5,9 +5,14 @@ Counterpart of train_example.py. B environment lanes step in lockstep and
 a policy-gradient update follows each rollout. The rollout (T steps of the
 policy's forward, the env step with its render, the reward-delta
 advantages) is one step captured as a CUDA graph and replayed T times,
-through the runner's mechanism (`core.step_graph.StepGraph`: the env's
-generator registered with the graph, rejection deferred to a device flag,
-an eager re-run where the flag is set); it makes no host sync. The update
+through the runner's mechanism (`core.step_graph.StepGraph`: rejection
+deferred to a device flag, an eager re-run where the flag is set); it
+makes no host sync. Randomness is keyed as in train_example.py: the
+trainer carries a key, `key(seed)` split into itself, an init key (unused:
+the parameters come from a torch.Generator of the seed) and the reset key,
+whose split over the global lanes gives the lanes their keys; each rollout
+step splits the carried key into the next one and the step's, whose split
+over the global lanes gives each lane its action noise key. The update
 is eager: one batched re-application of the policy over the T x B stored
 transitions, autograd, and Adam (optax's `adam(2e-3)`). The device is read
 only at log iterations.
@@ -53,8 +58,9 @@ from spriteworld_torch.core import environment as env_lib
 from spriteworld_torch.core import generators as sprite_generators
 from spriteworld_torch.core import renderers, tasks
 from spriteworld_torch.core.state import STATE_FIELDS
+from spriteworld_torch.ops import lane_random
 from spriteworld_torch.parallel import (StepGraph, env_mesh,
-                                        initialize_multihost, rank_seed,
+                                        initialize_multihost,
                                         replicated_sharding)
 from spriteworld_torch.parallel.mesh import EnvMesh
 from spriteworld_torch.parallel.runner import _to_host
@@ -227,15 +233,14 @@ def params_from_flax(params) -> dict:
     return out
 
 
-def sample_action_z(mu, log_std, generator: torch.Generator):
-    """a = sigmoid(z), z ~ N(mu, std); returns (action, z). The noise comes
-    from `generator` (the env's), which a captured rollout registers.
+def sample_action_z(mu, log_std, keys: torch.Tensor):
+    """a = sigmoid(z), z ~ N(mu, std); returns (action, z). Lane b's noise
+    comes from its key `keys[b]` (keys int32[B, 2]).
 
     The pre-squash z is kept so the update can recompute log-probs for
     the stored transitions in one batch."""
     std = torch.exp(log_std)
-    noise = torch.randn(mu.shape, generator=generator, device=mu.device,
-                        dtype=mu.dtype)
+    noise = lane_random.normal(keys, mu.shape[-1], mu.dtype)
     z = mu + std * noise
     return torch.sigmoid(z), z
 
@@ -334,9 +339,11 @@ class Trainer:
         self.local_envs = self.num_envs // self.mesh.size
         self.rollout_steps = int(rollout_steps)
         dev = self.mesh.device
-        self.env = build_train_env(obs_mode, image_size, dev,
-                                   rank_seed(seed, self.mesh.rank))
+        self.env = build_train_env(obs_mode, image_size, dev, seed)
         self._repl = replicated_sharding(self.mesh)
+        # train_example.py: key, k_init, k_reset = split(key(seed), 3).
+        keys = lane_random.split(lane_random.key(seed, dev), 3)
+        self.key = keys[0].clone()  # carried, split each rollout step
 
         init = torch.Generator().manual_seed(int(seed))
         if obs_mode == "image":
@@ -351,7 +358,7 @@ class Trainer:
         self.optimizer = torch.optim.Adam(
             self.policy.parameters(), lr=2e-3, betas=(0.9, 0.999), eps=1e-8)
 
-        state, ts = self.env.reset_batch(self.local_envs)
+        state, ts = self.env.reset_batch(self._global_split(keys[2]))
         self.state = state
         self.obs = tuple(x.clone() for x in self.policy.inputs(ts.observation))
         b, t = self.local_envs, self.rollout_steps
@@ -375,12 +382,20 @@ class Trainer:
         self.reruns = 0
 
     # ------------------------------------------------------------------ #
+    def _global_split(self, key: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of `split(key, num_envs)`."""
+        return lane_random.split(key, self.local_envs,
+                                 start=self.mesh.rank * self.local_envs)
+
     def _step(self):
         """One rollout step on the carried tensors, in place
         (train_example.py:176-193)."""
         with torch.no_grad(), _deterministic_convs():
+            keys = lane_random.split(self.key, 2)
+            self.key.copy_(keys[0])
             mu, log_std = self.policy(*self.obs)
-            actions, z = sample_action_z(mu, log_std, self.env.generator)
+            actions, z = sample_action_z(mu, log_std,
+                                         self._global_split(keys[1]))
             state, ts = self.env.step_batch(self.state, actions)
             reward = torch.nan_to_num(ts.reward)
             # FindGoalPosition rewards track goal distance, so the reward
@@ -413,24 +428,24 @@ class Trainer:
             point = self.save_point()
             self._start()
             self._programs[use_graph] = StepGraph(
-                self._step, self.env.generator, self.pending, use_graph)
+                self._step, self.pending, use_graph)
             self.restore_point(point)
         return self._programs[use_graph]
 
     def save_point(self):
-        """(state, policy inputs, generator state): where a rollout
-        starts, as device copies and the generator's state."""
+        """(state, policy inputs, key): where a rollout starts, as device
+        copies."""
         return (self.state.clone(),
                 tuple(x.clone() for x in self.obs),
-                self.env.generator.get_state())
+                self.key.clone())
 
     def restore_point(self, point):
-        state, obs, gen = point
+        state, obs, key = point
         for n in STATE_FIELDS:
             getattr(self.state, n).copy_(getattr(state, n))
         for buf, x in zip(self.obs, obs):
             buf.copy_(x)
-        self.env.generator.set_state(gen)
+        self.key.copy_(key)
 
     def _start(self):
         for x in (self.prev_r, self.prev_ok, self.t, self.pending):
