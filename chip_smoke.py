@@ -152,21 +152,27 @@ Phases:
      SpriteFactors subclass that overrides render batches its own render
      inside the graph; the phase's seconds beside the card's name and
      power limit; its launches are added to the `kernels` line;
- 12. per-lane keys (run after phase 11, before phase 8): (a) the
-     lane_random kernel bit-exact against its plain twin, on the card and
-     on the CPU (normals within one float32 ulp of the CPU's, whose
-     float64 erfinv is its own), at B in {1, 3, 2048} and n in {1, 7,
-     64}, in every mode and on strided keys; (b) on the low-acceptance config with action
+ 12. per-lane keys and JAX's draws (run after phase 11, before phase
+     8): (a) the lane_random kernel bit-exact against its plain twin, on
+     the card and on the CPU (normals within one float32 ulp of the CPU's,
+     whose float64 log1p is its own), at B in {1, 3, 2048} and n in {1, 7,
+     64}, in every mode (randint over several spans, the rejection chain
+     in both layouts) and on strided keys, and `choice` on the card
+     against the CPU; (b) on the low-acceptance config with action
      noise, the compiled step replayed from a graph is a function of its
      state (two steps from one state, half the lanes resetting, equal),
      and lanes 3, 7 and 12 of 16, stepped alone from the same lane keys
      and actions, equal those lanes of the batch, rejection deferred or
      re-run; (c) a runner of 16 lanes equals ranks 0 and 1 of a two-rank
-     mesh stepped one after the other on the card, lane for lane; the
-     phase's seconds beside the card's name and power limit. Phase 8's
-     `kernels` line ends with lane_random: the draws of one image64/AA=5
-     step at 2048 lanes replayed, held against the plain twin and timed
-     beside it, its bound, and the main path's (phase 4's) launches;
+     mesh stepped one after the other on the card, lane for lane; (d)
+     every config in each of its modes, `BatchedEnvironment.reset(17)` at
+     64 lanes on the card equal to the CPU twin's in every state field
+     (the tests hold the CPU's to the JAX package's); the phase's seconds
+     beside the card's name and power limit. Phase 8's `kernels` line
+     ends with lane_random: the draws of one image64/AA=5 step at 2048
+     lanes replayed, held against the plain twin and timed beside it, its
+     bound, the main path's (phase 4's) launches, and each mode timed
+     alone in and out of a graph (`by_mode`);
  13. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
@@ -2298,17 +2304,35 @@ KEYS_STEPS = 6
 KEYS_SUBSET = (3, 7, 12)
 
 
+# The kernel's modes at the lane counts and counters above: keys lanes
+# first and counters first with a start; bits; uniform on [0, 1) and on
+# [-3, 5.5); randint over the spans the configs draw (3 shapes, 2 and 4
+# Embodied actions), the dm_env adapter's seed range, a negative lo and an
+# empty range (lo); normal; the rejection chain in both layouts.
+LANE_RANDOM_MODES = (
+    ("keys", {}), ("keys", {"start": 5}),
+    ("keys", {"counters_first": True, "start": 9}),
+    ("bits", {}), ("uniform", {}), ("uniform", {"lo": -3.0, "hi": 5.5}),
+    ("randint", {"lo": 0, "hi": 3}), ("randint", {"lo": 0, "hi": 4}),
+    ("randint", {"lo": 0, "hi": 2**31 - 1}),
+    ("randint", {"lo": -2, "hi": 7}), ("randint", {"lo": 4, "hi": 4}),
+    ("normal", {}), ("chain", {}), ("chain", {"counters_first": True}))
+# choice's cumulative probabilities: Mixture's default over 3 and a p.
+LANE_RANDOM_CHOICES = (np.ones(3) / 3, np.array([0.2, 0.5, 0.3]))
+
+
 def lane_random_vs_plain(torch, dev="cuda"):
     """Phase 12 (a): `threefry_launch` on the card against its plain twin
     on the same keys, on the card and on the CPU, at every lane count of
     LANE_RANDOM_LANES and counter count of LANE_RANDOM_COUNTERS, in each
-    mode (keys lanes first and counters first, with a start; bits; uniform
-    on [0, 1) and on [-3, 5.5); randint; normal), and on keys that are a
-    strided slice of a split. Returns the largest difference (0:
-    bit-exact). The normal's float64 erfinv is the card's own in the
-    kernel and in the twin on the card (equal), and the CPU's in the twin
-    on the CPU: there the two may round across a float32 boundary, so
-    its words are counted apart and held within one float32 ulp."""
+    mode of LANE_RANDOM_MODES, on contiguous keys and on keys that are a
+    strided slice of a split; and `choice` (the uniform kernel, then a
+    search of the cumulative sums) on the card against the CPU. Returns
+    the largest number of words that differ (0: bit-exact). The normal's
+    float64 log1p is the card's own in the kernel and in the twin on the
+    card (equal), and the CPU's in the twin on the CPU: there the two may
+    round across a float32 boundary, so its words are counted apart and
+    held within one float32 ulp."""
     from spriteworld_torch.ops import lane_random as lr
 
     worst, cases = 0.0, 0
@@ -2319,14 +2343,8 @@ def lane_random_vs_plain(torch, dev="cuda"):
                  "strided": lr.split(keys, 3)[:, 1]}
         for n in LANE_RANDOM_COUNTERS:
             for label, k in views.items():
-                for mode, kw in (
-                        (lr.KEYS, {}), (lr.KEYS, {"start": 5}),
-                        (lr.KEYS, {"counters_first": True, "start": 9}),
-                        (lr.BITS, {}),
-                        (lr.UNIFORM, {}),
-                        (lr.UNIFORM, {"lo": -3.0, "hi": 5.5}),
-                        (lr.RANDINT, {"lo": -2, "hi": 7}),
-                        (lr.NORMAL, {})):
+                for name, kw in LANE_RANDOM_MODES:
+                    mode = lr.MODE_NAMES.index(name)
                     got = lr.threefry_launch(k, n, mode, **kw)
                     for on_cpu in (False, True):
                         want = lr.threefry_plain(
@@ -2335,7 +2353,7 @@ def lane_random_vs_plain(torch, dev="cuda"):
                         check(got.shape == want.shape
                               and got.dtype == want.dtype,
                               f"lane_random {label} B={lanes} n={n} "
-                              f"{lr.MODE_NAMES[mode]} {kw}: shape")
+                              f"{name} {kw}: shape")
                         ulps = (got.view(torch.int32).long()
                                 - want.view(torch.int32).long()).abs()
                         if on_cpu and mode == lr.NORMAL:
@@ -2345,6 +2363,12 @@ def lane_random_vs_plain(torch, dev="cuda"):
                             continue
                         worst = max(worst, float((ulps != 0).sum()))
                     cases += 1
+                for p in LANE_RANDOM_CHOICES:
+                    cum = lr.cumulative(p)
+                    got = lr.choice(k, n, cum)
+                    worst = max(worst, float(
+                        (got.cpu() != lr.choice(k.cpu(), n, cum)).sum()))
+                    cases += 1
     print(f"lane_random against its plain twin (card and CPU): {cases} "
           f"cases, B in {LANE_RANDOM_LANES}, n in {LANE_RANDOM_COUNTERS}, "
           f"{worst:.0f} words differ; normals against the CPU twin: "
@@ -2353,6 +2377,67 @@ def lane_random_vs_plain(torch, dev="cuda"):
     check(normal_cpu[1] <= 1, "normals on the card and the CPU differ by "
                               "more than one float32 ulp")
     return worst
+
+
+# Phase 12 (d): every config in each of its modes, reset from this seed
+# over this many lanes on the card and on the CPU.
+SEEDED_CONFIGS = (
+    ("cobra.exploration", None),
+    ("cobra.goal_finding_new_position", "train"),
+    ("cobra.goal_finding_new_position", "test"),
+    ("cobra.goal_finding_new_shape", "train"),
+    ("cobra.goal_finding_new_shape", "test"),
+    ("cobra.goal_finding_more_targets", "train"),
+    ("cobra.goal_finding_more_targets", "test"),
+    ("cobra.goal_finding_more_distractors", "train"),
+    ("cobra.goal_finding_more_distractors", "test"),
+    ("cobra.clustering", "train"),
+    ("cobra.clustering", "test"),
+    ("cobra.sorting", "train"),
+    ("cobra.sorting", "test"),
+    ("examples.goal_finding_embodied", None),
+    ("examples.goal_finding_clustering", "train"),
+    ("examples.goal_finding_clustering", "test"),
+)
+SEEDED_SEED = 17
+SEEDED_LANES = 64
+
+
+def seeded_scenes(torch, env_lib, dev="cuda"):
+    """Phase 12 (d): `BatchedEnvironment.reset(SEEDED_SEED)` of every
+    config of SEEDED_CONFIGS over SEEDED_LANES lanes, on the card (a
+    graph) and on the CPU (the plain twins), observing factors and
+    success: every state field equal bit for bit, factors and keys
+    included. tests/test_torch_seeded_parity.py holds the CPU's to the JAX
+    package's. Returns the number of configs."""
+    import importlib
+
+    from spriteworld_torch.core import renderers
+    from spriteworld_torch.core.state import STATE_FIELDS
+
+    def reset(path, mode, device):
+        mod = importlib.import_module(f"spriteworld_torch.configs.{path}")
+        cfg = mod.get_config(mode) if mode else mod.get_config()
+        cfg["renderers"] = {"factors": renderers.SpriteFactors(),
+                            "success": renderers.Success()}
+        env = env_lib.Environment(**cfg, device=device)
+        state, _ = env_lib.BatchedEnvironment(env, SEEDED_LANES).reset(
+            SEEDED_SEED)
+        return {n: getattr(state, n).cpu() for n in STATE_FIELDS}
+
+    differ = []
+    for path, mode in SEEDED_CONFIGS:
+        card, cpu = reset(path, mode, dev), reset(path, mode, "cpu")
+        bad = [n for n in STATE_FIELDS if not torch.equal(card[n], cpu[n])]
+        if bad or not bool(card["sample_ok"].all()):
+            differ.append((path, mode, bad))
+    print(f"seeded scenes: reset({SEEDED_SEED}) of {len(SEEDED_CONFIGS)} "
+          f"configs x modes at {SEEDED_LANES} lanes, card against the CPU "
+          f"twin: {len(SEEDED_CONFIGS) - len(differ)} equal in every state "
+          f"field{'' if not differ else f'; differ: {differ}'}")
+    check(not differ, f"seeded scenes differ between the card and the CPU: "
+                      f"{differ}")
+    return len(SEEDED_CONFIGS)
 
 
 def noisy_low_acceptance_env(bench_torch, env_lib, dev, image_size):
@@ -2506,15 +2591,80 @@ def record_lane_random(step):
     return calls
 
 
+def lane_random_work(calls):
+    """(threefry blocks, bytes, operations) of lane_random `calls` (as
+    `record_lane_random` gives them): a block an output (keys, bits,
+    uniform, normal), four an output of randint (the key's two halves and
+    a block of each), two a round of the chain; each call's keys read once
+    (8 bytes a lane) and its outputs written once (8 bytes a key, 4 a
+    word). ~110 32-bit integer operations a block, counted at the float32
+    rate outside the tensor cores (the table's nearest), and ~25 float32
+    operations a normal (ErfInv32's polynomial and its log1p)."""
+    from spriteworld_torch.ops import lane_random as lr
+
+    blocks = nbytes = ops = 0.0
+    for keys, n, mode, *_ in calls:
+        lanes = keys.numel() // 2
+        per = {lr.RANDINT: 4, lr.CHAIN: 2}.get(mode, 1)
+        blocks += lanes * n * per
+        outs = lanes * (n + 1 if mode == lr.CHAIN else n)
+        nbytes += lanes * 8 + outs * (8 if mode in (lr.KEYS, lr.CHAIN)
+                                      else 4)
+        ops += 110.0 * lanes * n * per + (
+            25.0 * lanes * n if mode == lr.NORMAL else 0.0)
+    return blocks, nbytes, ops
+
+
+# The kernels-line's modes timed alone at BATCH lanes: (mode, n, kwargs),
+# the shapes a step draws (randint's one shape a lane, a rejection node's
+# REJECTION_ROUNDS proposals of six sprites, four noise normals).
+LANE_RANDOM_TIMED = (("keys", 2, {}), ("uniform", 1, {}),
+                     ("randint", 1, {"lo": 0, "hi": 3}),
+                     ("normal", 4, {}), ("chain", 32, {"sprites": 6}))
+
+
+def time_lane_random_modes(torch, card):
+    """Each mode of LANE_RANDOM_TIMED alone on BATCH lanes' keys (the
+    chain on BATCH x sprites keys, counters first): eager (`ms`), on the
+    device behind a spin (`device_ms`) and in a graph (`graph_ms`), beside
+    its bound. Returns {mode: {...}}."""
+    from spriteworld_torch.ops import lane_random as lr
+
+    out = {}
+    for name, n, kw in LANE_RANDOM_TIMED:
+        kw = dict(kw)
+        shape = (BATCH, kw.pop("sprites")) if "sprites" in kw else (BATCH,)
+        keys = lr.split(lr.key(5, "cuda"), shape)
+        mode = lr.MODE_NAMES.index(name)
+        first = mode == lr.CHAIN
+        call = (keys, n, mode, 0, first, kw.get("lo", 0.0),
+                kw.get("hi", 1.0))
+
+        def fn(call=call):
+            lr.threefry_launch(*call)
+
+        _, nbytes, ops = lane_random_work([call])
+        bound_ms, bound_by = bound(nbytes, 0, ops)
+        out[name] = {"lanes": list(shape), "n": n,
+                     "ms": event_ms(torch, fn, 50),
+                     "device_ms": event_ms(torch, fn, 50, spin=True),
+                     "graph_ms": graph_ms(torch, fn, 20),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    print("lane_random by mode at " + ", ".join(
+        f"{k} {tuple(v['lanes'])}x{v['n']}: {v['ms']:.4f} ms "
+        f"({v['device_ms']:.4f} on the device, {v['graph_ms']:.4f} in a "
+        f"graph; bound {v['bound_ms']:.6f}, {v['bound_by']})"
+        for k, v in out.items()) + f"; on {card}")
+    return out
+
+
 def time_lane_random(torch, bench_torch, env_lib, card, launches, steps):
     """The kernels-line entry of lane_random: the draws of one eager
     image64/AA=5 step at BATCH lanes (recorded, then replayed), kernel
     against plain twin (held equal), timed together (`ms`, `device_ms`,
-    `graph_ms`) beside the plain twin; the bound counts each call's keys
-    read once (8 bytes a lane) and outputs written once, and its
-    operations (~110 32-bit integer operations a block, at the float32
-    rate outside the tensor cores, the table's nearest); `launches` is
-    the main path's count (phase 4), over `steps` steps."""
+    `graph_ms`) beside the plain twin; the bound from `lane_random_work`;
+    `launches` is the main path's count (phase 4), over `steps` steps;
+    `by_mode` times each mode alone (`time_lane_random_modes`)."""
     from spriteworld_torch.ops import lane_random as lr
 
     env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
@@ -2539,10 +2689,7 @@ def time_lane_random(torch, bench_torch, env_lib, card, launches, steps):
         for c in calls:
             lr.threefry_plain(*c)
 
-    blocks = sum(k[0].numel() // 2 * k[1] for k in calls)
-    nbytes = sum(k[0].numel() * 4 + k[0].numel() // 2 * k[1]
-                 * (8 if k[2] == lr.KEYS else 4) for k in calls)
-    ops = 110.0 * blocks
+    blocks, nbytes, ops = lane_random_work(calls)
     by_mode = {}
     for k in calls:
         name = lr.MODE_NAMES[k[2]]
@@ -2562,9 +2709,10 @@ def time_lane_random(torch, bench_torch, env_lib, card, launches, steps):
         "bound_tc_ms": bound_ms, "bound_tc_by": bound_by,
         "library_ms": None,
         "step_draws": len(calls), "step_draws_by_mode": by_mode,
-        "step_blocks": blocks, "launches_per_step": launches / steps}
+        "step_blocks": blocks, "launches_per_step": launches / steps,
+        "by_mode": time_lane_random_modes(torch, card)}
     print(f"lane_random: one image64/AA=5 step at {BATCH} lanes draws "
-          f"{len(calls)} times ({by_mode}, {blocks} blocks): kernel "
+          f"{len(calls)} times ({by_mode}, {blocks:.0f} blocks): kernel "
           f"{entry['ms']:.4f} ms ({entry['device_ms']:.4f} on the device, "
           f"{entry['graph_ms']:.4f} in a graph), plain "
           f"{entry['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
@@ -2583,6 +2731,7 @@ def lane_keys_phase(torch, bench_torch, env_lib, card, dev="cuda"):
     counted = lr.threefry_launch.launches
     pure_step_and_lanes(torch, bench_torch, env_lib, dev)
     runner_halves(torch, bench_torch, dev)
+    seeded_scenes(torch, env_lib, dev)
     print(f"phase 12 (per-lane keys; {lr.threefry_launch.launches - counted}"
           f" lane_random launches) took {time.perf_counter() - t0:.1f} s "
           f"on {card}")

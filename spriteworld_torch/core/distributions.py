@@ -22,20 +22,21 @@ Semantics kept from the reference:
     ``ok`` is False where the bound ran out or a nested rejection node
     reported exhaustion, which stops the outer loop at once (fail fast).
 
-Keys: each node splits its key as the JAX node does (a Mixture into a
-choice key and a sample key, a Product into one key a component), so two
-nodes never draw from one key; a rejection node takes its round r
-proposal from `fold_in(key, r)`. An element's sample therefore depends on
-its key alone, however many elements share the call and however many
-rounds the other elements needed. The sampled values are the port's own
-(JAX's `choice` and `randint` draw others).
+Keys and draws: each node splits its key as the JAX node does (a Mixture
+into a choice key and a sample key, a Product into one key a component)
+and draws what the JAX node draws from it (`jax.random`'s uniform,
+randint and choice, through `ops.lane_random`); a rejection node takes
+its proposals from JAX's chain of splits (`lane_random.split_chain`). So
+from the same key an element's sample is the JAX package's, bit for bit,
+and it depends on its key alone, however many elements share the call and
+however many rounds the other elements needed.
 
 Sampling makes no host sync, so that a step can be captured in a CUDA
-graph: categorical draws invert cached cumulative probabilities, a mixture
-draws every component for every element and selects, and a rejection node
-draws its first REJECTION_ROUNDS proposals of every element at once. Only
-when an element is still pending after those does the node look at the
-host (see `_rejection_sample` and `defer_rejection`).
+graph: a choice searches cached cumulative probabilities, a mixture draws
+every component for every element and selects, and a rejection node draws
+its first REJECTION_ROUNDS proposals of every element at once. Only when
+an element is still pending after those does the node look at the host
+(see `_rejection_sample` and `defer_rejection`).
 """
 
 from __future__ import annotations
@@ -98,20 +99,14 @@ def defer_rejection(flag: torch.Tensor):
         _DEFERRED.reset(token)
 
 
-def cumulative_probs(probs) -> np.ndarray:
-    """float32 cumulative probabilities of `probs`, normalized."""
-    p = np.asarray(probs, np.float64)
-    return (np.cumsum(p) / p.sum()).astype(np.float32)
-
-
-def categorical(key: torch.Tensor, cdf: np.ndarray):
-    """i64[*S] indices drawn with cumulative probabilities `cdf`, one a
-    key of `key` int32[*S, 2], by inverting the CDF at each key's uniform
-    draw: unlike `torch.multinomial`, no validity check on the host."""
-    u = lane_random.uniform(key)[..., 0]
-    idx = torch.bucketize(u, device_lib.constant(cdf, key.device),
-                          right=True)
-    return idx.clamp_(max=len(cdf) - 1)
+def choose(key: torch.Tensor, n: int, cum) -> torch.Tensor:
+    """Indices in [0, n), one a key of `key` int32[*S, 2]:
+    `jax.random.choice(key, n, p=p)` (i64[*S]) where `cum` is
+    `lane_random.cumulative(p)`, `jax.random.choice(key, n)` (a randint,
+    i32[*S]) where it is None."""
+    if cum is None:
+        return lane_random.randint(key, 1, 0, n)[..., 0]
+    return lane_random.choice(key, 1, cum)[..., 0]
 
 
 def _resolve(key: str, value):
@@ -198,14 +193,11 @@ class Discrete(AbstractDistribution):
         self.candidates = np.asarray(
             [_resolve(key, c) for c in candidates], dtype=np.float32)
         self.probs = None if probs is None else np.asarray(probs)
-        self._cdf = None if probs is None else cumulative_probs(probs)
+        self._cum = None if probs is None else lane_random.cumulative(probs)
 
     def sample_with_status(self, key):
         dev = key.device
-        if self._cdf is None:
-            idx = lane_random.randint(key, 1, 0, len(self.candidates))[..., 0]
-        else:
-            idx = categorical(key, self._cdf)
+        idx = choose(key, len(self.candidates), self._cum)
         cands = device_lib.constant(self.candidates, dev)
         return ({self.key: cands[idx.long()]},
                 torch.ones(idx.shape, dtype=torch.bool, device=dev))
@@ -236,15 +228,14 @@ def _same_keys_check(components, what):
     return keys
 
 
-def _proposal_rounds(key, first_round, rounds, propose, accept):
-    """Proposals `first_round` .. `first_round + rounds - 1` of every
-    element, drawn at once, proposal r from `fold_in(key, r)`; of each
-    element's, the first that ends its do-while (accepted, or not ok: fail
-    fast), else the last. Returns (spec, ok, pending bool[*S]): pending
-    where none of them ended the loop."""
-    shape = tuple(key.shape[:-1])
-    keys = lane_random.split(key, rounds, start=first_round,
-                             counters_first=True)
+def _proposal_rounds(chain_key, rounds, propose, accept):
+    """The next `rounds` proposals of every element, drawn at once from
+    the next keys of the split chain at `chain_key` (`split_chain`); of
+    each element's, the first that ends its do-while (accepted, or not ok:
+    fail fast), else the last. Returns (spec, ok, pending bool[*S], the
+    chain's key after them): pending where none of them ended the loop."""
+    shape = tuple(chain_key.shape[:-1])
+    keys, chain_key = lane_random.split_chain(chain_key, rounds)
     spec, ok = propose(keys)
     ok = ok.expand((rounds,) + shape)
     stop = accept(spec) | ~ok
@@ -256,7 +247,7 @@ def _proposal_rounds(key, first_round, rounds, propose, accept):
         return v.expand((rounds,) + shape).gather(0, first).squeeze(0)
 
     return ({k: take(v) for k, v in spec.items()}, take(ok),
-            ~stop.any(0))
+            ~stop.any(0), chain_key)
 
 
 def _rejection_sample(key, propose, accept):
@@ -268,17 +259,19 @@ def _rejection_sample(key, propose, accept):
     ok=False (a nested rejection node that ran out) stops that element's
     loop: fail fast. Returns (spec, accept(spec) & ok).
 
-    The proposals come in rounds of REJECTION_ROUNDS for every element,
-    each element taking the first of a round that ends its loop, so the
-    first round makes no host sync. Where an element is still pending after
-    it, the node goes on with further rounds while the host finds one
-    pending; inside `defer_rejection` it sets the flag instead and stops.
-    Proposal r of an element comes from `fold_in` of its key with r
-    (JAX's loop splits its key once a proposal instead): an element's
-    sample is the same whichever rounds run and whoever else is pending.
+    Proposal r of an element comes from the r-th key of JAX's chain (its
+    loop's `k, sub = split(k)` from the key, `lane_random.split_chain`), so
+    an element's sample is the JAX node's and the same whichever rounds run
+    and whoever else is pending. The proposals come in rounds of
+    REJECTION_ROUNDS for every element, each element taking the first of a
+    round that ends its loop, so the first round makes no host sync. Where
+    an element is still pending after it, the node goes on with further
+    rounds from the chain's carried key while the host finds one pending;
+    inside `defer_rejection` it sets the flag instead and stops.
     """
     rounds = min(REJECTION_ROUNDS, MAX_REJECTION_TRIES)
-    spec, ok, pending = _proposal_rounds(key, 0, rounds, propose, accept)
+    spec, ok, pending, chain_key = _proposal_rounds(key, rounds, propose,
+                                                    accept)
     deferral = _DEFERRED.get()
     if deferral is not None:
         deferral.nodes += 1
@@ -287,8 +280,8 @@ def _rejection_sample(key, propose, accept):
     tries = rounds
     while tries < MAX_REJECTION_TRIES and bool(pending.any()):
         n = min(REJECTION_ROUNDS, MAX_REJECTION_TRIES - tries)
-        new, new_ok, new_pending = _proposal_rounds(key, tries, n, propose,
-                                                    accept)
+        new, new_ok, new_pending, chain_key = _proposal_rounds(
+            chain_key, n, propose, accept)
         spec = {k: torch.where(pending, new[k], v) for k, v in spec.items()}
         ok = torch.where(pending, new_ok, ok)
         pending = pending & new_pending
@@ -304,11 +297,11 @@ class Mixture(AbstractDistribution):
         self.probs = (np.ones(len(self.components)) / len(self.components)
                       if probs is None else np.asarray(probs))
         self._keys = _same_keys_check(self.components, "Mixture")
-        self._cdf = cumulative_probs(self.probs)
+        self._cum = lane_random.cumulative(self.probs)
 
     def sample_with_status(self, key):
         keys = lane_random.split(key, 2)  # the choice's key, the sample's
-        idx = categorical(keys[..., 0, :], self._cdf)
+        idx = choose(keys[..., 0, :], len(self.components), self._cum)
         # Every component draws for every element from the sample key and
         # each element takes its own component's draw (JAX's lax.switch
         # under vmap).

@@ -144,16 +144,13 @@ class SampleGenerator(SpriteGenerator):
     def __init__(self, gens: Sequence[SpriteGenerator], p=None):
         self.gens = list(gens)
         self.p = None if p is None else np.asarray(p)
-        self._cdf = None if p is None else distributions.cumulative_probs(p)
+        self._cum = None if p is None else lane_random.cumulative(p)
         self.max_sprites = max(g.max_sprites for g in self.gens)
 
     def sample_with_status(self, key):
         dev, batch = key.device, key.shape[0]
         keys = lane_random.split(key, 2)  # the choice's key, the scene's
-        if self._cdf is None:
-            idx = lane_random.randint(keys[:, 0], 1, 0, len(self.gens))[:, 0]
-        else:
-            idx = distributions.categorical(keys[:, 0], self._cdf)
+        idx = distributions.choose(keys[:, 0], len(self.gens), self._cum)
         # Every generator draws for every lane from the scene key and each
         # lane takes its own generator's scene (JAX's lax.switch under
         # vmap).

@@ -1,10 +1,10 @@
 """Port parity, the dm_env adapter: spriteworld_torch's single-env view
 against the JAX package's, on the CPU.
 
-Random streams differ (threefry against torch.Generator), so trajectories
-run from one injected scene (the JAX adapter's state, with grid-valued
-positions, copied into the port's through `state_from_numpy` at B=1) and
-one list of grid-valued actions. Tolerances: step types, discounts,
+Trajectories run from one injected scene (the JAX adapter's state, with
+grid-valued positions, copied into the port's through `state_from_numpy`
+at B=1) and one list of grid-valued actions; an adapter from a seed is in
+tests/test_torch_seeded_parity.py. Tolerances: step types, discounts,
 factors and sprite counts exact; rewards exact (grid-valued positions);
 anti_aliasing=1 pixels exact; anti_aliasing>1 pixels within +-1.
 """

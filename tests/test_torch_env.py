@@ -1,11 +1,12 @@
 """Port parity, engine: distributions, generators, SelectMove, tasks, state,
 and whole trajectories against the JAX package.
 
-Both packages key every lane with threefry keys that split alike
-(`ops.lane_random`), but their samplers draw other values from them, so
-parity runs on injected scenes and actions made with numpy (where the
-lanes' keys then agree bit for bit too); samplers are checked through
-exact contains-masks and statistics.
+Both packages key every lane with threefry keys that split alike and draw
+the same values from them (`ops.lane_random`; seeded runs of every config
+are in tests/test_torch_seeded_parity.py). Here parity runs on injected
+scenes and actions made with numpy (where the lanes' keys agree bit for
+bit too), which reach cases a seed rarely draws; samplers are checked
+through exact contains-masks and statistics too.
 """
 
 import numpy as np

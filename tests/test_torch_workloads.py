@@ -3,11 +3,12 @@ distance's rounding, RandInt/SampleGenerator, the rejecting distributions,
 every config, every bench_torch.py builder, and the sorting and embodied
 trajectories against the JAX package.
 
-Both packages key every lane with threefry keys that split alike, but
-their samplers draw other values from them, so parity runs on injected
-scenes and actions made with numpy (where the lanes' keys agree bit for
-bit too); samplers are checked through exact contains-masks and
-statistics.
+Both packages key every lane with threefry keys that split alike and draw
+the same values from them (seeded runs of every config are in
+tests/test_torch_seeded_parity.py). Here parity runs on injected scenes
+and actions made with numpy (where the lanes' keys agree bit for bit
+too), which reach cases a seed rarely draws; samplers are checked through
+exact contains-masks and statistics too.
 """
 
 import importlib
