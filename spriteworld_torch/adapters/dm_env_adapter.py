@@ -45,6 +45,7 @@ from spriteworld_torch.core import renderers as renderers_lib
 from spriteworld_torch.core import state as state_lib
 from spriteworld_torch.ops import geometry, lane_random
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils import profiling
 
 # Tries of sample_contained_position, and how many of them one CPU call of
 # the containment test takes at once.
@@ -116,7 +117,8 @@ class Environment(dm_env.Environment):
                 leaves.update({("obs", name, k): v for k, v in value.items()})
             else:
                 leaves[("obs", name)] = value
-        host = device_lib.to_host(leaves)
+        with profiling.annotate("adapter.fetch"):
+            host = device_lib.to_host(leaves)
         out_extra, out_obs = {}, {}
         for key, value in host.items():
             if key[0] == "extra":
@@ -170,8 +172,9 @@ class Environment(dm_env.Environment):
         self._state, _ = launch()
         host, obs = self._fetch_timestep()
         if host.get("pending", False):
-            self._state, _ = self._compiled.rerun(self._env)
-            host, obs = self._fetch_timestep()
+            with profiling.annotate("adapter.rerun"):
+                self._state, _ = self._compiled.rerun(self._env)
+                host, obs = self._fetch_timestep()
         self._check_sample_ok(host)
         obs = self._convert_obs(obs, int(host["num_sprites"]))
         st = int(host["step_type"])
@@ -212,14 +215,17 @@ class Environment(dm_env.Environment):
                 "config's cluster_distribs against its scene distribution.")
 
     def reset(self) -> dm_env.TimeStep:
-        keys = self._next_key()[None]
-        return self._timestep(lambda: self._compiled.reset(self._env, keys))
+        with profiling.annotate("adapter.reset"):
+            keys = self._next_key()[None]
+            return self._timestep(
+                lambda: self._compiled.reset(self._env, keys))
 
     def step(self, action) -> dm_env.TimeStep:
-        dtype = np.int32 if self._int_actions else np.float32
-        action = np.asarray(action, dtype=dtype)[None]
-        return self._timestep(
-            lambda: self._compiled.step(self._env, self._state, action))
+        with profiling.annotate("adapter.step"):
+            dtype = np.int32 if self._int_actions else np.float32
+            action = np.asarray(action, dtype=dtype)[None]
+            return self._timestep(
+                lambda: self._compiled.step(self._env, self._state, action))
 
     def observation_spec(self):
         spec = {}

@@ -52,6 +52,7 @@ import torch
 from spriteworld_torch import constants
 from spriteworld_torch.ops import lane_random
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils import profiling
 
 Spec = Dict[str, torch.Tensor]
 
@@ -414,6 +415,7 @@ class SetMinus(AbstractDistribution):
                 f"Keys {sorted(hold_out.keys)} of hold_out is not a subset of "
                 f"keys {sorted(base.keys)} of SetMinus base distribution.")
 
+    @profiling.node
     def sample_with_status(self, key):
         return _rejection_sample(key, self.base.sample_with_status,
                                  lambda s: ~self.hold_out.contains(s))
@@ -444,6 +446,7 @@ class Selection(AbstractDistribution):
                 f"Keys {sorted(filtering.keys)} of filtering is not a subset "
                 f"of keys {sorted(base.keys)} of Selection base distribution.")
 
+    @profiling.node
     def sample_with_status(self, key):
         return _rejection_sample(key, self.base.sample_with_status,
                                  self.filtering.contains)

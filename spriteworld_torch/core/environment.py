@@ -228,19 +228,22 @@ class Environment:
     def _fresh(self, split_keys: torch.Tensor, reset_next: bool) -> EnvState:
         """Fresh scenes of lanes whose keys split into `split_keys`
         int32[B, 2, 2]: the scene's key, then the state's next key."""
-        batch = split_keys.shape[0]
-        factors, num, ok = self._init_sprites.sample_with_status(
-            split_keys[:, 0])
-        return EnvState(
-            factors=factors,
-            num_sprites=num,
-            step_count=torch.zeros(batch, dtype=torch.int32,
-                                   device=self.device),
-            reset_next=torch.full((batch,), reset_next, dtype=torch.bool,
-                                  device=self.device),
-            key=split_keys[:, 1],
-            sample_ok=ok,
-            task_valid=task_valid(self._task, factors, num))
+        with profiling.annotate("env.fresh"):
+            batch = split_keys.shape[0]
+            factors, num, ok = self._init_sprites.sample_with_status(
+                split_keys[:, 0])
+            with profiling.annotate("env.task"):
+                valid = task_valid(self._task, factors, num)
+            return EnvState(
+                factors=factors,
+                num_sprites=num,
+                step_count=torch.zeros(batch, dtype=torch.int32,
+                                       device=self.device),
+                reset_next=torch.full((batch,), reset_next,
+                                      dtype=torch.bool, device=self.device),
+                key=split_keys[:, 1],
+                sample_ok=ok,
+                task_valid=valid)
 
     def reset_batch(self, keys):
         """Sample B fresh scenes from lane keys `keys` int32[B, 2] (or a
@@ -249,9 +252,7 @@ class Environment:
         keys = self.lane_keys(keys)
         batch = keys.shape[0]
         state = self._fresh(lane_random.split(keys, 2), reset_next=False)
-        success = self._task.success(state.factors, state.num_sprites)
-        obs = self.observation_batch(
-            state.factors, state.num_sprites, success)
+        obs = self._render(state)
         ts = TimeStep(
             step_type=torch.full((batch,), StepType.FIRST, dtype=torch.int32,
                                  device=self.device),
@@ -270,7 +271,7 @@ class Environment:
     def _transition_batch(self, state: EnvState, actions: torch.Tensor):
         """One transition of every lane, no render: (state, TimeStep whose
         observation is ())."""
-        with profiling.annotate("spriteworld.transition"):
+        with profiling.annotate("env.transition"):
             # One split serves both branches, as in the JAX package: a
             # stepping lane carries the first key on and acts with the
             # second; a resetting lane draws its scene from the first and
@@ -287,8 +288,10 @@ class Environment:
             factors[..., 0:2] = new_pos
             num = state.num_sprites
 
-            reward = cost + self._task.reward(factors, num)
-            success = self._task.success(factors, num)
+            with profiling.annotate("env.task"):
+                reward = cost + self._task.reward(factors, num)
+                success = self._task.success(factors, num)
+                valid = task_valid(self._task, factors, num)
             oof = geometry.out_of_frame(factors, num)
             step_count = state.step_count + 1
             terminate = success | oof | (
@@ -300,7 +303,7 @@ class Environment:
                 reset_next=terminate,
                 key=split_keys[:, 0],
                 sample_ok=state.sample_ok,
-                task_valid=task_valid(self._task, factors, num))
+                task_valid=valid)
 
             # Lanes that ended last step start a new episode instead.
             reset = state.reset_next
@@ -329,11 +332,17 @@ class Environment:
         (reward 0, discount 1) instead of stepping. `actions` take the
         action space's dtype."""
         new, ts = self._transition_batch(state, actions)
-        with profiling.annotate("spriteworld.render"):
-            success = self._task.success(new.factors, new.num_sprites)
-            obs = self.observation_batch(new.factors, new.num_sprites,
-                                         success)
-        return new, dataclasses.replace(ts, observation=obs)
+        return new, dataclasses.replace(ts, observation=self._render(new))
+
+    def _render(self, state: EnvState):
+        """The renderers' observation of `state`, its success flag taken
+        from the task."""
+        with profiling.annotate("env.render"):
+            with profiling.annotate("env.task"):
+                success = self._task.success(state.factors,
+                                             state.num_sprites)
+            return self.observation_batch(state.factors, state.num_sprites,
+                                          success)
 
     def sample_action(self, key: torch.Tensor):
         """Random actions [B, ...], one a lane key of `key` int32[B, 2]."""
@@ -482,17 +491,19 @@ class Compiled:
     def reset(self, env, keys: torch.Tensor):
         """Fresh scenes in every lane from lane keys `keys` int32[lanes,
         2]: (state, FIRST TimeStep), the buffers."""
-        self._load_keys(keys)
-        self._launch(env, "reset")
+        with profiling.annotate("compiled.reset"):
+            self._load_keys(keys)
+            self._launch(env, "reset")
         return self.state, self.timestep
 
     def step(self, env, state: EnvState, actions):
         """One step of every lane from `state` with `actions`: (state,
         TimeStep), the buffers; `state` is overwritten where it is the
         state buffers."""
-        self._load_state(state)
-        self._load_actions(env, actions)
-        self._launch(env, "step")
+        with profiling.annotate("compiled.step"):
+            self._load_state(state)
+            self._load_actions(env, actions)
+            self._launch(env, "step")
         return self.state, self.timestep
 
     def observe(self, env, state: EnvState):
@@ -528,11 +539,13 @@ class Compiled:
             kept = (self.state.clone()
                     if self.use_graph and self.state is not None else None)
             self._programs[name] = StepGraph(body, self._pending,
-                                             self.use_graph)
+                                             self.use_graph,
+                                             name="compiled." + name)
             if kept is not None:
                 _copy(self.state, kept)
         self._last = name
-        self._programs[name].run(1, body)
+        with profiling.annotate("compiled.replay", device=True):
+            self._programs[name].run(1, body)
 
 
 class BatchedEnvironment:

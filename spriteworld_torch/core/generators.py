@@ -22,6 +22,7 @@ import torch
 from spriteworld_torch.core import distributions
 from spriteworld_torch.core import state as state_lib
 from spriteworld_torch.ops import lane_random
+from spriteworld_torch.utils import profiling
 
 
 class RandInt:
@@ -68,6 +69,7 @@ class SpriteGenerator:
         `key` int32[B, 2]."""
         return self.sample_with_status(key)[:2]
 
+    @profiling.node
     def sample_with_status(self, key: torch.Tensor):
         """(factors, num, ok bool[B]); ok=False flags a scene with a sprite
         whose rejection sampling exhausted its bound."""
@@ -92,6 +94,7 @@ class GenerateSprites(SpriteGenerator):
         self.max_sprites = (num_sprites if isinstance(num_sprites, int)
                             else num_sprites.max_value)
 
+    @profiling.node
     def sample_with_status(self, key):
         dev, batch = key.device, key.shape[0]
         kmax = self.max_sprites
@@ -122,6 +125,7 @@ class ChainGenerators(SpriteGenerator):
         self.gens = gens
         self.max_sprites = sum(g.max_sprites for g in gens)
 
+    @profiling.node
     def sample_with_status(self, key):
         parts, valids = [], []
         ok = torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
@@ -147,6 +151,7 @@ class SampleGenerator(SpriteGenerator):
         self._cum = None if p is None else lane_random.cumulative(p)
         self.max_sprites = max(g.max_sprites for g in self.gens)
 
+    @profiling.node
     def sample_with_status(self, key):
         dev, batch = key.device, key.shape[0]
         keys = lane_random.split(key, 2)  # the choice's key, the scene's
@@ -178,6 +183,7 @@ class Shuffle(SpriteGenerator):
         self.gen = gen
         self.max_sprites = gen.max_sprites
 
+    @profiling.node
     def sample_with_status(self, key):
         keys = lane_random.split(key, 2)  # the scene's key, the order's
         factors, num, ok = self.gen.sample_with_status(keys[:, 0])

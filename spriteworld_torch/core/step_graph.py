@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import torch
 
 from spriteworld_torch.core import distributions
+from spriteworld_torch.utils import profiling
 
 
 def use_graph_for(device: torch.device, use_graph: Optional[bool]) -> bool:
@@ -54,21 +55,26 @@ class StepGraph:
     refers to its owner would make a reference cycle through the owner's
     programs, and the garbage collector could then free a graph during
     another capture, which CUDA refuses.
+
+    The capture is recorded under `name` (`utils.profiling.capture`):
+    `record` holds the graph's node map and kernel census.
     """
 
     def __init__(self, step: Callable[[], None], pending: torch.Tensor,
-                 use_graph: bool):
+                 use_graph: bool, name: str = "step"):
         self.pending = pending
         self.graph = None
+        self.record = None
         self.rejects = False
         if use_graph:
             with distributions.defer_rejection(pending) as deferral:
                 step()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                with distributions.defer_rejection(pending):
+                with profiling.capture(name) as record, \
+                        distributions.defer_rejection(pending):
                     step()
-            self.graph = graph
+            self.graph, self.record = graph, record
             self.rejects = deferral.nodes > 0
 
     def run(self, n: int, step: Callable[[], None], defer: bool = True):

@@ -61,6 +61,7 @@ import torch
 
 from spriteworld_torch.ops import _build
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils import profiling
 
 MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -69,6 +70,9 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # Output modes of the kernel and of its plain twin.
 KEYS, BITS, UNIFORM, RANDINT, NORMAL, CHAIN = range(6)
 MODE_NAMES = ("keys", "bits", "uniform", "randint", "normal", "chain")
+# Threefry blocks an output of each mode computes: randint the two halves
+# of the key and a block of each; the chain two blocks a round.
+BLOCKS_PER_OUTPUT = (1, 1, 1, 4, 1, 2)
 
 # JAX's normal draws its uniform on [nextafter(-1, 0), 1).
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -242,8 +246,13 @@ def _chain_plain(flat: torch.Tensor, n: int, counters_first: bool):
 def threefry_plain(keys: torch.Tensor, n: int, mode: int, start: int = 0,
                    counters_first: bool = False, lo=0.0, hi=1.0):
     """The plain torch twin of `threefry_launch` (same arguments, same
-    result), for keys on any device."""
+    result), for keys on any device. It counts what the kernel's launch
+    would into the census of a graph being captured
+    (`utils.profiling.count`)."""
     lanes = tuple(keys.shape[:-1])
+    if n and math.prod(lanes):
+        profiling.count("lane_random", MODE_NAMES[mode],
+                        math.prod(lanes) * n * BLOCKS_PER_OUTPUT[mode])
     flat = keys.reshape(-1, 2).to(torch.int64) & MASK
     if mode == CHAIN:
         out = _chain_plain(flat, n, counters_first)
@@ -330,7 +339,9 @@ def threefry_launch(keys: torch.Tensor, n: int, mode: int, start: int = 0,
     2], `split_chain`; `start` unused). With `counters_first` the counter
     axis leads ([n, *S, ...]). Runs on the current stream; raises when the
     kernel cannot launch. Each launch adds one to
-    `threefry_launch.launches` and `.by_mode[MODE_NAMES[mode]]`."""
+    `threefry_launch.launches` and `.by_mode[MODE_NAMES[mode]]`, and the
+    launch with its threefry blocks to the census of a graph being
+    captured (`utils.profiling.count`)."""
     if not keys.is_cuda:
         raise ValueError("threefry_launch needs CUDA keys; CPU keys use "
                          "threefry_plain")
@@ -376,6 +387,7 @@ def threefry_launch(keys: torch.Tensor, n: int, mode: int, start: int = 0,
     threefry_launch.launches += 1
     name = MODE_NAMES[mode]
     threefry_launch.by_mode[name] = threefry_launch.by_mode.get(name, 0) + 1
+    profiling.count("lane_random", name, count * n * BLOCKS_PER_OUTPUT[mode])
     return out
 
 

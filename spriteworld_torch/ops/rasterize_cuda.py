@@ -69,6 +69,7 @@ from spriteworld_torch.ops import _build
 from spriteworld_torch.ops import rasterize
 from spriteworld_torch.ops import resample
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils import profiling
 
 _BIG = 1e9
 
@@ -316,10 +317,12 @@ def mode_name(pil_exact: bool, ds: int) -> str:
 
 def _count_launch(fn, mode: str, batch: int):
     """One more launch of kernel wrapper `fn` over `batch` scenes, in all,
-    in `mode` and in `by_batch`."""
+    in `mode`, in `by_batch` and in the census of a graph being captured
+    (`utils.profiling.count`)."""
     fn.launches += 1
     fn.by_mode[mode] = fn.by_mode.get(mode, 0) + 1
     fn.by_batch[batch] = fn.by_batch.get(batch, 0) + 1
+    profiling.count(fn.__name__, mode)
 
 
 def reset_launch_counts():

@@ -63,6 +63,7 @@ from spriteworld_torch.core.step_graph import (  # noqa: F401
     StepGraph, use_graph_for)
 from spriteworld_torch.ops import lane_random
 from spriteworld_torch.parallel import mesh as mesh_lib
+from spriteworld_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -251,18 +252,27 @@ class ShardedRunner:
     def _actions(self, carry: _Carry):
         """The step's actions: the action key splits into the next one
         (carried, in place) and the step's, split over the global lanes."""
-        keys = lane_random.split(carry.key, 2)
-        carry.key.copy_(keys[0])
-        lane_keys = self._global_split(keys[1])
-        if self._policy is not None:
-            return self._policy(lane_keys, carry.state)
-        return self.env.sample_action(lane_keys)
+        with profiling.annotate("runner.actions"):
+            keys = lane_random.split(carry.key, 2)
+            carry.key.copy_(keys[0])
+            lane_keys = self._global_split(keys[1])
+            if self._policy is not None:
+                return self._policy(lane_keys, carry.state)
+            return self.env.sample_action(lane_keys)
 
     def _step(self, carry: _Carry, num_steps: int, with_returns: bool,
               obs_keys):
         """One step on `carry`, in place (inside `StepGraph.run`)."""
         state, ts = self.env.step_batch(carry.state, self._actions(carry))
+        with profiling.annotate("runner.stack"):
+            self._accumulate(carry, state, ts, num_steps, with_returns,
+                             obs_keys)
 
+    @staticmethod
+    def _accumulate(carry: _Carry, state: EnvState, ts: TimeStep,
+                    num_steps: int, with_returns: bool, obs_keys):
+        """The step's metrics into the accumulators, its state into the
+        carry and, with returns, its TimeStep into the stacked buffers."""
         last = ts.last()
         reward = torch.nan_to_num(ts.reward)  # nanmean-style exclusion
         ret_acc = carry.ret_acc + reward
@@ -309,20 +319,24 @@ class ShardedRunner:
         if key not in self._programs:
             carry = _Carry.like(state, self.episode_returns, self._key)
             self._programs[key] = (carry, StepGraph(
-                lambda: self._step(carry, *sig), carry.pending, use_graph))
+                lambda: self._step(carry, *sig), carry.pending, use_graph,
+                name="runner.step"))
         return self._programs[key]
 
     def _chunk(self, carry, program, sig, state, ret_acc, defer):
         """Run one chunk on `carry`; returns the global values read at the
         boundary: [episodes, successes, pending, return_sum, reward_sum]."""
-        carry.load(state, ret_acc, self._key)
-        program.run(sig[0], lambda: self._step(carry, *sig), defer=defer)
-        counts = torch.cat([carry.counts.to(torch.int64),
-                            carry.pending.to(torch.int64)[None]])
-        sums = carry.sums.clone()
-        self._repl.all_reduce(counts)
-        self._repl.all_reduce(sums)
-        return _to_host(torch.cat([counts.double(), sums.double()]))
+        with profiling.annotate("runner.load"):
+            carry.load(state, ret_acc, self._key)
+        with profiling.annotate("runner.replay", device=True):
+            program.run(sig[0], lambda: self._step(carry, *sig), defer=defer)
+        with profiling.annotate("runner.read"):
+            counts = torch.cat([carry.counts.to(torch.int64),
+                                carry.pending.to(torch.int64)[None]])
+            sums = carry.sums.clone()
+            self._repl.all_reduce(counts)
+            self._repl.all_reduce(sums)
+            return _to_host(torch.cat([counts.double(), sums.double()]))
 
     # ------------------------------------------------------------------ #
     @property
@@ -381,40 +395,50 @@ class ShardedRunner:
         carried since the last `reset()` is used. The input state is left
         as it is.
         """
-        if episode_returns is not None:
-            self.episode_returns = episode_returns
-        if int(num_steps) < 1:
-            raise ValueError(f"num_steps must be positive, got {num_steps}")
-        if int(num_steps) * self.num_envs >= 2**31:
-            raise ValueError(
-                f"A single chunk of {num_steps} steps x {self.num_envs} "
-                "envs would overflow the on-device i32 step counter; split "
-                "into smaller chunks (host-side accumulation is unbounded).")
-        if timestep_obs is not None:
-            timestep_obs = tuple(timestep_obs)
-        sig = (int(num_steps), bool(return_timesteps), timestep_obs)
-        carry, program = self._program(sig, state, self.use_graph)
-        ret_acc = self.episode_returns
-        host = self._chunk(carry, program, sig, state, ret_acc, defer=True)
-        if host[2]:
-            # A rejection node ran past its first rounds on some rank:
-            # every rank runs the same chunk again, eagerly, with
-            # host-checked rejection, from the same state and action key.
-            self.reruns += 1
-            carry, program = self._program(sig, state, use_graph=False)
+        with profiling.annotate("runner.rollout"):
+            if episode_returns is not None:
+                self.episode_returns = episode_returns
+            if int(num_steps) < 1:
+                raise ValueError(
+                    f"num_steps must be positive, got {num_steps}")
+            if int(num_steps) * self.num_envs >= 2**31:
+                raise ValueError(
+                    f"A single chunk of {num_steps} steps x {self.num_envs} "
+                    "envs would overflow the on-device i32 step counter; "
+                    "split into smaller chunks (host-side accumulation is "
+                    "unbounded).")
+            if timestep_obs is not None:
+                timestep_obs = tuple(timestep_obs)
+            sig = (int(num_steps), bool(return_timesteps), timestep_obs)
+            carry, program = self._program(sig, state, self.use_graph)
+            ret_acc = self.episode_returns
             host = self._chunk(carry, program, sig, state, ret_acc,
-                               defer=False)
-        new_state = carry.state.clone()
-        self._ret_acc = carry.ret_acc.clone()
-        self._key = carry.key.clone()
-        metrics = Metrics(steps=int(num_steps) * self.num_envs,
-                          episodes=int(host[0]), successes=int(host[1]),
-                          return_sum=host[3], reward_sum=host[4])
-        if return_timesteps:
-            return new_state, metrics, TimeStep(*(
-                _map(torch.clone, getattr(carry.stacked, f.name))
-                for f in dataclasses.fields(TimeStep)))
-        return new_state, metrics
+                               defer=True)
+            if host[2]:
+                # A rejection node ran past its first rounds on some rank:
+                # every rank runs the same chunk again, eagerly, with
+                # host-checked rejection, from the same state and action
+                # key.
+                with profiling.annotate("runner.rerun"):
+                    self.reruns += 1
+                    carry, program = self._program(sig, state,
+                                                   use_graph=False)
+                    host = self._chunk(carry, program, sig, state, ret_acc,
+                                       defer=False)
+            with profiling.annotate("runner.clone"):
+                new_state = carry.state.clone()
+                self._ret_acc = carry.ret_acc.clone()
+                self._key = carry.key.clone()
+                stacked = (TimeStep(*(
+                    _map(torch.clone, getattr(carry.stacked, f.name))
+                    for f in dataclasses.fields(TimeStep)))
+                    if return_timesteps else None)
+            metrics = Metrics(steps=int(num_steps) * self.num_envs,
+                              episodes=int(host[0]), successes=int(host[1]),
+                              return_sum=host[3], reward_sum=host[4])
+            if return_timesteps:
+                return new_state, metrics, stacked
+            return new_state, metrics
 
     # ------------------------------------------------------------------ #
     def evaluate(self, num_episodes: int, chunk_steps: int = 128,
