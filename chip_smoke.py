@@ -172,7 +172,11 @@ Phases:
      ends with lane_random: the draws of one image64/AA=5 step at 2048
      lanes replayed, held against the plain twin and timed beside it, its
      bound, the main path's (phase 4's) launches, and each mode timed
-     alone in and out of a graph (`by_mode`);
+     alone in and out of a graph (`by_mode`), then scene_tables: the main
+     path's tables from the kernel against the plain twin on the card and
+     on the CPU in both fills and every colour route (0 values apart), its
+     time beside the twin's eager and in a graph, its bound, registers and
+     spill, and phase 4's launches (one a render);
  13. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
@@ -675,11 +679,16 @@ def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
     rate, state, renders = drive(torch, benv, STEPS, CHUNKS, WARMUP_STEPS,
                                  (64, 64, 3), bad_rewards, "main path")
     launches = rasterize_cuda.scene_raster.launches
+    tables = rasterize_cuda.scene_tables.launches
     draws = lane_random.threefry_launch.launches
     print(f"scene_raster launches {launches} for {renders} renders; "
+          f"scene_tables launches {tables} "
+          f"{json.dumps(rasterize_cuda.scene_tables.by_mode)}; "
           f"lane_random launches {draws} "
           f"{json.dumps(lane_random.threefry_launch.by_mode)}")
     check(launches == renders, "a render did not go through the kernel")
+    check(tables == renders, "a render's tables did not come from the "
+          "scene_tables kernel")
     check(draws > 0, "no draw went through the lane_random kernel")
     return rate, state, launches, draws
 
@@ -3025,6 +3034,110 @@ def time_strips(torch, rasterize_cuda, colors, state):
     }]
 
 
+def scene_tables_work(factors, tab):
+    """(bytes read, bytes written, float32 operations) of the scene tables
+    of `factors` [B, K, 10]: the factors read once, the table written once
+    (the vertex bank, 3 kB, stays in cache); a vertex's rotation, scale
+    and crossings ~40 operations, its float64 sine and cosine counted as
+    ~40 more."""
+    b, k, _ = factors.shape
+    v = (tab.shape[-1] - 8) // 11
+    return (factors.numel() * 4 + b * 4, tab.numel() * 4, 80.0 * b * k * v)
+
+
+def ptxas_lines(_build, name):
+    """(registers, spill bytes) of kernel library `name` from its build log
+    (ptxas -v), (None, None) where the log has none."""
+    import re
+
+    log = _build.library_path(name).with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    regs = re.findall(r"Used (\d+) registers", text)
+    spill = re.findall(r"(\d+) bytes spill stores", text)
+    return ((int(regs[-1]) if regs else None),
+            (int(spill[-1]) if spill else None))
+
+
+def time_scene_tables(torch, rasterize_cuda, colors, state, card):
+    """Phase 8, scene_tables: the main path's tables (image64/AA=5, B=2048,
+    exact fill, HSV) from the kernel against the plain twin on the card
+    and on the CPU (held equal), every fill and colour route held equal
+    too; the kernel's time (`ms`, `device_ms`, `graph_ms`) beside the
+    twin's eager and in a graph (`plain_graph_ms`: the ~230 kernels the
+    render node ran before the kernel), at one lane too (`one_lane`), and
+    the bound. Returns its `kernels` entry (`launches` filled in by the
+    caller)."""
+    from spriteworld_torch.ops import _build
+
+    rc = rasterize_cuda
+    f, n = state.factors, state.num_sprites
+    hc = 64 * 5
+    routes = {"none": None, "hsv": colors.hsv_to_rgb,
+              "given": lambda c: 255.0 * c.flip(-1)}
+    worst = 0
+    for exact in (True, False):
+        for route, cmap in routes.items():
+            got = rc.scene_tables(f, n, hc, hc, cmap, exact).tab
+            want = rc.prepare_plain(f, n, hc, hc, cmap, exact).tab
+            host = rc.prepare_plain(f.cpu(), n.cpu(), hc, hc, cmap,
+                                    exact).tab
+            differ = int((got != want).sum())
+            differ_cpu = int((got.cpu() != host).sum())
+            worst = max(worst, differ, differ_cpu)
+            print(f"scene_tables vs plain, {rc.tables_mode(exact, cmap)}, "
+                  f"B={f.shape[0]}, K={f.shape[1]}: {differ} values differ "
+                  f"from the twin on the card, {differ_cpu} from the CPU "
+                  "twin")
+    check(worst == 0, "scene_tables differs from its plain twin")
+
+    def kernel():
+        rc.scene_tables(f, n, hc, hc, colors.hsv_to_rgb)
+
+    def plain():
+        rc.prepare_plain(f, n, hc, hc, colors.hsv_to_rgb)
+
+    def one_lane(fn):
+        return lambda: fn(f[:1, :2], n[:1], hc, hc, colors.hsv_to_rgb)
+
+    # A single env's step renders one scene (the single cells hold 2
+    # sprite slots): the kernel and the twin in a graph at one lane.
+    lane = {"device_ms": event_ms(torch, one_lane(rc.scene_tables), 50,
+                                  spin=True),
+            "graph_ms": graph_ms(torch, one_lane(rc.scene_tables), 20),
+            "plain_graph_ms": graph_ms(torch, one_lane(rc.prepare_plain),
+                                       5)}
+    tab = rc.scene_tables(f, n, hc, hc, colors.hsv_to_rgb).tab
+    in_bytes, out_bytes, ops = scene_tables_work(f, tab)
+    bound_ms, bound_by = bound(in_bytes, out_bytes, ops)
+    regs, spill = ptxas_lines(_build, "scene_tables")
+    entry = {
+        "name": "scene_tables", "route": "cuda",
+        "source": "spriteworld_torch/csrc/scene_tables.cu",
+        "replaces": "spriteworld_tpu/ops/rasterize_pallas.py:1083 and :77 "
+                    "(XLA's fusion of _prepare and _build_edge_tables; no "
+                    "pallas_call)",
+        "launches": None, "max_abs_err": worst,
+        "ms": event_ms(torch, kernel, 50),
+        "device_ms": event_ms(torch, kernel, 50, spin=True),
+        "graph_ms": graph_ms(torch, kernel, 20),
+        "plain_ms": event_ms(torch, plain, 5),
+        "plain_graph_ms": graph_ms(torch, plain, 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_tc_ms": bound_ms, "bound_tc_by": bound_by,
+        "library_ms": None, "registers": regs, "spill_bytes": spill,
+        "bytes": in_bytes + out_bytes, "one_lane": lane}
+    print(f"scene_tables at B={f.shape[0]}, K={f.shape[1]}: kernel "
+          f"{entry['ms']:.4f} ms ({entry['device_ms']:.4f} on the device, "
+          f"{entry['graph_ms']:.4f} in a graph), plain {entry['plain_ms']:.4f}"
+          f" ms ({entry['plain_graph_ms']:.4f} in a graph), bound "
+          f"{bound_ms:.6f} ms ({bound_by}, {in_bytes + out_bytes} bytes); "
+          f"{regs} registers, {spill} bytes spilled; one lane of 2 "
+          f"slots {lane['device_ms']:.4f} ms on the device, "
+          f"{lane['graph_ms']:.4f} in a graph (plain "
+          f"{lane['plain_graph_ms']:.4f} in a graph); on {card}")
+    return entry
+
+
 def time_kernel(torch, rasterize_cuda, colors, state):
     """Phase 8: scene_raster at the main path's inputs."""
     image_size, aa = (64, 64), 5
@@ -3689,6 +3802,7 @@ def main():
 
     steps_per_sec, state, scene_launches, draws = drive_main_path(
         torch, bench_torch, env_lib, rasterize_cuda)
+    table_launches = rasterize_cuda.scene_tables.launches
     print(f"env_steps_per_sec {steps_per_sec:.1f} (image64, AA=5, "
           f"{BATCH} lanes) on {card}")
     demo_rate, demo_state, demo_launches = drive_demo_path(
@@ -3748,6 +3862,10 @@ def main():
                                   WARMUP_STEPS + CHUNKS * STEPS)
     lane_entry["max_abs_err"] = max(lane_entry["max_abs_err"], worst_keys)
     entries.append(lane_entry)
+    tables_entry = time_scene_tables(torch, rasterize_cuda, colors, state,
+                                     card)
+    tables_entry["launches"] = table_launches
+    entries.append(tables_entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

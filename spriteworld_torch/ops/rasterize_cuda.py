@@ -18,8 +18,11 @@ The work splits in five:
   scanline fill's fields of the truncated vertices, followed by Pillow's
   horizontal-edge and wedge features compacted to (row, lo, hi) integer
   intervals; for the centroid fill they are the untruncated edges as
-  `points_in_polygons` reads them, and there are no features. Only plain
-  elementwise torch operations are used, so nothing fuses into an FMA.
+  `points_in_polygons` reads them, and there are no features. On a CUDA
+  tensor it is one launch of `csrc/scene_tables.cu` (`scene_tables`); on a
+  CPU tensor its plain twin `prepare_plain` runs, plain elementwise torch
+  operations that nothing fuses into an FMA, and the kernel rounds at the
+  same places.
 * `scene_raster` launches the scene kernel (`csrc/scene_raster.cu`) on a
   CUDA table: one thread block renders one whole scene, its canvas in
   shared memory.
@@ -66,8 +69,10 @@ import torch
 from spriteworld_torch import constants
 from spriteworld_torch.core import state as state_lib
 from spriteworld_torch.ops import _build
+from spriteworld_torch.ops import geometry
 from spriteworld_torch.ops import rasterize
 from spriteworld_torch.ops import resample
+from spriteworld_torch.utils import colors as color_maps
 from spriteworld_torch.utils import device as device_lib
 from spriteworld_torch.utils import profiling
 
@@ -116,10 +121,47 @@ class SceneTables:
 
 
 def prepare(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
-            wc: int, color_to_rgb: Optional[Callable],
-            pil_exact: bool = True) -> SceneTables:
+            wc: int, color_to_rgb, pil_exact: bool = True) -> SceneTables:
     """Per-scene tables of factors[B, K, 10] for the exact fill, or with
-    pil_exact=False for the centroid fill."""
+    pil_exact=False for the centroid fill; `color_to_rgb` is None, "hsv"
+    or a colour map (`color_route`). CUDA factors launch the kernel
+    (`scene_tables`), CPU factors take the plain twin (`prepare_plain`)."""
+    fn = scene_tables if factors.is_cuda else prepare_plain
+    return fn(factors, num_sprites, hc, wc, color_to_rgb, pil_exact)
+
+
+# How the tables take a colour map: the factors' c0..c2 as they are, HSV
+# computed from them, or colours a PyTorch colour map computed first.
+COLOR_ROUTES = ("none", "hsv", "given")
+
+
+def color_route(color_to_rgb) -> str:
+    """"none" for None, "hsv" for "hsv" or `utils.colors.hsv_to_rgb`,
+    "given" for any other callable; raises on anything else."""
+    if color_to_rgb is None:
+        return "none"
+    if color_to_rgb is color_maps.hsv_to_rgb or (
+            isinstance(color_to_rgb, str) and color_to_rgb == "hsv"):
+        return "hsv"
+    if callable(color_to_rgb):
+        return "given"
+    raise ValueError(f"Unknown color_to_rgb: {color_to_rgb!r}")
+
+
+def tables_mode(pil_exact: bool, color_to_rgb) -> str:
+    """"<fill>+<colour route>", e.g. "exact+hsv": the key of
+    `scene_tables.by_mode`."""
+    return ("exact" if pil_exact else "centroid") + "+" + color_route(
+        color_to_rgb)
+
+
+def prepare_plain(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
+                  wc: int, color_to_rgb,
+                  pil_exact: bool = True) -> SceneTables:
+    """The plain torch twin of `scene_tables` (same arguments, same table),
+    on any device: one eager operator a step, each rounded once."""
+    if color_route(color_to_rgb) == "hsv":
+        color_to_rgb = color_maps.hsv_to_rgb
     dev = factors.device
     verts_c = rasterize._canvas_vertices(factors, hc, wc)  # [B, K, V, 2]
     b, k, vmax, _ = verts_c.shape
@@ -194,6 +236,79 @@ def prepare(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
     tab = torch.cat([scal, edges, feats.reshape(b, k, 6 * vmax)], -1)
     return SceneTables(tab=tab.contiguous(), num_vertices=vmax, hc=hc, wc=wc,
                        pil_exact=bool(pil_exact))
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_launcher():
+    """(library, its C launch function with argument types declared)."""
+    lib = _build.load("scene_tables")
+    fn = lib.scene_tables_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                    ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+_DEG2RAD_F32 = float(np.float32(geometry._DEG2RAD))
+
+
+def scene_tables(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
+                 wc: int, color_to_rgb,
+                 pil_exact: bool = True) -> SceneTables:
+    """One launch of `csrc/scene_tables.cu` over CUDA factors f32[B, K, 10]
+    (columns contiguous) and num_sprites [B]: the table `prepare_plain`
+    computes, bit for bit. The "none" and "hsv" colour routes are computed
+    in the kernel; a "given" colour map runs in PyTorch first and the
+    kernel reads its colours. Runs on the current stream; raises where the
+    kernel cannot take the input or cannot launch. Each launch adds one to
+    `scene_tables.launches`, `.by_mode[tables_mode(...)]` and
+    `.by_batch[B]`, and to the census of a graph being captured."""
+    if not factors.is_cuda:
+        raise ValueError("scene_tables needs CUDA factors; CPU tensors use "
+                         "prepare_plain")
+    if factors.dtype != torch.float32 or factors.dim() != 3 \
+            or factors.shape[-1] != state_lib.NUM_FACTORS:
+        raise ValueError(f"scene_tables takes factors f32[B, K, "
+                         f"{state_lib.NUM_FACTORS}], got "
+                         f"{tuple(factors.shape)} {factors.dtype}")
+    b, k, _ = factors.shape
+    if num_sprites.shape != (b,) or num_sprites.device != factors.device:
+        raise ValueError(f"num_sprites must be [{b}] on {factors.device}, "
+                         f"got {tuple(num_sprites.shape)} on "
+                         f"{num_sprites.device}")
+    dev = factors.device
+    bank = geometry.vertex_bank(dev)
+    counts = device_lib.constant(constants.VERTEX_COUNTS, dev)
+    shapes, v, _ = bank.shape
+    if v > 32:
+        raise ValueError(f"scene_tables takes V <= 32 (V={v})")
+    route = color_route(color_to_rgb)
+    given = (rasterize.sprite_colors(factors, color_to_rgb).contiguous()
+             if route == "given" else None)
+    if factors.stride(-1) != 1:
+        factors = factors.contiguous()
+    num = num_sprites.to(torch.int32)
+    tab = torch.empty((b, k, table_width(v)), dtype=torch.float32,
+                      device=dev)
+    tables = SceneTables(tab=tab, num_vertices=v, hc=hc, wc=wc,
+                         pil_exact=bool(pil_exact))
+    if b * k == 0:
+        return tables
+    lib, launch = _tables_launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(factors.data_ptr(), factors.stride(0), factors.stride(1),
+                     num.data_ptr(), num.stride(0), bank.data_ptr(),
+                     counts.data_ptr(), shapes, b, k, v, float(wc), float(hc),
+                     _DEG2RAD_F32, int(bool(pil_exact)),
+                     COLOR_ROUTES.index(route), _ptr(given), tab.data_ptr(),
+                     stream)
+    _check_launch(lib, err, "scene_tables")
+    _count_launch(scene_tables, tables_mode(pil_exact, color_to_rgb), b)
+    return tables
 
 
 # The tensor-core Lanczos passes (csrc/lanczos_mma.cuh): m-tiles of 16
@@ -327,7 +442,8 @@ def _count_launch(fn, mode: str, batch: int):
 
 def reset_launch_counts():
     """Set every kernel wrapper's launch counts to 0."""
-    for fn in (scene_raster, strip_raster, strip_vpass, packed_raster):
+    for fn in (scene_tables, scene_raster, strip_raster, strip_vpass,
+               packed_raster):
         fn.launches = 0
         fn.by_mode = {}
         fn.by_batch = {}
