@@ -9,7 +9,16 @@ Contract quirks kept: FindGoalPosition returns NaN when no sprite passes
 the filter, and its success is then vacuously True (``all([])``).
 Clustering scores 1/davies_bouldin and assigns each sprite to the FIRST
 cluster distribution containing it. MetaAggregated combines subtask rewards
-with NaN-ignoring aggregators and adds `terminate_bonus * success`.
+with NaN-ignoring aggregators and adds `terminate_bonus * success` (a zero
+bonus adds nothing, so its success is not computed for the reward). Its
+"sum" adds the subtasks' rewards in their order, ((r_0 + r_1) + r_2) + ...,
+with elementwise adds (`ops.clustering.ordered_sum`), the same bits on the
+CPU and the card.
+
+Tracing: each subtask of a MetaAggregated runs in its own span,
+`env.task.<Class>#<i>` (i its place among the subtasks), and each task
+method counts its calls into the census of a graph being captured
+(`utils.profiling.evaluation`).
 
 Goal distance: each product of ``sum(w * (pos - goal)**2)`` is rounded once
 before the sum, as the TPU computes it (Mosaic and XLA on the TPU do not
@@ -27,14 +36,17 @@ import torch
 from spriteworld_torch.core import state as state_lib
 from spriteworld_torch.ops import clustering as clustering_ops
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils import profiling
 
 
 class NoReward:
     """Zero reward, never succeeds."""
 
+    @profiling.evaluation
     def reward(self, factors, num_sprites):
         return torch.zeros(factors.shape[0], device=factors.device)
 
+    @profiling.evaluation
     def success(self, factors, num_sprites):
         return torch.zeros(factors.shape[0], dtype=torch.bool,
                            device=factors.device)
@@ -81,6 +93,7 @@ class FindGoalPosition:
         return alive & self._filter_distrib.contains(
             state_lib.factors_to_dict(factors))
 
+    @profiling.evaluation
     def reward(self, factors, num_sprites):
         rewards = self._per_sprite_rewards(factors)
         mask = self.filter_mask(factors, num_sprites)
@@ -95,6 +108,7 @@ class FindGoalPosition:
         return torch.where(mask.any(-1), shaped,
                            torch.full_like(shaped, torch.nan))
 
+    @profiling.evaluation
     def success(self, factors, num_sprites):
         rewards = self._per_sprite_rewards(factors)
         mask = self.filter_mask(factors, num_sprites)
@@ -119,6 +133,7 @@ class Clustering:
         self._sparse_reward = sparse_reward
         self._reward_range = reward_range
 
+    @profiling.evaluation
     def membership(self, factors, num_sprites):
         """bool[B, K, C]: live sprite k belongs to the FIRST cluster whose
         distribution contains it."""
@@ -137,6 +152,7 @@ class Clustering:
         return 1.0 / clustering_ops.davies_bouldin_index(factors[..., 0:2],
                                                          member)
 
+    @profiling.evaluation
     def reward(self, factors, num_sprites):
         metric = self._metric(factors, num_sprites)
         dense = (metric - self._termination_threshold) \
@@ -147,10 +163,12 @@ class Clustering:
         return torch.where(succeeded, bonus,
                            zero if self._sparse_reward else dense)
 
+    @profiling.evaluation
     def success(self, factors, num_sprites):
         return self._metric(factors, num_sprites) \
             >= self._termination_threshold
 
+    @profiling.evaluation
     def valid(self, factors, num_sprites):
         """True exactly on sklearn davies_bouldin_score's domain,
         ``1 < n_labels < n_samples``: n_samples counts the sprites assigned
@@ -173,7 +191,8 @@ def _nan_extreme(x, largest: bool):
 
 
 _AGGREGATORS = {
-    "sum": lambda x: torch.nansum(x, 0),
+    "sum": lambda x: clustering_ops.ordered_sum(
+        torch.where(torch.isnan(x), 0.0, x), 0),
     "max": lambda x: _nan_extreme(x, True),
     "min": lambda x: _nan_extreme(x, False),
     "mean": lambda x: torch.nanmean(x, 0),
@@ -201,21 +220,35 @@ class MetaAggregated:
         self._reward_aggregator = _AGGREGATORS[reward_aggregator]
         self._termination_criterion = _CRITERIA[termination_criterion]
         self._terminate_bonus = terminate_bonus
+        self._spans = [f"env.task.{type(t).__name__}#{i}"
+                       for i, t in enumerate(self._subtasks)]
 
+    def _each(self, fn):
+        """[fn(subtask)] in the subtasks' order, each in its span."""
+        out = []
+        for span, t in zip(self._spans, self._subtasks):
+            with profiling.annotate(span):
+                out.append(fn(t))
+        return out
+
+    @profiling.evaluation
     def reward(self, factors, num_sprites):
-        rewards = torch.stack(
-            [t.reward(factors, num_sprites) for t in self._subtasks])
-        agg = self._reward_aggregator(rewards)
+        agg = self._reward_aggregator(torch.stack(
+            self._each(lambda t: t.reward(factors, num_sprites))))
+        if not self._terminate_bonus:
+            return agg
         return agg + self._terminate_bonus * self.success(
             factors, num_sprites).to(agg.dtype)
 
+    @profiling.evaluation
     def success(self, factors, num_sprites):
         return self._termination_criterion(torch.stack(
-            [t.success(factors, num_sprites) for t in self._subtasks]))
+            self._each(lambda t: t.success(factors, num_sprites))))
 
+    @profiling.evaluation
     def valid(self, factors, num_sprites):
-        return torch.stack([task_valid(t, factors, num_sprites)
-                            for t in self._subtasks]).all(0)
+        return torch.stack(self._each(
+            lambda t: task_valid(t, factors, num_sprites))).all(0)
 
 
 def task_valid(task, factors, num_sprites) -> torch.Tensor:

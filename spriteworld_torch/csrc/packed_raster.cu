@@ -194,7 +194,8 @@ __device__ __forceinline__ u64 exact_row(const int* head, const Record& R,
     const float ymx = E.w;
     const int w = 1 + static_cast<int>(rf == ymx && ymx < gymax);
     total += w;
-    const float xi = __fadd_rn(E.z, __fmul_rn(__fsub_rn(rf, E.x), E.y));
+    const float xi =
+        pillow_crossing(__fadd_rn(E.z, __fmul_rn(__fsub_rn(rf, E.x), E.y)));
     const bool top = xi > hx;
     const float fx = top ? hx : xi;  // the crossing that folds in now
     const int fw = top ? hw : w;

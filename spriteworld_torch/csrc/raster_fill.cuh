@@ -111,6 +111,15 @@ __device__ __forceinline__ unsigned resolve(unsigned s, int ch,
 // the warp's shared scratch.
 constexpr int kRegCrossings = 4;
 
+// A scanline crossing as the fill counts it (rasterize.pillow_crossing):
+// -0.5 becomes the float just above it. Pillow rounds a negative half away
+// from zero, so a span that ends at -0.5 ends at column 0: the nudged
+// crossing lies in column 0's window, and every column from 1 on counts it
+// as before.
+__device__ __forceinline__ float pillow_crossing(float x) {
+  return x == -0.5f ? -0.49999997f : x;
+}
+
 // Whether column `cf` lies in one of the row's features: those of the
 // ballots f_lo (features 0-31) and f_hi (32-63).
 __device__ __forceinline__ bool on_feature(const float* feat, unsigned f_lo,
@@ -151,7 +160,8 @@ __device__ __forceinline__ void fill_sprite(
       r0 + ((warp - r0) % num_warps + num_warps) % num_warps;
   for (int r = first_row; r <= r1; r += num_warps) {
     const float rf = static_cast<float>(r);
-    const float xi = __fadd_rn(x0, __fmul_rn(__fsub_rn(rf, y0), m));
+    const float xi =
+        pillow_crossing(__fadd_rn(x0, __fmul_rn(__fsub_rn(rf, y0), m)));
     const bool inr = rf >= ymn && rf <= ymx;
     const bool dup = inr && rf == ymx && ymx < gymax;
     int wgt = static_cast<int>(inr) + static_cast<int>(dup);

@@ -42,10 +42,11 @@
 // rotation as c*x - s*y and s*x + c*y, then the position and the canvas
 // scale; HSV to RGB in `colors.hsv_to_rgb`'s order (sector floor(h*6)
 // taken modulo 6 as torch's remainder), clamped to [0, 255] and truncated
-// as the u8 cast; trunc, floor, ceil, Pillow's round-half-up floor(u +
-// 0.5) and the 1e9 sentinels as the twin has them. Minima and maxima
-// propagate NaN, as torch's do. So the table equals the twin's bit for
-// bit (tests/test_torch_scene_tables.py; chip_smoke.py's `kernels` line).
+// as the u8 cast; trunc, floor, ceil, Pillow's ROUND_UP (half away from
+// zero: floor(u + 0.5), or -floor(0.5 - u) below 0) and the 1e9 sentinels
+// as the twin has them. Minima and maxima propagate NaN, as torch's do. So
+// the table equals the twin's bit for bit (tests/test_torch_scene_tables.py;
+// chip_smoke.py's `kernels` line).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -109,6 +110,11 @@ __device__ __forceinline__ void hsv_rgb(float h, float s, float v,
   r = u8(__fmul_rn(255.0f, rr));
   g = u8(__fmul_rn(255.0f, gg));
   b = u8(__fmul_rn(255.0f, bb));
+}
+
+// Pillow's ROUND_UP: half away from zero (rasterize._round_half_up).
+__device__ __forceinline__ float round_up(float u) {
+  return u >= 0.f ? floorf(__fadd_rn(u, 0.5f)) : -floorf(__fsub_rn(0.5f, u));
 }
 
 // Pillow's wedge interval ends: vx + (adj - vy) * (nx - vx) / d.
@@ -228,11 +234,9 @@ scene_tables_kernel(const float* __restrict__ factors, long long fstride_b,
     const bool right = active && u1 > x0 && u2 > x0;
     const bool left = active && u1 < x0 && u2 < x0;
     const float lo = right ? x0
-                     : left ? __fadd_rn(floorf(__fadd_rn(tmax(u1, u2), 0.5f)),
-                                        1.0f)
+                     : left ? __fadd_rn(round_up(tmax(u1, u2)), 1.0f)
                             : kBig;
-    const float hi = right ? __fsub_rn(floorf(__fadd_rn(tmin(u1, u2), 0.5f)),
-                                       1.0f)
+    const float hi = right ? __fsub_rn(round_up(tmin(u1, u2)), 1.0f)
                      : left ? x0
                             : -kBig;
     const bool wedge = right || left;

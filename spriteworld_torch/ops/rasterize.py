@@ -50,8 +50,21 @@ _SCENE_CHUNK = 64
 
 
 def _round_half_up(f):
-    """Pillow ROUND_UP: round half away from zero (positive domain)."""
-    return torch.floor(f + 0.5)
+    """Pillow's ROUND_UP: round half away from zero."""
+    return torch.where(f >= 0, torch.floor(f + 0.5), -torch.floor(0.5 - f))
+
+
+# The float just above -0.5.
+ABOVE_NEG_HALF = float(np.nextafter(np.float32(-0.5), np.float32(0)))
+
+
+def pillow_crossing(xi):
+    """A scanline crossing as the fill counts it: -0.5 becomes the float
+    just above it. Pillow rounds a negative half away from zero, so a span
+    that ends at -0.5 ends at column 0: the nudged crossing lies in column
+    0's window, c - 0.5 < x < c + 0.5, and every column from 1 on counts
+    it as before."""
+    return torch.where(xi == -0.5, ABOVE_NEG_HALF, xi)
 
 
 def _canvas_vertices(factors, hc: int, wc: int):
@@ -151,7 +164,7 @@ def _pil_polygon_mask(verts_c, count, hc: int, wc: int):
     dy = torch.where(y1 == y0, torch.ones_like(y1), y1 - y0)
     m = (x1 - x0) / dy
     prod = (rows - y0[e]) * m[e]
-    xi = x0[e] + prod  # [N, H, V]
+    xi = pillow_crossing(x0[e] + prod)  # [N, H, V]
     dup = inr & (rows == ymax_e[e]) & (ymax_e[e] < gymax[:, None, None])
     wodd = inr & ~dup   # weight parity 1  (weights are inr + dup <= 2)
     wpos = inr          # weight >= 1

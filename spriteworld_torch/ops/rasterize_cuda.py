@@ -307,7 +307,7 @@ def scene_tables(factors: torch.Tensor, num_sprites: torch.Tensor, hc: int,
                      COLOR_ROUTES.index(route), _ptr(given), tab.data_ptr(),
                      stream)
     _check_launch(lib, err, "scene_tables")
-    _count_launch(scene_tables, tables_mode(pil_exact, color_to_rgb), b)
+    _count_launch(scene_tables, tables_mode(pil_exact, color_to_rgb), b, k)
     return tables
 
 
@@ -430,14 +430,14 @@ def mode_name(pil_exact: bool, ds: int) -> str:
             + ("identity", "lanczos", "box")[ds])
 
 
-def _count_launch(fn, mode: str, batch: int):
-    """One more launch of kernel wrapper `fn` over `batch` scenes, in all,
-    in `mode`, in `by_batch` and in the census of a graph being captured
-    (`utils.profiling.count`)."""
+def _count_launch(fn, mode: str, batch: int, slots=None):
+    """One more launch of kernel wrapper `fn` over `batch` scenes of
+    `slots` sprite slots each, in all, in `mode`, in `by_batch` and in the
+    census of a graph being captured (`utils.profiling.count`)."""
     fn.launches += 1
     fn.by_mode[mode] = fn.by_mode.get(mode, 0) + 1
     fn.by_batch[batch] = fn.by_batch.get(batch, 0) + 1
-    profiling.count(fn.__name__, mode)
+    profiling.count(fn.__name__, mode, slots=slots)
 
 
 def reset_launch_counts():
@@ -801,7 +801,7 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
                      _ptr(hks), _ptr(hqs), hsteps, cp, _ptr(vfr), _ptr(vks),
                      vsteps, hp, _bg_packed(bg_color), _ptr(out), stream)
     _check_launch(lib, err, "scene_raster")
-    _count_launch(scene_raster, mode_name(tables.pil_exact, ds), b)
+    _count_launch(scene_raster, mode_name(tables.pil_exact, ds), b, k)
     return out
 
 
@@ -860,7 +860,7 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
                      _ptr(hfr), _ptr(hks), _ptr(hqs), hsteps, hp,
                      _bg_packed(bg_color), _ptr(buf), stream)
     _check_launch(lib, err, "strip_raster")
-    _count_launch(strip_raster, mode_name(tables.pil_exact, ds), b)
+    _count_launch(strip_raster, mode_name(tables.pil_exact, ds), b, k)
     return out
 
 
@@ -954,7 +954,7 @@ def packed_raster(tables: SceneTables, image_size: Tuple[int, int],
                      _bg_packed(bg_color), _ptr(out), stream)
     _check_launch(lib, err, "packed_raster")
     _count_launch(packed_raster,
-                  mode_name(tables.pil_exact, DS_IDENTITY), b)
+                  mode_name(tables.pil_exact, DS_IDENTITY), b, k)
     return out
 
 
@@ -1176,7 +1176,8 @@ def packed_row_masks(tables: SceneTables, k: int) -> torch.Tensor:
             dup = inr & (rf == ymx[:, e, None]) & (ymx[:, e, None] < gymax)
             w = inr.to(torch.int64) + dup.to(torch.int64)
             total = total + w
-            xi = x0[:, e, None] + (rf - y0[:, e, None]) * m[:, e, None]
+            xi = rasterize.pillow_crossing(
+                x0[:, e, None] + (rf - y0[:, e, None]) * m[:, e, None])
             top = (w > 0) & (xi > hx)
             fx = torch.where(top, hx, xi)
             fw = torch.where(top, hw, w)
@@ -1218,8 +1219,9 @@ def packed_row_masks(tables: SceneTables, k: int) -> torch.Tensor:
 
 def exact_crossings(tables: SceneTables, k: int):
     """(xi f32[B, hc, V], weight i32[B, hc, V]): sprite k's crossing of each
-    canvas row by each edge and its Pillow weight after the odd-total trim
-    (0 where the edge does not cross the row), from the exact tables."""
+    canvas row by each edge (`rasterize.pillow_crossing`) and its Pillow
+    weight after the odd-total trim (0 where the edge does not cross the
+    row), from the exact tables."""
     tab = tables.tab[:, k]  # [B, NT]
     dev = tab.device
     v = tables.num_vertices
@@ -1228,7 +1230,7 @@ def exact_crossings(tables: SceneTables, k: int):
     y0, m, x0, ymn, ymx = _edge_fields(tables, k)
     gymax = tab[:, None, None, T_GYMAX]
     prod = (rows - y0) * m
-    xi = x0 + prod  # [B, hc, V]
+    xi = rasterize.pillow_crossing(x0 + prod)  # [B, hc, V]
     inr = (rows >= ymn) & (rows <= ymx)
     dup = inr & (rows == ymx) & (ymx < gymax)
     wgt = inr.to(torch.int32) + dup.to(torch.int32)

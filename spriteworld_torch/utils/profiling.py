@@ -32,7 +32,11 @@ Counterpart of `spriteworld_tpu/utils/profiling.py`, on torch:
     them; a replay costs nothing more.
   * `count()` — the port's kernel wrappers count each launch and its
     threefry blocks by kernel and mode into the census of the capture in
-    progress.
+    progress, and a renderer's kernels the sprite slots of its scenes.
+  * `evaluation` — decorates a task's method (`reward`, `success`,
+    `valid`, `membership`): each call during a capture counts into its
+    census by class and method, so the census says how many times a step
+    evaluates each task.
   * `enable_debug_checks()` — raises FloatingPointError where an operation
     returns a NaN or an Inf, while enabled (a `TorchDispatchMode`).
   * `sync(value)` — waits for the card's work behind a tensor; a no-op for
@@ -409,7 +413,9 @@ class GraphRecord(_Open):
     is None where the CUDA driver could not be asked. `other_nodes`:
     nodes that run nothing on the device (empty, event). `census`:
     {(kernel, mode): [launches, blocks]} of the port's kernels launched
-    into the graph (`count`): one replay's work, without a device read.
+    into the graph (`count`): one replay's work, without a device read;
+    `slots`: {(kernel, mode): {sprite slots a scene}} where the wrapper
+    gave them; `evaluations`: {(task class, method): calls} (`evaluation`).
     """
 
     def __init__(self, name: str):
@@ -419,6 +425,8 @@ class GraphRecord(_Open):
         self.nodes: Optional[List[Tuple[str, int, Optional[str]]]] = None
         self.other_nodes = 0
         self.census: Dict[Tuple[str, str], List[int]] = {}
+        self.slots: Dict[Tuple[str, str], set] = {}
+        self.evaluations: Dict[Tuple[str, str], int] = {}
         self._marks: List[Tuple[int, int]] = []  # (nodes so far, span)
         self._graph = None
         self._failed = False
@@ -490,13 +498,19 @@ class GraphRecord(_Open):
         self.nodes = nodes
         self._graph = None
 
-    def census_table(self) -> Dict[str, Dict[str, Dict[str, int]]]:
-        """{kernel: {mode: {"launches", "blocks"}}} of one replay."""
-        out: Dict[str, Dict[str, Dict[str, int]]] = {}
+    def census_table(self) -> Dict[str, Dict[str, dict]]:
+        """{kernel: {mode: {"launches", "blocks"[, "slots"]}}} of one
+        replay, "slots" the sorted sprite slots of its scenes where
+        counted, and {"task.<class>": {method: {"evaluations"}}}."""
+        out: Dict[str, Dict[str, dict]] = {}
         for (kernel, mode), (launches, blocks) in sorted(
                 self.census.items()):
-            out.setdefault(kernel, {})[mode] = {"launches": launches,
-                                                "blocks": blocks}
+            row = {"launches": launches, "blocks": blocks}
+            if (kernel, mode) in self.slots:
+                row["slots"] = sorted(self.slots[(kernel, mode)])
+            out.setdefault(kernel, {})[mode] = row
+        for (cls, method), n in sorted(self.evaluations.items()):
+            out.setdefault(f"task.{cls}", {})[method] = {"evaluations": n}
         return out
 
 
@@ -523,14 +537,33 @@ def graphs() -> List[GraphRecord]:
     return list(_GRAPHS)
 
 
-def count(kernel: str, mode: str, blocks: int = 0) -> None:
-    """One launch of `kernel` in `mode` computing `blocks` threefry blocks,
-    into the census of the capture in progress, if any."""
+def count(kernel: str, mode: str, blocks: int = 0,
+          slots: Optional[int] = None) -> None:
+    """One launch of `kernel` in `mode` computing `blocks` threefry blocks
+    (over scenes of `slots` sprite slots, where given), into the census of
+    the capture in progress, if any."""
     if _capture is None:
         return
     entry = _capture.census.setdefault((kernel, mode), [0, 0])
     entry[0] += 1
     entry[1] += blocks
+    if slots is not None:
+        _capture.slots.setdefault((kernel, mode), set()).add(int(slots))
+
+
+def evaluation(method):
+    """Decorates a task's method: a call while a graph is being captured
+    counts one evaluation of (the task's class, the method's name) into
+    the capture's census. Off a capture it reads one global."""
+
+    @functools.wraps(method)
+    def evaluate(self, *args, **kwargs):
+        if _capture is not None:
+            key = (type(self).__name__, method.__name__)
+            _capture.evaluations[key] = _capture.evaluations.get(key, 0) + 1
+        return method(self, *args, **kwargs)
+
+    return evaluate
 
 
 @contextlib.contextmanager

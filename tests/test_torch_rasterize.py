@@ -191,7 +191,9 @@ def _jax_scene_kernel(**kwargs):
 def test_scene_plain_matches_pallas_interpret(size, aa, degenerate, hsv):
     """The kernel's plain version against the JAX scene kernel, run as the
     JAX package's own tests run it on the CPU: exact at AA=1, +-1 above
-    (the Pallas kernel splits its Lanczos taps into bf16 halves)."""
+    (the Pallas kernel splits its Lanczos taps into bf16 halves). Where
+    the JAX kernel's fill is not Pillow's (it leaves column 0 out of a
+    span that ends at -0.5), the image is Pillow's, bit for bit."""
     rng = np.random.default_rng(size + aa + degenerate)
     f = _sprites(rng, (4, 8), degenerate=degenerate, hsv=hsv)
     n = rng.integers(1, 9, 4).astype(np.int32)
@@ -202,10 +204,69 @@ def test_scene_plain_matches_pallas_interpret(size, aa, degenerate, hsv):
         torch.from_numpy(f), torch.from_numpy(n),
         color_to_rgb=tcolors.hsv_to_rgb if hsv else None,
         **kwargs).numpy().astype(int)
-    if aa == 1:
-        np.testing.assert_array_equal(got, want)
-    else:
-        assert np.abs(got - want).max() <= 1
+    verts = (tgeometry.world_vertices(torch.from_numpy(f))
+             * float(size * aa)).numpy()
+    counts = tconstants.VERTEX_COUNTS[f[..., tstate.SHAPE].astype(int)]
+    colors = (tcolors.hsv_to_rgb(torch.from_numpy(f[..., 5:8])).numpy()
+              if hsv else f[..., 5:8]).astype(np.uint8)
+    tol = 0 if aa == 1 else 1
+    for i in range(len(f)):
+        pil = _pillow_scene(verts[i], counts[i], colors[i], n[i], size * aa,
+                            size * aa, size, size).astype(int)
+        if np.abs(want[i] - pil).max() <= tol:
+            assert np.abs(got[i] - want[i]).max() <= tol, i
+        else:
+            np.testing.assert_array_equal(got[i], pil)
+
+
+def _edge_sprites(rng, n):
+    """f32[n, 1, 10]: one sprite of each shape in turn whose centre lies
+    within 0.08 of the left or the right frame edge, integer or uniform
+    angles, scales 0.05-0.3."""
+    f = np.zeros((n, 1, 10), np.float32)
+    left = rng.random(n) < 0.5
+    f[:, 0, 0] = np.where(left, rng.uniform(-0.08, 0.08, n),
+                          rng.uniform(0.92, 1.08, n))
+    f[:, 0, 1] = rng.uniform(-0.05, 1.05, n)
+    f[:, 0, 2] = np.arange(n) % 12 + 1
+    f[:, 0, 3] = np.where(rng.random(n) < 0.5, rng.integers(0, 360, n),
+                          rng.uniform(0, 360, n))
+    f[:, 0, 4] = rng.uniform(0.05, 0.3, n)
+    return f
+
+
+def test_every_plain_fill_equals_pillow_at_the_frame_edges():
+    """Sprites across the left and right edges of a 64x64 canvas: the fill
+    of ops/rasterize.py, the tables' exact fill and the packed kernel's
+    row masks each equal Pillow's, pixel for pixel. Pillow rounds a
+    negative half away from zero, so a span that ends at -0.5 ends at
+    column 0, and so does a wedge whose end rounds from -0.5."""
+    rng = np.random.default_rng(3)
+    n, size = 1200, 64
+    f = _edge_sprites(rng, n)
+    ft, num = torch.from_numpy(f), torch.ones(n, dtype=torch.int32)
+    counts = tconstants.VERTEX_COUNTS[f[:, 0, tstate.SHAPE].astype(int)]
+    verts = (tgeometry.world_vertices(ft)[:, 0] * float(size)).numpy()
+    pil = np.zeros((n, size, size), bool)
+    for i in range(n):
+        im = Image.new("L", (size, size), 0)
+        ImageDraw.Draw(im).polygon(
+            [tuple(int(c) for c in p) for p in np.trunc(verts[i, :counts[i]])],
+            fill=255)
+        pil[i] = np.asarray(im) > 0
+    tables = tcuda.prepare(ft, num, size, size, None, True)
+    masks = tcuda.packed_row_masks(tables, 0).numpy()
+    fills = {
+        "rasterize": trasterize._pil_polygon_mask(
+            torch.from_numpy(verts), torch.from_numpy(counts), size,
+            size).numpy(),
+        "tables": tcuda._plain_fill_exact(tables, 0).numpy(),
+        "packed": ((masks[..., None] >> np.arange(size)) & 1).astype(bool)}
+    for name, fill in fills.items():
+        off = np.flatnonzero((fill != pil).any((1, 2)))
+        assert len(off) == 0, (name, off[:5])
+    xi, wgt = tcuda.exact_crossings(tables, 0)  # -0.5 counted as above it
+    assert ((xi == trasterize.ABOVE_NEG_HALF) & (wgt > 0)).any()
 
 
 @pytest.mark.parametrize("aa", [1, 2, 5])

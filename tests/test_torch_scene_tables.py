@@ -118,18 +118,19 @@ def test_cpu_factors_take_the_plain_twin_and_count_no_launch(monkeypatch):
 def test_launch_counter_counts_by_mode_and_batch_and_resets(monkeypatch):
     counted = []
     monkeypatch.setattr(profiling, "count",
-                        lambda kernel, mode, blocks=0: counted.append(
-                            (kernel, mode)))
+                        lambda kernel, mode, blocks=0, slots=None:
+                        counted.append((kernel, mode, slots)))
     tcuda.reset_launch_counts()
-    tcuda._count_launch(tcuda.scene_tables, "exact+hsv", 2048)
-    tcuda._count_launch(tcuda.scene_tables, "exact+hsv", 1)
+    tcuda._count_launch(tcuda.scene_tables, "exact+hsv", 2048, 12)
+    tcuda._count_launch(tcuda.scene_tables, "exact+hsv", 1, 2)
     tcuda._count_launch(tcuda.scene_tables, "centroid+given", 1)
     assert tcuda.scene_tables.launches == 3
     assert tcuda.scene_tables.by_mode == {"exact+hsv": 2,
                                           "centroid+given": 1}
     assert tcuda.scene_tables.by_batch == {2048: 1, 1: 2}
-    assert counted == [("scene_tables", "exact+hsv")] * 2 + [
-        ("scene_tables", "centroid+given")]
+    assert counted == [("scene_tables", "exact+hsv", 12),
+                       ("scene_tables", "exact+hsv", 2),
+                       ("scene_tables", "centroid+given", None)]
     tcuda.reset_launch_counts()
     assert (tcuda.scene_tables.launches, tcuda.scene_tables.by_mode,
             tcuda.scene_tables.by_batch) == (0, {}, {})
@@ -334,9 +335,39 @@ def test_images_equal_from_either_table(card, path, pil_exact):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["scene", "strips", "packed"])
+def test_kernels_fill_as_the_twin_at_the_frame_edges(card, path):
+    """Sprites across the left and right frame edges, where Pillow ends a
+    span at -0.5 on column 0 (tests/test_torch_rasterize.py holds the
+    twin to Pillow there): each kernel's image equals the twin's."""
+    rng = np.random.default_rng(12)
+    b, k = 256, 4
+    f = np.zeros((b, k, 10), np.float32)
+    left = rng.random((b, k)) < 0.5
+    f[..., 0] = np.where(left, rng.uniform(-0.08, 0.08, (b, k)),
+                         rng.uniform(0.92, 1.08, (b, k)))
+    f[..., 1] = rng.uniform(-0.05, 1.05, (b, k))
+    f[..., 2] = rng.integers(1, len(constants.VERTEX_COUNTS), (b, k))
+    f[..., 3] = rng.integers(0, 360, (b, k))
+    f[..., 4] = rng.uniform(0.05, 0.3, (b, k))
+    f[..., 5:8] = rng.integers(0, 256, (b, k, 3))
+    live = np.full(b, k, np.int32)
+    aa = 1 if path == "packed" else 5
+    size = (64, 64)
+    render = {"scene": tcuda.scene_raster, "strips": tcuda.render_strips,
+              "packed": tcuda.packed_raster}[path]
+    got = render(tcuda.prepare(*on(card, f, live), 64 * aa, 64 * aa, None),
+                 size)
+    assert torch.equal(got.cpu(), tcuda.render_rgb_batch_plain(
+        tcuda.prepare_plain(*on("cpu", f, live), 64 * aa, 64 * aa, None),
+        size))
+
+
+@pytest.mark.cuda
 def test_a_captured_render_counts_one_table_launch_in_its_census(card):
     """In a CUDA graph the tables are one node, counted once in the
-    capture's census; a replay writes what an eager launch writes."""
+    capture's census with its scenes' sprite slots; a replay writes what
+    an eager launch writes."""
     f, live = scenes(9, 32, 2)
     ft, nt = on(card, f, live)
     tcuda.prepare(ft, nt, 320, 320, "hsv")  # loads the library
@@ -347,7 +378,8 @@ def test_a_captured_render_counts_one_table_launch_in_its_census(card):
             out = tcuda.prepare(ft, nt, 320, 320, "hsv")
     census = rec.census_table()
     assert census["scene_tables"] == {"exact+hsv": {"launches": 1,
-                                                    "blocks": 0}}
+                                                    "blocks": 0,
+                                                    "slots": [2]}}
     if rec.nodes is not None:
         names = [fn for kind, _, fn in rec.nodes if kind == "kernel"]
         assert len(names) == 1 and "scene_tables" in (names[0] or "")
