@@ -40,7 +40,8 @@ Phases:
      step (phases 5 and 6 too) — reset, warm-up, 3 timed chunks of 50
      steps, each step followed by torch.cuda.synchronize() — checking that
      every render went through the scene kernel and every draw through
-     the lane_random kernel, images are not blank,
+     the lane_random kernel, its fresh scenes through its scene mode,
+     images are not blank,
      rewards are finite (NaN only where the goal filter is empty) and step
      types follow FIRST/MID/LAST;
   5. the demo path: the cobra clustering config with the interactive
@@ -171,8 +172,15 @@ Phases:
      beside the card's name and power limit. Phase 8's `kernels` line
      ends with lane_random: the draws of one image64/AA=5 step at 2048
      lanes replayed, held against the plain twin and timed beside it, its
-     bound, the main path's (phase 4's) launches, and each mode timed
-     alone in and out of a graph (`by_mode`), then scene_tables: the main
+     bound, the main path's (phase 4's) draw launches, and each mode timed
+     alone in and out of a graph (`by_mode`), then lane_random_scene: the
+     kernel's scene mode over the leaf-tree generators of sorting, the
+     compositional example and goal finding at 2048 strided card keys,
+     held 0 words apart from their plain bodies on the same keys, timed
+     eagerly and in a graph beside them (`by_config`; sorting's head the
+     entry), its bound from the blocks the scenes need, registers and
+     spill of `lane_random_scene_kernel`, and phase 4's scene launches
+     (two a fresh scene), then scene_tables: the main
      path's tables from the kernel against the plain twin on the card and
      on the CPU in both fills and every colour route (0 values apart), its
      time beside the twin's eager and in a graph, its bound, registers and
@@ -662,7 +670,8 @@ def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
 
 def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
     """Phase 4: image64 at AA=5 over 2048 lanes. Returns (steps/s, state,
-    scene_raster launches, lane_random launches)."""
+    scene_raster launches, lane_random draw launches, lane_random scene
+    launches)."""
     from spriteworld_torch.ops import lane_random
 
     env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
@@ -680,17 +689,20 @@ def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
                                  (64, 64, 3), bad_rewards, "main path")
     launches = rasterize_cuda.scene_raster.launches
     tables = rasterize_cuda.scene_tables.launches
-    draws = lane_random.threefry_launch.launches
+    scenes = lane_random.threefry_launch.by_mode.get("scene", 0)
+    draws = lane_random.threefry_launch.launches - scenes
     print(f"scene_raster launches {launches} for {renders} renders; "
           f"scene_tables launches {tables} "
           f"{json.dumps(rasterize_cuda.scene_tables.by_mode)}; "
-          f"lane_random launches {draws} "
+          f"lane_random launches {draws + scenes} "
           f"{json.dumps(lane_random.threefry_launch.by_mode)}")
     check(launches == renders, "a render did not go through the kernel")
     check(tables == renders, "a render's tables did not come from the "
           "scene_tables kernel")
     check(draws > 0, "no draw went through the lane_random kernel")
-    return rate, state, launches, draws
+    check(scenes > 0, "no fresh scene went through the lane_random "
+          "kernel's scene mode")
+    return rate, state, launches, draws, scenes
 
 
 def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
@@ -2730,6 +2742,135 @@ def time_lane_random(torch, bench_torch, env_lib, card, launches, steps):
     return entry
 
 
+# The benchmarked configurations (train mode) whose leaf-tree generators
+# the kernels line's lane_random_scene entry draws; the first is timed.
+SCENE_CONFIGS = ("cobra.sorting", "examples.goal_finding_clustering",
+                 "cobra.goal_finding_new_position")
+
+
+def generate_sprites_of(gen, out=None):
+    """Every `GenerateSprites` node under `gen`, depth first, as often as
+    the tree evaluates it."""
+    from spriteworld_torch.core import generators
+
+    out = [] if out is None else out
+    if isinstance(gen, generators.GenerateSprites):
+        out.append(gen)
+    for child in getattr(gen, "gens", ()):
+        generate_sprites_of(child, out)
+    if hasattr(gen, "gen"):
+        generate_sprites_of(gen.gen, out)
+    return out
+
+
+def scene_work(table, lanes, kmax):
+    """(threefry blocks, bytes, operations) of one scene launch of `table`
+    over `lanes` lanes of `kmax` slots: the blocks the scene needs
+    (`SceneTable.needed_blocks`: the count and the sprites' key once a
+    lane; a slot's key, its components' keys and its draws once a slot),
+    not the ones the kernel's threads compute again; each lane's key read
+    once (8 bytes), its factors, count and status written once; 110
+    integer operations a block at the float32 rate (`lane_random_work`)."""
+    blocks = table.needed_blocks(lanes, kmax)
+    nbytes = lanes * (8 + 4 * kmax * table.width + 4 + 1)
+    return blocks, nbytes, 110.0 * blocks
+
+
+def scene_words_apart(torch, got, want):
+    """Words in which two scenes (factors, num, ok) differ, factors by
+    their bits."""
+    return (int((got[0].view(torch.int32) != want[0].view(torch.int32))
+                .sum()) + int((got[1] != want[1]).sum())
+            + int((got[2] != want[2]).sum()))
+
+
+def time_lane_random_scene(torch, card, launches, steps, lanes=BATCH,
+                           dev="cuda"):
+    """The kernels-line entry of the lane_random kernel's scene mode
+    (`lane_random.draw_scene`): for each of SCENE_CONFIGS, its leaf-tree
+    generators' scenes on `lanes` strided card keys against their plain
+    bodies (`GenerateSprites._sample_plain`) on the same keys (held 0
+    words apart), then all of them timed eagerly (`ms`, `device_ms`) and
+    in a graph (`graph_ms`) beside the plain bodies (`plain_ms`,
+    `plain_graph_ms`), with the bound of the blocks they need
+    (`scene_work`); the first config's numbers head the entry. Registers
+    and spill from the build log; `launches` is the main path's count of
+    scene launches (phase 4), over `steps` steps."""
+    import importlib
+
+    from spriteworld_torch.ops import _build
+    from spriteworld_torch.ops import lane_random as lr
+
+    keys = lr.split(lr.key(2**31 + 99, dev), (lanes, 2))[:, 1]
+    worst, by_config = 0, {}
+    for config in SCENE_CONFIGS:
+        mod = importlib.import_module(f"spriteworld_torch.configs.{config}")
+        every = generate_sprites_of(mod.get_config("train")["init_sprites"])
+        gens = [g for g in every if g._scene is not None]
+        apart = sum(scene_words_apart(
+            torch, lr.draw_scene(keys, g._scene, g.max_sprites),
+            g._sample_plain(keys)) for g in gens)
+        worst = max(worst, apart)
+
+        def kernel(gens=gens):
+            for g in gens:
+                lr.draw_scene(keys, g._scene, g.max_sprites)
+
+        def plain(gens=gens):
+            for g in gens:
+                g._sample_plain(keys)
+
+        work = [scene_work(g._scene, lanes, g.max_sprites) for g in gens]
+        blocks, nbytes, ops = (sum(w[i] for w in work) for i in range(3))
+        bound_ms, bound_by = bound(nbytes, 0, ops)
+        by_config[config] = {
+            "generators": len(every), "scene": len(gens),
+            "slots": sorted({g.max_sprites for g in gens}),
+            "words_apart": apart,
+            "ms": event_ms(torch, kernel, 20),
+            "device_ms": event_ms(torch, kernel, 20, spin=True),
+            "graph_ms": graph_ms(torch, kernel, 10),
+            "plain_ms": event_ms(torch, plain, 3),
+            "plain_graph_ms": graph_ms(torch, plain, 3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "blocks_needed": blocks,
+            "blocks_computed": sum(lanes * g.max_sprites * g._scene.blocks
+                                   for g in gens)}
+        row = by_config[config]
+        print(f"lane_random_scene, {config}: {row['scene']} of "
+              f"{row['generators']} generators at {lanes} lanes, "
+              f"{apart} words apart from their plain bodies; kernel "
+              f"{row['ms']:.4f} ms ({row['device_ms']:.4f} on the device, "
+              f"{row['graph_ms']:.4f} in a graph), plain "
+              f"{row['plain_ms']:.4f} ms ({row['plain_graph_ms']:.4f} in a "
+              f"graph), bound {bound_ms:.6f} ms ({bound_by}; {blocks} "
+              f"blocks needed, {row['blocks_computed']} computed); on "
+              f"{card}")
+    check(worst == 0, "the lane_random scene mode differs from the plain "
+          "body")
+    head = by_config[SCENE_CONFIGS[0]]
+    regs, spill = ptxas_lines(_build, "lane_random",
+                              "lane_random_scene_kernel")
+    entry = {
+        "name": "lane_random_scene", "route": "cuda",
+        "source": "spriteworld_torch/csrc/lane_random.cu",
+        "replaces": "spriteworld_tpu/core/generators.py:108 (XLA's fusion "
+                    "of GenerateSprites and its Product under vmap; no "
+                    "pallas_call)",
+        "launches": launches, "max_abs_err": worst,
+        **{k: head[k] for k in ("ms", "device_ms", "graph_ms", "plain_ms",
+                                "plain_graph_ms", "bound_ms", "bound_by",
+                                "blocks_needed", "blocks_computed")},
+        "bound_tc_ms": head["bound_ms"], "bound_tc_by": head["bound_by"],
+        "library_ms": None, "registers": regs, "spill_bytes": spill,
+        "scene_draws": head["scene"], "launches_per_step": launches / steps,
+        "by_config": by_config}
+    print(f"lane_random_scene: {regs} registers, {spill} bytes spilled; "
+          f"{launches} scene launches on the main path, "
+          f"{launches / steps:.1f} a step; on {card}")
+    return entry
+
+
 def lane_keys_phase(torch, bench_torch, env_lib, card, dev="cuda"):
     """Phase 12: per-lane keys on the card (see the module docstring).
     Returns the largest kernel-against-plain difference."""
@@ -3045,13 +3186,17 @@ def scene_tables_work(factors, tab):
     return (factors.numel() * 4 + b * 4, tab.numel() * 4, 80.0 * b * k * v)
 
 
-def ptxas_lines(_build, name):
+def ptxas_lines(_build, name, function=None):
     """(registers, spill bytes) of kernel library `name` from its build log
-    (ptxas -v), (None, None) where the log has none."""
+    (ptxas -v), of its entry function whose name holds `function` where
+    given (else its last), (None, None) where the log has none."""
     import re
 
     log = _build.library_path(name).with_suffix(".log")
     text = log.read_text() if log.exists() else ""
+    if function is not None:
+        text = next((part for part in text.split("Compiling entry function")
+                     [1:] if function in part.partition("\n")[0]), "")
     regs = re.findall(r"Used (\d+) registers", text)
     spill = re.findall(r"(\d+) bytes spill stores", text)
     return ((int(regs[-1]) if regs else None),
@@ -3800,7 +3945,7 @@ def main():
           + ("not measured (no cuobjdump)" if imma is None
              else json.dumps(imma)))
 
-    steps_per_sec, state, scene_launches, draws = drive_main_path(
+    steps_per_sec, state, scene_launches, draws, scenes = drive_main_path(
         torch, bench_torch, env_lib, rasterize_cuda)
     table_launches = rasterize_cuda.scene_tables.launches
     print(f"env_steps_per_sec {steps_per_sec:.1f} (image64, AA=5, "
@@ -3862,6 +4007,8 @@ def main():
                                   WARMUP_STEPS + CHUNKS * STEPS)
     lane_entry["max_abs_err"] = max(lane_entry["max_abs_err"], worst_keys)
     entries.append(lane_entry)
+    entries.append(time_lane_random_scene(
+        torch, card, scenes, WARMUP_STEPS + CHUNKS * STEPS))
     tables_entry = time_scene_tables(torch, rasterize_cuda, colors, state,
                                      card)
     tables_entry["launches"] = table_launches

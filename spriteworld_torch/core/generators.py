@@ -10,6 +10,13 @@ Packing invariant: live sprites occupy slots [0, num); slot order is z-order
 (higher slot = foreground). Dead slots hold the default factor row so
 downstream masked math stays finite. Random sprite counts are `RandInt`s
 (or `(low, high)` tuples), drawn per lane within the static capacity.
+
+A `GenerateSprites` whose factor distribution is a tree of `Product`s over
+`Continuous` and `Discrete` leaves draws its scene on CUDA keys in one
+launch of the `lane_random` kernel's scene mode (`lane_random.draw_scene`),
+bit for bit what its plain body draws; the route is decided once, from the
+tree, when the generator is built (`_scene_table`). Any other tree, and
+every scene on CPU keys, takes the plain body (`_sample_plain`).
 """
 
 from __future__ import annotations
@@ -59,6 +66,47 @@ def _pack(factors: torch.Tensor, valid: torch.Tensor):
     return packed, num
 
 
+def _scene_table(factor_dist, num_sprites, kmax):
+    """The `lane_random.scene_table` of a generator's scene, or None where
+    the kernel cannot draw it: a tree that is not a `Product` of
+    `Continuous` and `Discrete` leaves (nested `Product`s allowed, at most
+    `lane_random.SCENE_MAX_DEPTH` deep) whose keys are factors and whose
+    dtypes the kernel casts; a count that is neither an int nor a
+    `RandInt`; no slot."""
+    if type(num_sprites) is RandInt:
+        count = (num_sprites.low, num_sprites.high)
+    elif type(num_sprites) is int:
+        count = num_sprites
+    else:
+        return None
+    leaves = []
+
+    def walk(dist, path):
+        if type(dist) is distributions.Product:
+            return len(path) < lane_random.SCENE_MAX_DEPTH and all(
+                walk(c, path + (i,)) for i, c in enumerate(dist.components))
+        if type(dist) is distributions.Continuous:
+            dtype = np.dtype(dist.dtype).name
+            if dtype not in lane_random.SCENE_CASTS:
+                return False
+            draw = ("uniform", dist.minval, dist.maxval, dtype)
+        elif type(dist) is distributions.Discrete and len(dist.candidates):
+            draw = (("randint", dist.candidates) if dist.probs is None else
+                    ("choice", dist.candidates,
+                     lane_random.cumulative(dist.probs)))
+        else:
+            return False
+        if dist.key not in state_lib.FACTOR_INDEX:
+            return False
+        leaves.append((path, state_lib.FACTOR_INDEX[dist.key], draw))
+        return True
+
+    if (kmax < 1 or type(factor_dist) is not distributions.Product
+            or not walk(factor_dist, ())):
+        return None
+    return lane_random.scene_table(count, leaves, state_lib.DEFAULT_FACTORS)
+
+
 class SpriteGenerator:
     """Base: batched scene sampler with static capacity."""
 
@@ -93,9 +141,19 @@ class GenerateSprites(SpriteGenerator):
         self.num_sprites = num_sprites
         self.max_sprites = (num_sprites if isinstance(num_sprites, int)
                             else num_sprites.max_value)
+        self._scene = _scene_table(factor_dist, num_sprites, self.max_sprites)
 
     @profiling.node
     def sample_with_status(self, key):
+        if self._scene is not None and key.is_cuda:
+            profiling.route(type(self).__name__, "scene")
+            return lane_random.draw_scene(key, self._scene, self.max_sprites)
+        profiling.route(type(self).__name__, "plain")
+        return self._sample_plain(key)
+
+    def _sample_plain(self, key):
+        """The scene of lane keys `key` int32[B, 2] in PyTorch operations:
+        every tree's route on CPU keys, and the scene mode's twin."""
         dev, batch = key.device, key.shape[0]
         kmax = self.max_sprites
         keys = lane_random.split(key, 2)  # the count's key, the sprites'

@@ -21,6 +21,16 @@
 //   chain: per lane, n rounds of JAX's rejection loop `k, sub = split(k)`:
 //     sub_r = T(s_r, 1), s_{r+1} = T(s_r, 0), s_0 = the key; the n subkeys
 //     and s_n are written.
+//   scene (a second kernel, lane_random_scene_kernel): a whole
+//     `GenerateSprites` scene whose factor distribution is a tree of
+//     `Product`s over `Continuous` and `Discrete` leaves, as the generator's
+//     plain body draws it: k = split(key, 2); the count is a constant or
+//     randint(k[0], 1, lo, hi); slot s draws from T(k[1], s), each Product
+//     level from T(its key, i) of its i-th component; a Continuous leaf is
+//     the uniform above cast through its dtype, a Discrete one a candidate
+//     picked by randint(0, n) or by JAX's choice (the first index whose
+//     float32 cumulative sum reaches (1 - u) * cum[-1]). A dead slot (slot
+//     >= count) keeps the default row.
 // The plain twin is `threefry_plain` in spriteworld_torch/ops/lane_random.py;
 // the two agree bit for bit (integer arithmetic; every float operation
 // here is one IEEE operation with an explicit rounding, __f*_rn and
@@ -44,6 +54,19 @@
 // its n rounds and writes [n + 1] keys in the same layouts. Keys are read
 // through a lane stride, so a key that is a slice of a split (a view with
 // stride 2n) is read in place.
+//
+// The scene mode replaces the ~45 small PyTorch kernels of a generator's
+// plain body (splits, one draw a leaf, status, gathers, column writes,
+// masks) by one launch over the generator's descriptor table (built once
+// on the host, `lane_random.scene_table`; its layout below). One thread a
+// (lane, slot, leaf) derives its leaf's key down the leaf's path of
+// Product components, draws, and writes its column (the default in a dead
+// slot); the leaf-0 thread of a slot writes the columns no leaf writes,
+// and the count and status once a lane. Each thread recomputes the lane's
+// count and the keys above its leaf: at a few thousand lanes the card has
+// threads to spare, and a thread's serial chain is what bounds the launch
+// (a block's 20 rounds are ~70 dependent integer operations), so a chain
+// of 3-7 blocks a thread beats one of 20-30 a (lane, slot).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,6 +76,26 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kKeys = 0, kBits = 1, kUniform = 2, kRandint = 3, kNormal = 4,
               kChain = 5;
+
+// A scene's descriptor table (int32 words; `lane_random.scene_table` writes
+// it): a header of kSceneHeader words, [leaves, count lo, count span (0:
+// the count is lo), the mask of the columns no leaf writes, the width w of
+// a row of factors], the default factor row as float bits x w, then a
+// record of kSceneRecord words a leaf, then a pool of float words
+// (candidates, cumulative sums; their offsets count from the table's
+// start).
+// A record is [op, column, depth d, a, b, c, 0, 0, path x kSceneMaxDepth]:
+// the leaf's key is T(...T(T(slot's key, path[0]), path[1])..., path[d -
+// 1]), path[i] being the component's index in its Product; it writes its
+// column: kSceneUniform with a = lo, b = span (float bits), c = the cast;
+// kSceneRandint and kSceneChoice with a = n candidates, b = their word in
+// the pool, and c = the word of the cumulative sums (choice).
+constexpr int kSceneMaxDepth = 8;
+constexpr int kSceneHeader = 5, kSceneRecord = 8 + kSceneMaxDepth;
+constexpr int kSceneUniform = 0, kSceneRandint = 1, kSceneChoice = 2;
+// The dtypes a uniform is cast through (torch's conversions on the card:
+// float to int truncates; float to uint8 goes through int64).
+constexpr int kCastNone = 0, kCastInt32 = 1, kCastInt64 = 2, kCastUint8 = 3;
 
 // XLA's ErfInv32 coefficients, highest degree first, for w < 5 and w >= 5
 // (the twin's _ERFINV_LT5 and _ERFINV_GE5).
@@ -94,6 +137,34 @@ __device__ __forceinline__ uint32_t block_bits(uint32_t k0, uint32_t k1,
   uint32_t x0 = 0u, x1 = j;
   threefry(k0, k1, x0, x1);
   return x0 ^ x1;
+}
+
+// The key T(key, j).
+__device__ __forceinline__ uint2 block_key(uint2 k, uint32_t j) {
+  uint32_t x0 = 0u, x1 = j;
+  threefry(k.x, k.y, x0, x1);
+  return make_uint2(x0, x1);
+}
+
+// JAX's randint offset in [0, span_u) at `counter` (see the header).
+__device__ __forceinline__ uint32_t randint_offset(uint32_t k0, uint32_t k1,
+                                                   uint32_t counter,
+                                                   uint32_t span_u) {
+  uint32_t h0 = 0u, h1 = 0u, l0 = 0u, l1 = 1u;
+  threefry(k0, k1, h0, h1);
+  threefry(k0, k1, l0, l1);
+  const uint32_t a = block_bits(h0, h1, counter);
+  const uint32_t b = block_bits(l0, l1, counter);
+  uint32_t m = 65536u % span_u;
+  m = m * m % span_u;  // the square wraps in uint32, as JAX's does
+  return (a % span_u * m + b % span_u) % span_u;
+}
+
+// JAX's uniform float32 on [lo, lo + span) of the bits b.
+__device__ __forceinline__ float uniform_of(uint32_t b, float lo,
+                                            float span) {
+  const float f = __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
+  return fmaxf(lo, __fmaf_rn(f, span, lo));
 }
 
 // XLA's float32 ErfInv32 (see the header).
@@ -153,15 +224,8 @@ lane_random_kernel(const uint32_t* __restrict__ keys, long long lanes,
   const uint32_t k1 = __ldg(keys + lane * key_stride + 1);
   const uint32_t counter = start + static_cast<uint32_t>(j);
   if (mode == kRandint) {
-    uint32_t h0 = 0u, h1 = 0u, l0 = 0u, l1 = 1u;
-    threefry(k0, k1, h0, h1);
-    threefry(k0, k1, l0, l1);
-    const uint32_t a = block_bits(h0, h1, counter);
-    const uint32_t b = block_bits(l0, l1, counter);
-    uint32_t m = 65536u % span_u;
-    m = m * m % span_u;  // the square wraps in uint32, as JAX's does
-    const uint32_t offset = (a % span_u * m + b % span_u) % span_u;
-    static_cast<uint32_t*>(out)[t] = static_cast<uint32_t>(lo_i) + offset;
+    static_cast<uint32_t*>(out)[t] = static_cast<uint32_t>(lo_i) +
+                                     randint_offset(k0, k1, counter, span_u);
     return;
   }
   uint32_t x0 = 0u, x1 = counter;
@@ -174,11 +238,100 @@ lane_random_kernel(const uint32_t* __restrict__ keys, long long lanes,
   if (mode == kBits) {
     static_cast<uint32_t*>(out)[t] = b;
   } else if (mode == kUniform || mode == kNormal) {
-    const float f = __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
-    const float u = fmaxf(lo, __fmaf_rn(f, span, lo));
+    const float u = uniform_of(b, lo, span);
     static_cast<float*>(out)[t] =
         mode == kUniform ? u : __fmul_rn(erfinv32(u), 1.41421356f);
   }
+}
+
+// A uniform cast through a leaf's dtype and back to float32, as torch's
+// `.to(dtype).to(torch.float32)` converts on the card.
+__device__ __forceinline__ float cast_through(float u, int cast) {
+  switch (cast) {
+    case kCastInt32:
+      return __int2float_rn(__float2int_rz(u));
+    case kCastInt64:
+      return __ll2float_rn(__float2ll_rz(u));
+    case kCastUint8:
+      return static_cast<float>(static_cast<unsigned char>(__float2ll_rz(u)));
+    case kCastNone:
+    default:
+      return u;
+  }
+}
+
+// One thread a (lane, slot, leaf) of a `GenerateSprites` scene from the
+// descriptor table (see kSceneHeader): the leaf's column of the slot's
+// row, drawn in a dead slot too (its default is written); the leaf-0
+// thread also writes the columns no leaf writes and, in slot 0, the lane's
+// count and its status (true: a leaf tree rejects nothing). A tree without
+// leaves has one thread a slot.
+__global__ void __launch_bounds__(kThreads)
+lane_random_scene_kernel(const uint32_t* __restrict__ keys, long long lanes,
+                         long long key_stride, int kmax, int leaves,
+                         const int* __restrict__ table,
+                         float* __restrict__ factors, int* __restrict__ num,
+                         bool* __restrict__ ok) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int per_slot = leaves > 0 ? leaves : 1;
+  if (t >= lanes * kmax * per_slot) return;
+  const long long cell = t / per_slot;  // lane * kmax + slot
+  const int leaf = static_cast<int>(t - cell * per_slot);
+  const long long lane = cell / kmax;
+  const int slot = static_cast<int>(cell - lane * kmax);
+  const uint2 key = make_uint2(__ldg(keys + lane * key_stride),
+                               __ldg(keys + lane * key_stride + 1));
+  int count = __ldg(table + 1);
+  const uint32_t count_span = static_cast<uint32_t>(__ldg(table + 2));
+  if (count_span != 0u) {
+    const uint2 k = block_key(key, 0u);
+    count = static_cast<int>(static_cast<uint32_t>(count) +
+                             randint_offset(k.x, k.y, 0u, count_span));
+  }
+  const bool live = slot < count;
+  const int width = __ldg(table + 4);
+  const int* row_default = table + kSceneHeader;
+  float* row = factors + cell * width;
+  if (leaf == 0) {
+    for (int m = __ldg(table + 3); m != 0; m &= m - 1) {
+      const int c = __ffs(m) - 1;
+      row[c] = __int_as_float(__ldg(row_default + c));
+    }
+    if (slot == 0) {
+      num[lane] = count;
+      ok[lane] = true;
+    }
+  }
+  if (leaf >= leaves) return;
+  const int* rec = table + kSceneHeader + width + leaf * kSceneRecord;
+  const int op = __ldg(rec), column = __ldg(rec + 1), depth = __ldg(rec + 2);
+  uint2 k = block_key(block_key(key, 1u), static_cast<uint32_t>(slot));
+  for (int d = 0; d < depth; ++d) {
+    k = block_key(k, static_cast<uint32_t>(__ldg(rec + 8 + d)));
+  }
+  float v;
+  if (op == kSceneUniform) {
+    v = cast_through(uniform_of(block_bits(k.x, k.y, 0u),
+                                __int_as_float(__ldg(rec + 3)),
+                                __int_as_float(__ldg(rec + 4))),
+                     __ldg(rec + 5));
+  } else {
+    const int n = __ldg(rec + 3);
+    int i = 0;
+    if (op == kSceneRandint) {
+      i = static_cast<int>(
+          randint_offset(k.x, k.y, 0u, static_cast<uint32_t>(n)));
+    } else {  // kSceneChoice: searchsorted(cum, (1 - u) * cum[-1], left)
+      const int* cum = table + __ldg(rec + 5);
+      const float u = uniform_of(block_bits(k.x, k.y, 0u), 0.0f, 1.0f);
+      const float target = __fmul_rn(__fsub_rn(1.0f, u),
+                                     __int_as_float(__ldg(cum + n - 1)));
+      while (i < n - 1 && __int_as_float(__ldg(cum + i)) < target) ++i;
+    }
+    v = __int_as_float(__ldg(table + __ldg(rec + 4) + i));
+  }
+  row[column] = live ? v : __int_as_float(__ldg(row_default + column));
 }
 
 }  // namespace
@@ -203,6 +356,28 @@ extern "C" int lane_random_launch(const uint32_t* keys, long long lanes,
                        static_cast<cudaStream_t>(stream)>>>(
       keys, lanes, key_stride, n, start, mode, counters_first, lo, span,
       lo_i, span_u, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A `GenerateSprites` scene of `kmax` slots for each of `lanes` keys (lane
+// l's at keys + l * key_stride) from the descriptor table `table` of
+// `leaves` leaves on the card: factors f32[lanes, kmax, w] (w, the row's
+// width, in the table), num i32[lanes], ok bool[lanes]. Launches on `stream`; returns the CUDA error
+// code (0 on success).
+extern "C" int lane_random_scene_launch(const uint32_t* keys,
+                                        long long lanes,
+                                        long long key_stride, int kmax,
+                                        int leaves, const int* table,
+                                        float* factors, int* num, bool* ok,
+                                        void* stream) {
+  if (lanes <= 0 || kmax <= 0) return 0;
+  if (leaves < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = lanes * kmax * (leaves > 0 ? leaves : 1);
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  lane_random_scene_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      keys, lanes, key_stride, kmax, leaves, table, factors, num, ok);
   return static_cast<int>(cudaGetLastError());
 }
 

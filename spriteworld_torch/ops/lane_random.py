@@ -46,6 +46,11 @@ normals or a key chain (`threefry_launch`, which counts its launches); on a
 CPU tensor the plain twin does the same with int64 torch operations masked
 to 32 bits (`threefry_plain`). Neither syncs with the host, so a draw can be
 captured in a CUDA graph.
+
+The kernel's scene mode (`draw_scene`) draws a whole `GenerateSprites`
+scene of a leaf tree in one launch, from a descriptor table that
+`scene_table` builds once on the host; its plain twin is the generator's
+own body (`core.generators.GenerateSprites._sample_plain`).
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +96,12 @@ _INT32_MAX = 2**31 - 1
 def _f32(x) -> float:
     """`x` rounded to float32, as a Python float (exact in float64)."""
     return float(np.float32(x))
+
+
+def uniform_range(lo, hi) -> Tuple[float, float]:
+    """(lo, span) of a uniform draw on [lo, hi) as the kernel takes them:
+    lo rounded to float32, and hi - lo of the rounded bounds, rounded."""
+    return _f32(lo), _f32(_f32(hi) - _f32(lo))
 
 
 # ---------------------------------------------------------------------- #
@@ -287,7 +298,7 @@ def threefry_plain(keys: torch.Tensor, n: int, mode: int, start: int = 0,
     elif mode in (UNIFORM, NORMAL):
         if mode == NORMAL:
             lo, hi = _NORMAL_LO, 1.0
-        lo, span = _f32(lo), _f32(_f32(hi) - _f32(lo))
+        lo, span = uniform_range(lo, hi)
         f = _as_i32((b >> 9) | 0x3F800000).view(torch.float32) - 1.0
         out = _fma_f32(f, span, lo).clamp_min(lo)
         if mode == NORMAL:
@@ -317,6 +328,41 @@ def _launcher():
     stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
         lambda index: torch.cuda.current_stream(index).cuda_stream)
     return lib, fn, stream
+
+
+@functools.lru_cache(maxsize=None)
+def _scene_launcher():
+    """lane_random_scene_launch, typed."""
+    fn = _launcher()[0].lane_random_scene_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(keys: torch.Tensor, fn, *args) -> None:
+    """fn(*args, stream) on the keys' card and its current stream; raises
+    where the kernel could not launch."""
+    lib, _, current_stream = _launcher()
+    current = torch.cuda.current_device()
+    index = current if keys.device.index is None else keys.device.index
+    # Switching to the keys' card costs host time: only where needed.
+    with (contextlib.nullcontext() if index == current
+          else torch.cuda.device(index)):
+        err = fn(*args, current_stream(index))
+    if err != 0:
+        raise RuntimeError(f"lane_random kernel failed to launch: CUDA "
+                           f"error {err} ({_build.error_string(lib, err)})")
+
+
+def _count_launch(name: str, blocks: int) -> None:
+    """One launch in mode `name` computing `blocks` threefry blocks, into
+    `threefry_launch`'s counts and the census of a capture."""
+    threefry_launch.launches += 1
+    threefry_launch.by_mode[name] = threefry_launch.by_mode.get(name, 0) + 1
+    profiling.count("lane_random", name, blocks)
 
 
 def _lanes_view(keys: torch.Tensor) -> torch.Tensor:
@@ -369,25 +415,13 @@ def threefry_launch(keys: torch.Tensor, n: int, mode: int, start: int = 0,
     if mode in (UNIFORM, NORMAL):
         if mode == NORMAL:
             lo, hi = _NORMAL_LO, 1.0
-        lo_f, span_f = _f32(lo), _f32(_f32(hi) - _f32(lo))
+        lo_f, span_f = uniform_range(lo, hi)
     elif mode == RANDINT:
         lo_i, span_u = randint_range(lo, hi)
-    lib, launch, current_stream = _launcher()
-    current = torch.cuda.current_device()
-    index = current if keys.device.index is None else keys.device.index
-    # Switching to the keys' card costs host time: only where needed.
-    with (contextlib.nullcontext() if index == current
-          else torch.cuda.device(index)):
-        err = launch(flat.data_ptr(), count, flat.stride(0), n, start, mode,
-                     int(counters_first), lo_f, span_f, lo_i, span_u,
-                     out.data_ptr(), current_stream(index))
-    if err != 0:
-        raise RuntimeError(f"lane_random kernel failed to launch: CUDA "
-                           f"error {err} ({_build.error_string(lib, err)})")
-    threefry_launch.launches += 1
-    name = MODE_NAMES[mode]
-    threefry_launch.by_mode[name] = threefry_launch.by_mode.get(name, 0) + 1
-    profiling.count("lane_random", name, count * n * BLOCKS_PER_OUTPUT[mode])
+    _launch(keys, _launcher()[1], flat.data_ptr(), count, flat.stride(0),
+            n, start, mode, int(counters_first), lo_f, span_f, lo_i, span_u,
+            out.data_ptr())
+    _count_launch(MODE_NAMES[mode], count * n * BLOCKS_PER_OUTPUT[mode])
     return out
 
 
@@ -404,6 +438,154 @@ def _threefry(keys, n, mode, start=0, counters_first=False, lo=0.0,
               hi=1.0):
     fn = threefry_launch if keys.is_cuda else threefry_plain
     return fn(keys, n, mode, start, counters_first, lo, hi)
+
+
+# ---------------------------------------------------------------------- #
+# Whole scenes: the kernel's scene mode.
+
+# Record ops of a scene table, and the cast of a uniform leaf by the name
+# of its dtype (csrc/lane_random.cu holds the same codes and layout).
+SCENE_UNIFORM, SCENE_RANDINT, SCENE_CHOICE = range(3)
+SCENE_CASTS = {"float32": 0, "float64": 0, "int32": 1, "int64": 2,
+               "uint8": 3}
+# The kernel's deepest leaf and its table's layout: a header of
+# SCENE_HEADER words, then the row of factors, then a record a leaf.
+SCENE_MAX_DEPTH = 8
+SCENE_HEADER, SCENE_RECORD = 5, 8 + SCENE_MAX_DEPTH
+# Threefry blocks of each draw: a uniform's one, randint's four.
+_DRAW_BLOCKS = {"uniform": 1, "randint": 4, "choice": 1}
+
+
+class SceneTable(NamedTuple):
+    """A scene's descriptor table (`scene_table`): `words`, the int32
+    words the kernel reads; `leaves`, its leaves (one thread each a slot);
+    `width`, the factors of a row; `blocks`, the threefry blocks the
+    threads of a (lane, slot) compute; `lane_blocks` and `slot_blocks`,
+    those the scene needs once a lane (the count, the sprites' key) and
+    once a slot (its key, one a `Product` component on the leaves' paths,
+    the draws)."""
+
+    words: np.ndarray
+    leaves: int
+    width: int
+    blocks: int
+    lane_blocks: int
+    slot_blocks: int
+
+    def needed_blocks(self, lanes: int, kmax: int) -> int:
+        """The threefry blocks `lanes` scenes of `kmax` slots need."""
+        return lanes * (self.lane_blocks + kmax * self.slot_blocks)
+
+
+def _f32_bits(x) -> int:
+    return int(np.float32(x).view(np.int32))
+
+
+def scene_table(count, leaves, default_row) -> SceneTable:
+    """The descriptor table of a `GenerateSprites` scene for `draw_scene`.
+
+    `count`: every lane's sprite count (an int), or (lo, hi): each lane's
+    `randint(k[0], 1, lo, hi)` of its key's split k. `leaves`: [(path,
+    column, draw)], `path` the component indices from the root `Product`
+    down to the leaf (1 to SCENE_MAX_DEPTH of them), `column` the factor
+    the leaf writes, `draw` one of ("uniform", lo, hi, dtype name in
+    SCENE_CASTS), ("randint", candidates) and ("choice", candidates,
+    cumulative(p)). `default_row`: the factors of a dead slot and of the
+    columns no leaf writes; its length is the width of the scene's rows,
+    which the table carries. The layout is csrc/lane_random.cu's
+    (kSceneHeader)."""
+    default_row = np.asarray(default_row, np.float32)
+    if default_row.ndim != 1 or not 1 <= default_row.size <= 31:
+        raise ValueError(f"a default row holds 1 to 31 factors, got shape "
+                         f"{default_row.shape}")
+    width = default_row.size
+    if isinstance(count, tuple):
+        count_lo, count_span = randint_range(*count)
+        count_blocks = 5  # T(key, 0), randint's four
+    else:
+        count_lo, count_span = int(count), 0
+        count_blocks = 0
+    # Every thread draws the count; a leaf's thread T(key, 1), the slot's
+    # key, the keys down its path and its draw. The scene needs the count
+    # and T(key, 1) once a lane, the slot's key and each component's key
+    # once a slot.
+    blocks = max(len(leaves), 1) * count_blocks
+    lane_blocks = count_blocks + (1 if leaves else 0)
+    slot_blocks = 1 if leaves else 0
+    components = set()
+    records, pool, unwritten = [], [], (1 << width) - 1
+    for path, column, draw in leaves:
+        if not 1 <= len(path) <= SCENE_MAX_DEPTH:
+            raise ValueError(f"a leaf lies {len(path)} Products deep; the "
+                             f"kernel takes 1 to {SCENE_MAX_DEPTH}")
+        if not 0 <= column < width:
+            raise ValueError(f"column {column} is not a factor")
+        kind, *args = draw
+        if kind == "uniform":
+            lo, span = uniform_range(args[0], args[1])
+            op, a, b, c = (SCENE_UNIFORM, _f32_bits(lo), _f32_bits(span),
+                           SCENE_CASTS[args[2]])
+        else:  # a, b, c: n, the candidates' and the sums' pool offsets
+            cands = np.asarray(args[0], np.float32)
+            if not 1 <= cands.size < 2**31:
+                raise ValueError(f"{cands.size} candidates")
+            op = SCENE_RANDINT if kind == "randint" else SCENE_CHOICE
+            a, b, c = cands.size, len(pool), len(pool) + cands.size
+            pool += list(cands)
+            if kind == "choice":
+                pool += list(np.asarray(args[1], np.float32))
+        records.append([op, column, len(path), a, b, c, 0, 0] + list(path)
+                       + [0] * (SCENE_MAX_DEPTH - len(path)))
+        unwritten &= ~(1 << column)
+        blocks += 2 + len(path) + _DRAW_BLOCKS[kind]
+        components.update(tuple(path[:d]) for d in range(1, len(path) + 1))
+        slot_blocks += _DRAW_BLOCKS[kind]
+    slot_blocks += len(components)
+    base = SCENE_HEADER + width + SCENE_RECORD * len(records)
+    for rec in records:  # pool offsets to table words
+        if rec[0] != SCENE_UNIFORM:
+            rec[4] += base
+            rec[5] += base
+    header = [len(records), count_lo, count_span - (count_span >> 31 << 32),
+              unwritten, width] + [int(w) for w in default_row.view(np.int32)]
+    words = np.array(header + [w for rec in records for w in rec]
+                     + [int(w) for w in np.asarray(pool, np.float32)
+                        .view(np.int32)], np.int32)
+    return SceneTable(words, len(records), width, blocks, lane_blocks,
+                      slot_blocks)
+
+
+def draw_scene(keys: torch.Tensor, table: SceneTable, kmax: int):
+    """One launch of `csrc/lane_random.cu`'s scene mode over CUDA keys
+    int32[B, 2]: (factors f32[B, kmax, table.width], num i32[B], ok
+    bool[B]), each lane's `GenerateSprites` scene of `kmax` slots as
+    `table` (`scene_table`) describes it, bit for bit what the generator's
+    plain body draws. Runs on the current stream; raises when the kernel
+    cannot launch. Each launch adds one to `threefry_launch.launches` and
+    `.by_mode["scene"]`, and the launch with its threefry blocks to the
+    census of a graph being captured."""
+    if not keys.is_cuda:
+        raise ValueError("draw_scene needs CUDA keys; CPU keys take the "
+                         "generator's plain body")
+    if keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys must be int32[B, 2], got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    if kmax < 1:
+        raise ValueError(f"a scene has at least one slot, got {kmax}")
+    batch, dev = keys.shape[0], keys.device
+    factors = torch.empty((batch, kmax, table.width), dtype=torch.float32,
+                          device=dev)
+    num = torch.empty((batch,), dtype=torch.int32, device=dev)
+    ok = torch.empty((batch,), dtype=torch.bool, device=dev)
+    if batch == 0:
+        return factors, num, ok
+    flat = _lanes_view(keys)
+    words = device_lib.constant(table.words, dev)
+    _launch(keys, _scene_launcher(), flat.data_ptr(), batch, flat.stride(0),
+            kmax, table.leaves, words.data_ptr(), factors.data_ptr(),
+            num.data_ptr(), ok.data_ptr())
+    _count_launch("scene", batch * kmax * table.blocks)
+    return factors, num, ok
 
 
 # ---------------------------------------------------------------------- #

@@ -37,6 +37,9 @@ Counterpart of `spriteworld_tpu/utils/profiling.py`, on torch:
     `valid`, `membership`): each call during a capture counts into its
     census by class and method, so the census says how many times a step
     evaluates each task.
+  * `route()` — a scene sampler that can take one of several routes
+    (`GenerateSprites`: the kernel's scene mode or its plain body) counts
+    each evaluation during a capture into its census by class and route.
   * `enable_debug_checks()` — raises FloatingPointError where an operation
     returns a NaN or an Inf, while enabled (a `TorchDispatchMode`).
   * `sync(value)` — waits for the card's work behind a tensor; a no-op for
@@ -415,7 +418,8 @@ class GraphRecord(_Open):
     {(kernel, mode): [launches, blocks]} of the port's kernels launched
     into the graph (`count`): one replay's work, without a device read;
     `slots`: {(kernel, mode): {sprite slots a scene}} where the wrapper
-    gave them; `evaluations`: {(task class, method): calls} (`evaluation`).
+    gave them; `evaluations`: {(task class, method): calls} (`evaluation`);
+    `routes`: {(sampler class, route): calls} (`route`).
     """
 
     def __init__(self, name: str):
@@ -427,6 +431,7 @@ class GraphRecord(_Open):
         self.census: Dict[Tuple[str, str], List[int]] = {}
         self.slots: Dict[Tuple[str, str], set] = {}
         self.evaluations: Dict[Tuple[str, str], int] = {}
+        self.routes: Dict[Tuple[str, str], int] = {}
         self._marks: List[Tuple[int, int]] = []  # (nodes so far, span)
         self._graph = None
         self._failed = False
@@ -501,7 +506,8 @@ class GraphRecord(_Open):
     def census_table(self) -> Dict[str, Dict[str, dict]]:
         """{kernel: {mode: {"launches", "blocks"[, "slots"]}}} of one
         replay, "slots" the sorted sprite slots of its scenes where
-        counted, and {"task.<class>": {method: {"evaluations"}}}."""
+        counted, {"task.<class>": {method: {"evaluations"}}} and
+        {"generator.<class>": {route: {"evaluations"}}}."""
         out: Dict[str, Dict[str, dict]] = {}
         for (kernel, mode), (launches, blocks) in sorted(
                 self.census.items()):
@@ -511,6 +517,8 @@ class GraphRecord(_Open):
             out.setdefault(kernel, {})[mode] = row
         for (cls, method), n in sorted(self.evaluations.items()):
             out.setdefault(f"task.{cls}", {})[method] = {"evaluations": n}
+        for (cls, name), n in sorted(self.routes.items()):
+            out.setdefault(f"generator.{cls}", {})[name] = {"evaluations": n}
         return out
 
 
@@ -564,6 +572,14 @@ def evaluation(method):
         return method(self, *args, **kwargs)
 
     return evaluate
+
+
+def route(sampler: str, name: str) -> None:
+    """One evaluation of the scene sampler class `sampler` by its route
+    `name`, into the census of the capture in progress, if any."""
+    if _capture is not None:
+        key = (sampler, name)
+        _capture.routes[key] = _capture.routes.get(key, 0) + 1
 
 
 @contextlib.contextmanager
