@@ -350,12 +350,18 @@ def _clustering(mods, chain):
     (lambda m: _clustering(m, chain=False), "Davies-Bouldin metric does not"),
     (lambda m: _clustering(m, chain=True), "Davies-Bouldin metric does not"),
 ], ids=["impossible_distribution", "one_cluster", "all_singletons"])
-def test_host_side_value_errors_as_jax(make, match):
+def test_host_side_value_errors_as_jax(make, match, monkeypatch):
     """The two ValueErrors raise where the JAX adapter raises them: an
     over-constrained scene distribution, and a clustering outside
     sklearn's domain (one populated cluster; every cluster a
-    singleton)."""
+    singleton).
+
+    The port's half runs under a smaller rejection bound: the CPU twin
+    walks the key chain one proposal at a time, and an exhaustion at
+    the real bound (test_rejection_bound_is_the_jax_packages) takes
+    over a minute."""
     jenv = jadapter.Environment(**make(_JAX), seed=0)
+    monkeypatch.setattr(tdistribs, "MAX_REJECTION_TRIES", 1000)
     tenv = tadapter.Environment(**make(_TORCH), seed=0, device="cpu")
     with pytest.raises(ValueError, match=match):
         jenv.reset()
@@ -363,6 +369,13 @@ def test_host_side_value_errors_as_jax(make, match):
         tenv.reset()
     with pytest.raises(ValueError, match=match):
         tenv.step([0.5, 0.5, 0.5, 0.5])
+
+
+def test_rejection_bound_is_the_jax_packages():
+    """The bound that test_host_side_value_errors_as_jax shrinks is
+    JAX's own."""
+    assert (tdistribs.MAX_REJECTION_TRIES == jdistribs.MAX_REJECTION_TRIES
+            == 100_000)
 
 
 def test_adapter_raises_without_a_card_unless_on_the_cpu():
