@@ -184,7 +184,13 @@ Phases:
      path's tables from the kernel against the plain twin on the card and
      on the CPU in both fills and every colour route (0 values apart), its
      time beside the twin's eager and in a graph, its bound, registers and
-     spill, and phase 4's launches (one a render);
+     spill, and phase 4's launches (one a render), then task_eval: every
+     shipped config's task in both modes on 2048 lanes of seeded scenes
+     and on the edge states, the kernel's reward, success and validity
+     held 0 words apart from the task's methods on the card, a step's three
+     evaluations timed for the benchmarked rollout configs beside the
+     methods eager and in a graph, the bound of their bytes, registers and
+     spill, and phase 4's launches (three a step);
  13. the last line: {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card)
@@ -2871,6 +2877,118 @@ def time_lane_random_scene(torch, card, launches, steps, lanes=BATCH,
     return entry
 
 
+# The configurations whose task the kernels line's task_eval entry times,
+# the first heading the entry: the benchmarked rollout cells'.
+TASK_CONFIGS = ("examples.goal_finding_clustering", "cobra.sorting",
+                "cobra.goal_finding_new_position")
+
+
+def time_task_eval(torch, card, launches, steps, lanes=BATCH, dev="cuda"):
+    """The kernels-line entry of `csrc/task_eval.cu`: every shipped
+    config's task in both modes on its seeded scenes at `lanes` lanes
+    (`tests/test_torch_task_eval.py`'s states: fresh scenes, then moved
+    onto a grid and onto colour bounds) and on the edge states, each
+    output the kernel gives held 0 words apart from the task's methods on
+    the card; then, for each of TASK_CONFIGS, a step's three evaluations
+    (the transition's three outputs, the fresh scene's validity, the
+    render's success) timed through the kernel eagerly (`ms`, `device_ms`)
+    and in a graph (`graph_ms`), the transition's launch alone in a graph
+    (`launch_graph_ms`), beside the methods (`plain_ms`,
+    `plain_graph_ms`), with the bound of the bytes read and written.
+    Registers and spill from the build log; `launches` is the main path's
+    count (phase 4), over `steps` steps."""
+    import importlib.util
+    import pathlib
+
+    from spriteworld_torch.core import tasks
+    from spriteworld_torch.ops import _build, task_eval
+
+    # By path: another installed package may own the name `tests`.
+    path = pathlib.Path(__file__).resolve().parent / "tests" \
+        / "test_torch_task_eval.py"
+    spec = importlib.util.spec_from_file_location("task_eval_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+
+    every = task_eval.REWARD | task_eval.SUCCESS | task_eval.VALID
+    worst, by_config = 0, {}
+    for name in cases.CONFIGS:
+        for mode in ("train", "test"):
+            env, states = cases.seeded_states(name, mode, lanes, dev)
+            table = tasks.task_table(env.task)
+            for factors, num in states:
+                got = task_eval.task_eval(table, factors, num, every, "check")
+                worst = max(worst, cases.words_apart(
+                    [g.cpu().numpy() for g in got],
+                    cases.methods(env.task, factors, num)))
+    for _, task, factors, num in cases.edge_states(dev):
+        got = task_eval.task_eval(tasks.task_table(task), factors, num,
+                                  every, "check")
+        worst = max(worst, cases.words_apart([g.cpu().numpy() for g in got],
+                                             cases.methods(task, factors,
+                                                           num)))
+    check(worst == 0, "task_eval differs from the task's methods")
+    for name in TASK_CONFIGS:
+        env, states = cases.seeded_states(name, "train", lanes, dev)
+        factors, num = states[0]
+        ev = tasks.Evaluator(env.task)
+
+        def kernel(ev=ev, f=factors, n=num):
+            ev.evaluate(f, n, every, "transition")
+            ev.evaluate(f, n, task_eval.VALID, "fresh")
+            ev.evaluate(f, n, task_eval.SUCCESS, "render")
+
+        def plain(task=env.task, f=factors, n=num):
+            task.reward(f, n)
+            task.success(f, n)
+            tasks.task_valid(task, f, n)
+            tasks.task_valid(task, f, n)
+            task.success(f, n)
+
+        in_bytes = factors.numel() * 4 + num.numel() * 4
+        bound_ms, bound_by = bound(in_bytes, lanes * 6, 0.0)
+        by_config[name] = {
+            "slots": factors.shape[1], "words": len(ev.table),
+            "ms": event_ms(torch, kernel, 50),
+            "device_ms": event_ms(torch, kernel, 50, spin=True),
+            "graph_ms": graph_ms(torch, kernel, 20),
+            "launch_graph_ms": graph_ms(torch, lambda ev=ev, f=factors,
+                                        n=num: ev.evaluate(f, n, every,
+                                                           "transition"),
+                                        20),
+            "plain_ms": event_ms(torch, plain, 5),
+            "plain_graph_ms": graph_ms(torch, plain, 5),
+            "bound_ms": 3 * bound_ms, "bound_by": bound_by,
+            "bytes": 3 * (in_bytes + lanes * 6)}
+        row = by_config[name]
+        print(f"task_eval, {name}: a step's 3 launches at {lanes} lanes of "
+              f"{row['slots']} slots {row['ms']:.4f} ms "
+              f"({row['device_ms']:.4f} on the device, {row['graph_ms']:.4f}"
+              f" in a graph; the transition's {row['launch_graph_ms']:.4f}),"
+              f" the methods {row['plain_ms']:.4f} ms "
+              f"({row['plain_graph_ms']:.4f} in a graph), bound "
+              f"{row['bound_ms']:.6f} ms ({bound_by}); on {card}")
+    head = by_config[TASK_CONFIGS[0]]
+    regs, spill = ptxas_lines(_build, "task_eval")
+    entry = {
+        "name": "task_eval", "route": "cuda",
+        "source": "spriteworld_torch/csrc/task_eval.cu",
+        "replaces": "spriteworld_tpu/core/tasks.py and ops/clustering.py "
+                    "(XLA's fusion of the tasks' reward, success and "
+                    "validity; no pallas_call)",
+        "launches": launches, "max_abs_err": worst,
+        **{k: head[k] for k in ("ms", "device_ms", "graph_ms", "plain_ms",
+                                "plain_graph_ms", "bound_ms", "bound_by",
+                                "bytes")},
+        "bound_tc_ms": head["bound_ms"], "bound_tc_by": head["bound_by"],
+        "library_ms": None, "registers": regs, "spill_bytes": spill,
+        "launches_per_step": launches / steps, "by_config": by_config}
+    print(f"task_eval: {worst} words apart from the methods; {regs} "
+          f"registers, {spill} bytes spilled; {launches} launches on the "
+          f"main path, {launches / steps:.1f} a step; on {card}")
+    return entry
+
+
 def lane_keys_phase(torch, bench_torch, env_lib, card, dev="cuda"):
     """Phase 12: per-lane keys on the card (see the module docstring).
     Returns the largest kernel-against-plain difference."""
@@ -3918,6 +4036,7 @@ def main():
     from spriteworld_torch.core import environment as env_lib
     from spriteworld_torch.ops import _build
     from spriteworld_torch.ops import rasterize_cuda
+    from spriteworld_torch.ops import task_eval
     from spriteworld_torch.utils import colors
 
     card = bench_torch.card_name_and_power_limit()
@@ -3945,8 +4064,14 @@ def main():
           + ("not measured (no cuobjdump)" if imma is None
              else json.dumps(imma)))
 
+    task_eval.reset_launch_counts()
     steps_per_sec, state, scene_launches, draws, scenes = drive_main_path(
         torch, bench_torch, env_lib, rasterize_cuda)
+    task_launches = task_eval.task_eval.launches
+    print(f"task_eval launches {task_launches} "
+          f"{json.dumps(task_eval.task_eval.by_site)}")
+    check(task_launches > 0, "no task evaluation went through the "
+          "task_eval kernel")
     table_launches = rasterize_cuda.scene_tables.launches
     print(f"env_steps_per_sec {steps_per_sec:.1f} (image64, AA=5, "
           f"{BATCH} lanes) on {card}")
@@ -4013,6 +4138,8 @@ def main():
                                      card)
     tables_entry["launches"] = table_launches
     entries.append(tables_entry)
+    entries.append(time_task_eval(torch, card, task_launches,
+                                  WARMUP_STEPS + CHUNKS * STEPS))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,7 @@ import torch
 from spriteworld_torch.core.state import (STATE_FIELDS, EnvState, StepType,
                                           TimeStep)
 from spriteworld_torch.core.step_graph import StepGraph, use_graph_for
-from spriteworld_torch.core.tasks import task_valid
+from spriteworld_torch.core.tasks import REWARD, SUCCESS, VALID, Evaluator
 from spriteworld_torch.ops import geometry, lane_random
 from spriteworld_torch.utils import device as device_lib
 from spriteworld_torch.utils import profiling
@@ -115,6 +115,9 @@ class Environment:
                  device="cuda",
                  seed: int = 0):
         self._task = task
+        # The task's evaluation at the step's call sites: one launch of the
+        # task kernel a site where its tree has a table (`tasks.Evaluator`).
+        self._evaluator = Evaluator(task)
         self._action_space = action_space
         self._renderers = dict(renderers)
         self._init_sprites = init_sprites
@@ -177,8 +180,14 @@ class Environment:
 
     def success(self, state: EnvState):
         """The task's success flag (bool[]) on one lane's state."""
-        return self._task.success(state.factors[None],
-                                  state.num_sprites[None])[0]
+        return self.task_success(state.factors[None],
+                                 state.num_sprites[None], "success")[0]
+
+    def task_success(self, factors, num_sprites, site: str):
+        """The task's success flags bool[B] of B scenes, evaluated at call
+        site `site` (`tasks.Evaluator`)."""
+        return self._evaluator.evaluate(factors, num_sprites, SUCCESS,
+                                        site)[1]
 
     def root_key(self, key=None) -> torch.Tensor:
         """One key int32[2] on the env's device: `key` itself (a key), the
@@ -233,7 +242,8 @@ class Environment:
             factors, num, ok = self._init_sprites.sample_with_status(
                 split_keys[:, 0])
             with profiling.annotate("env.task"):
-                valid = task_valid(self._task, factors, num)
+                _, _, valid = self._evaluator.evaluate(factors, num, VALID,
+                                                       "fresh")
             return EnvState(
                 factors=factors,
                 num_sprites=num,
@@ -289,9 +299,9 @@ class Environment:
             num = state.num_sprites
 
             with profiling.annotate("env.task"):
-                reward = cost + self._task.reward(factors, num)
-                success = self._task.success(factors, num)
-                valid = task_valid(self._task, factors, num)
+                task_reward, success, valid = self._evaluator.evaluate(
+                    factors, num, REWARD | SUCCESS | VALID, "transition")
+                reward = cost + task_reward
             oof = geometry.out_of_frame(factors, num)
             step_count = state.step_count + 1
             terminate = success | oof | (
@@ -339,8 +349,8 @@ class Environment:
         from the task."""
         with profiling.annotate("env.render"):
             with profiling.annotate("env.task"):
-                success = self._task.success(state.factors,
-                                             state.num_sprites)
+                success = self.task_success(state.factors,
+                                            state.num_sprites, "render")
             return self.observation_batch(state.factors, state.num_sprites,
                                           success)
 
@@ -418,8 +428,9 @@ class Compiled:
         self._pending.zero_()
         s = self.state
         obs = env.observation_batch(s.factors, s.num_sprites,
-                                    env.task.success(s.factors,
-                                                     s.num_sprites))
+                                    env.task_success(s.factors,
+                                                     s.num_sprites,
+                                                     "observe"))
         if self._obs is None:
             self._obs = _map(torch.clone, obs)
         else:

@@ -13,12 +13,22 @@ with NaN-ignoring aggregators and adds `terminate_bonus * success` (a zero
 bonus adds nothing, so its success is not computed for the reward). Its
 "sum" adds the subtasks' rewards in their order, ((r_0 + r_1) + r_2) + ...,
 with elementwise adds (`ops.clustering.ordered_sum`), the same bits on the
-CPU and the card.
+CPU and the card; FindGoalPosition's dense reward folds its sprites in
+slot order the same way.
 
-Tracing: each subtask of a MetaAggregated runs in its own span,
-`env.task.<Class>#<i>` (i its place among the subtasks), and each task
-method counts its calls into the census of a graph being captured
-(`utils.profiling.evaluation`).
+Evaluation: an `Evaluator` computes a task's reward, success and validity
+where the step needs them. For a tree that `task_table` describes (every
+node a NoReward, FindGoalPosition, Clustering or MetaAggregated with the
+"sum", "max" or "min" aggregator, every filter and cluster a tree of the
+seven distributions over factor columns) CUDA factors take one launch of
+`ops.task_eval`, the same bits as the methods; every other tree, and
+every CPU tensor, takes the task's own methods.
+
+Tracing: on the methods' route each subtask of a MetaAggregated runs in
+its own span, `env.task.<Class>#<i>` (i its place among the subtasks),
+and each task method counts its calls into the census of a graph being
+captured (`utils.profiling.evaluation`); each evaluation counts its route
+there too (`utils.profiling.task_route`).
 
 Goal distance: each product of ``sum(w * (pos - goal)**2)`` is rounded once
 before the sum, as the TPU computes it (Mosaic and XLA on the TPU do not
@@ -28,13 +38,16 @@ JAX package on the CPU can differ from the port by an ulp off the grid).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from spriteworld_torch.core import distributions as distribs
 from spriteworld_torch.core import state as state_lib
 from spriteworld_torch.ops import clustering as clustering_ops
+from spriteworld_torch.ops import task_eval
+from spriteworld_torch.ops.task_eval import REWARD, SUCCESS, VALID
 from spriteworld_torch.utils import device as device_lib
 from spriteworld_torch.utils import profiling
 
@@ -98,7 +111,8 @@ class FindGoalPosition:
         rewards = self._per_sprite_rewards(factors)
         mask = self.filter_mask(factors, num_sprites)
         zero = torch.zeros_like(rewards)
-        dense = torch.where(mask, rewards, zero).sum(-1)
+        dense = clustering_ops.ordered_sum(torch.where(mask, rewards, zero),
+                                           -1)
         succeeded = torch.where(mask, rewards, zero + torch.inf).ge(0).all(-1)
         bonus = torch.where(succeeded, self._terminate_bonus + dense,
                             torch.zeros_like(dense))
@@ -217,6 +231,8 @@ class MetaAggregated:
                 f"Unknown termination_criterion. {termination_criterion} "
                 f"not in {sorted(_CRITERIA)}")
         self._subtasks = list(subtasks)
+        self._aggregator_name = reward_aggregator
+        self._criterion_name = termination_criterion
         self._reward_aggregator = _AGGREGATORS[reward_aggregator]
         self._termination_criterion = _CRITERIA[termination_criterion]
         self._terminate_bonus = terminate_bonus
@@ -263,3 +279,189 @@ def task_valid(task, factors, num_sprites) -> torch.Tensor:
         return torch.ones(factors.shape[0], dtype=torch.bool,
                           device=factors.device)
     return fn(factors, num_sprites)
+
+
+def _number(x) -> bool:
+    """Whether `x` enters torch's arithmetic as a Python scalar (an int or
+    a float), which a float32 operation takes as float32(x)."""
+    return isinstance(x, (int, float))
+
+
+def _predicate(dist, programs) -> Optional[int]:
+    """Appends the predicate program of `dist` (a filter or a cluster: what
+    its `contains` computes on one sprite's factors) to `programs`;
+    returns its index, or None where a node is not one of the seven
+    distributions over factor columns with Python numbers for bounds, or
+    its program needs more than `task_eval.MAX_PRED_DEPTH` results at
+    once."""
+    words = []
+
+    def emit(d) -> Optional[int]:
+        """Appends `d`'s postfix program to `words`; returns the most
+        results it holds at once, or None."""
+        kind = type(d)
+        if kind is distribs.Continuous:
+            if (d.key not in state_lib.FACTOR_INDEX
+                    or not (_number(d.minval) and _number(d.maxval))):
+                return None
+            words.extend([task_eval.P_CONTINUOUS,
+                          state_lib.FACTOR_INDEX[d.key],
+                          task_eval.f32_bits(d.minval),
+                          task_eval.f32_bits(d.maxval)])
+            return 1
+        if kind is distribs.Discrete:
+            if d.key not in state_lib.FACTOR_INDEX:
+                return None
+            cands = np.asarray(d.candidates, np.float32).reshape(-1)
+            words.extend([task_eval.P_DISCRETE,
+                          state_lib.FACTOR_INDEX[d.key], cands.size])
+            words.extend(int(w) for w in cands.view(np.int32))
+            return 1
+        if kind in (distribs.Product, distribs.Intersection,
+                    distribs.Mixture, distribs.Selection):
+            parts = ([d.base, d.filtering] if kind is distribs.Selection
+                     else d.components)
+            if not 1 <= len(parts) <= task_eval.MAX_PRED_DEPTH:
+                return None
+            depth = 0
+            for i, part in enumerate(parts):
+                held = emit(part)
+                if held is None:
+                    return None
+                depth = max(depth, i + held)
+            words.extend([task_eval.P_ANY if kind is distribs.Mixture
+                          else task_eval.P_ALL, len(parts)])
+            return depth
+        if kind is distribs.SetMinus:
+            base, hold_out = emit(d.base), emit(d.hold_out)
+            if base is None or hold_out is None:
+                return None
+            words.append(task_eval.P_AND_NOT)
+            return max(base, 1 + hold_out)
+        return None
+
+    if dist is None:
+        words.append(task_eval.P_TRUE)
+        depth = 1
+    else:
+        depth = emit(dist)
+    if depth is None or depth > task_eval.MAX_PRED_DEPTH:
+        return None
+    programs.append(words + [task_eval.P_END])
+    return len(programs) - 1
+
+
+def task_table(task) -> Optional[np.ndarray]:
+    """The `ops.task_eval` table of `task` (int32 words), built once from
+    its tree, or None where the kernel cannot evaluate it: a node that is
+    not exactly a NoReward, FindGoalPosition, Clustering (1 to
+    `MAX_CLUSTERS` clusters) or MetaAggregated (at least one subtask;
+    "sum", "max" or "min"), a filter or cluster `_predicate` cannot
+    compile, a parameter that is not a Python number (a goal or weights
+    of other than two float32 values), a tree deeper than the kernel's
+    task stack, or a table larger than `MAX_WORDS`. Predicate references
+    are written as program indices and resolved to word offsets at the
+    end."""
+    nodes, programs = [], []
+    pred = object()  # marks a node word that names a predicate program
+
+    def walk(t) -> Optional[int]:
+        """Appends `t`'s nodes in postfix order; returns the entries of the
+        task stack its evaluation holds at once, or None."""
+        kind = type(t)
+        if kind is NoReward:
+            nodes.append([task_eval.T_NO_REWARD])
+            return 1
+        if kind is FindGoalPosition:
+            scalars = (t._terminate_distance, t._raw_reward_multiplier,
+                       t._terminate_bonus)
+            p = _predicate(t._filter_distrib, programs)
+            if (p is None or t._goal_position.shape != (2,)
+                    or t._weights_dimensions.shape != (2,)
+                    or not all(map(_number, scalars))):
+                return None
+            nodes.append([task_eval.T_GOAL, (pred, p)]
+                         + [task_eval.f32_bits(v) for v in (
+                             *t._goal_position, *t._weights_dimensions,
+                             *scalars)]
+                         + [int(bool(t._sparse_reward))])
+            return 1
+        if kind is Clustering:
+            scalars = (t._termination_threshold, t._terminate_bonus,
+                       t._reward_range)
+            ps = [_predicate(d, programs) for d in t._cluster_distribs]
+            if (not 1 <= len(ps) <= task_eval.MAX_CLUSTERS
+                    or None in ps or not all(map(_number, scalars))):
+                return None
+            nodes.append([task_eval.T_CLUSTER, len(ps)]
+                         + [task_eval.f32_bits(v) for v in scalars]
+                         + [int(bool(t._sparse_reward))]
+                         + [(pred, p) for p in ps])
+            return 1
+        if kind is MetaAggregated:
+            aggregators = {"sum": task_eval.A_SUM, "max": task_eval.A_MAX,
+                           "min": task_eval.A_MIN}
+            if (t._aggregator_name not in aggregators or not t._subtasks
+                    or not _number(t._terminate_bonus)):
+                return None
+            depth = 0
+            for i, sub in enumerate(t._subtasks):
+                held = walk(sub)
+                if held is None:
+                    return None
+                depth = max(depth, i + held)
+            nodes.append([task_eval.T_META, len(t._subtasks),
+                          aggregators[t._aggregator_name],
+                          {"all": task_eval.C_ALL,
+                           "any": task_eval.C_ANY}[t._criterion_name],
+                          int(bool(t._terminate_bonus)),
+                          task_eval.f32_bits(t._terminate_bonus)])
+            return depth
+        return None
+
+    depth = walk(task)
+    if depth is None or depth > task_eval.MAX_TASK_DEPTH:
+        return None
+    start = task_eval.HEADER + sum(len(n) for n in nodes)
+    offsets = np.cumsum([start] + [len(p) for p in programs]).tolist()
+    words = [len(nodes), depth]
+    for node in nodes:
+        words.extend(offsets[w[1]] if isinstance(w, tuple) else w
+                     for w in node)
+    for program in programs:
+        words.extend(program)
+    if len(words) > task_eval.MAX_WORDS:
+        return None
+    return np.asarray(words, np.int32)
+
+
+class Evaluator:
+    """A task's reward f32[B], success bool[B] and validity bool[B] at one
+    of a step's call sites (`site`: the environment names them
+    "transition", "fresh", "render" and "observe").
+
+    `evaluate` computes the outputs `want` asks for (a union of REWARD,
+    SUCCESS and VALID) and gives None for the others. Where the task has
+    a table (`task_table`, built here once) and `task_eval.takes` the
+    factors, that is one launch of the kernel for all three; else the
+    task's own `reward`, `success` and `task_valid`, called in that order
+    for what `want` asks. Each call counts its route ("kernel" or
+    "plain") by the task's class into the census of a graph being
+    captured (`utils.profiling.task_route`)."""
+
+    def __init__(self, task):
+        self.task = task
+        self.table = task_table(task)
+        self._name = type(task).__name__
+
+    def evaluate(self, factors, num_sprites, want: int, site: str):
+        if self.table is not None and task_eval.takes(factors):
+            profiling.task_route(self._name, "kernel")
+            return task_eval.task_eval(self.table, factors, num_sprites,
+                                       want, site)
+        profiling.task_route(self._name, "plain")
+        t = self.task
+        return (t.reward(factors, num_sprites) if want & REWARD else None,
+                t.success(factors, num_sprites) if want & SUCCESS else None,
+                task_valid(t, factors, num_sprites) if want & VALID
+                else None)

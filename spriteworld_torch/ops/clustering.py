@@ -31,8 +31,11 @@ _ATOL = 1e-8  # np.allclose default used by sklearn's zero checks
 
 def ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The sum of `x` over `dim` as a left fold in index order:
-    ((x_0 + x_1) + x_2) + ..., one elementwise add a term."""
+    ((x_0 + x_1) + x_2) + ..., one elementwise add a term (zeros over an
+    empty `dim`)."""
     terms = x.unbind(dim)
+    if not terms:
+        return x.sum(dim)
     total = terms[0]
     for term in terms[1:]:
         total = total + term

@@ -40,6 +40,9 @@ Counterpart of `spriteworld_tpu/utils/profiling.py`, on torch:
   * `route()` — a scene sampler that can take one of several routes
     (`GenerateSprites`: the kernel's scene mode or its plain body) counts
     each evaluation during a capture into its census by class and route.
+  * `task_route()` — a task evaluation (`core.tasks.Evaluator`: one
+    launch of the task kernel, or the task's own methods) counts its route
+    during a capture into the census by the root task's class.
   * `enable_debug_checks()` — raises FloatingPointError where an operation
     returns a NaN or an Inf, while enabled (a `TorchDispatchMode`).
   * `sync(value)` — waits for the card's work behind a tensor; a no-op for
@@ -419,7 +422,8 @@ class GraphRecord(_Open):
     into the graph (`count`): one replay's work, without a device read;
     `slots`: {(kernel, mode): {sprite slots a scene}} where the wrapper
     gave them; `evaluations`: {(task class, method): calls} (`evaluation`);
-    `routes`: {(sampler class, route): calls} (`route`).
+    `routes`: {(sampler class, route): calls} (`route`); `task_routes`:
+    {(task class, route): calls} (`task_route`).
     """
 
     def __init__(self, name: str):
@@ -432,6 +436,7 @@ class GraphRecord(_Open):
         self.slots: Dict[Tuple[str, str], set] = {}
         self.evaluations: Dict[Tuple[str, str], int] = {}
         self.routes: Dict[Tuple[str, str], int] = {}
+        self.task_routes: Dict[Tuple[str, str], int] = {}
         self._marks: List[Tuple[int, int]] = []  # (nodes so far, span)
         self._graph = None
         self._failed = False
@@ -506,8 +511,9 @@ class GraphRecord(_Open):
     def census_table(self) -> Dict[str, Dict[str, dict]]:
         """{kernel: {mode: {"launches", "blocks"[, "slots"]}}} of one
         replay, "slots" the sorted sprite slots of its scenes where
-        counted, {"task.<class>": {method: {"evaluations"}}} and
-        {"generator.<class>": {route: {"evaluations"}}}."""
+        counted, {"task.<class>": {method: {"evaluations"}}},
+        {"generator.<class>": {route: {"evaluations"}}} and
+        {"task_route.<class>": {route: {"evaluations"}}}."""
         out: Dict[str, Dict[str, dict]] = {}
         for (kernel, mode), (launches, blocks) in sorted(
                 self.census.items()):
@@ -519,6 +525,9 @@ class GraphRecord(_Open):
             out.setdefault(f"task.{cls}", {})[method] = {"evaluations": n}
         for (cls, name), n in sorted(self.routes.items()):
             out.setdefault(f"generator.{cls}", {})[name] = {"evaluations": n}
+        for (cls, name), n in sorted(self.task_routes.items()):
+            out.setdefault(f"task_route.{cls}", {})[name] = {
+                "evaluations": n}
         return out
 
 
@@ -580,6 +589,14 @@ def route(sampler: str, name: str) -> None:
     if _capture is not None:
         key = (sampler, name)
         _capture.routes[key] = _capture.routes.get(key, 0) + 1
+
+
+def task_route(task: str, name: str) -> None:
+    """One evaluation of a task tree whose root is of class `task` by its
+    route `name`, into the census of the capture in progress, if any."""
+    if _capture is not None:
+        key = (task, name)
+        _capture.task_routes[key] = _capture.task_routes.get(key, 0) + 1
 
 
 @contextlib.contextmanager
