@@ -430,14 +430,15 @@ def mode_name(pil_exact: bool, ds: int) -> str:
             + ("identity", "lanczos", "box")[ds])
 
 
-def _count_launch(fn, mode: str, batch: int, slots=None):
+def _count_launch(fn, mode: str, batch: int, slots=None, blocks: int = 0):
     """One more launch of kernel wrapper `fn` over `batch` scenes of
     `slots` sprite slots each, in all, in `mode`, in `by_batch` and in the
-    census of a graph being captured (`utils.profiling.count`)."""
+    census of a graph being captured (`utils.profiling.count`), with the
+    `blocks` it launches where the wrapper gives them."""
     fn.launches += 1
     fn.by_mode[mode] = fn.by_mode.get(mode, 0) + 1
     fn.by_batch[batch] = fn.by_batch.get(batch, 0) + 1
-    profiling.count(fn.__name__, mode, slots=slots)
+    profiling.count(fn.__name__, mode, blocks, slots=slots)
 
 
 def reset_launch_counts():
@@ -641,26 +642,33 @@ def render_rgb_batch(factors: torch.Tensor,
     resolves to "scene" (see `resolve_kernel_mode`; "auto" decides from the
     card's shared memory per block before launching), the row-strip kernels
     otherwise. A kernel that cannot run raises; nothing falls back. CPU
-    tensors take the plain version, whatever the mode.
+    tensors take the plain version, whatever the mode. The route taken
+    ("plain", "packed", "scene" or "strips") counts one launch of
+    `render_route.<route>` in the mode into the census of a graph being
+    captured (`utils.profiling.count`).
     """
     aa = int(anti_aliasing)
     if kernel_mode not in KERNEL_MODES:
         raise ValueError(f"Unknown kernel_mode: {kernel_mode!r}")
     ds = downsample_mode(aa, pil_exact, downsample)
+    mode = mode_name(pil_exact, ds)
     h, w = image_size
     tables = prepare(factors, num_sprites, h * aa, w * aa, color_to_rgb,
                      pil_exact)
     if not factors.is_cuda:
+        profiling.count("render_route.plain", mode)
         return render_rgb_batch_plain(tables, image_size, bg_color,
                                       downsample)
     if uses_packed(image_size, aa, kernel_mode):
+        profiling.count("render_route.packed", mode)
         return packed_raster(tables, image_size, bg_color)
     budget = torch.cuda.get_device_properties(
         factors.device).shared_memory_per_block_optin
-    mode = resolve_kernel_mode(
+    route = resolve_kernel_mode(
         kernel_mode, scene_smem_bytes(factors.shape[1], tables.num_vertices,
                                       h * aa, w * aa, h, w, ds), budget)
-    if mode == "scene":
+    profiling.count(f"render_route.{route}", mode)
+    if route == "scene":
         return scene_raster(tables, image_size, bg_color, downsample)
     return render_strips(tables, image_size, bg_color, downsample=downsample)
 
@@ -817,7 +825,8 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
     3]. Box strips hold a multiple of anti_aliasing rows. Runs on the
     current stream; raises when the kernel cannot launch. Each launch adds
     one to `strip_raster.launches`, `strip_raster.by_mode[mode_name(...)]`
-    and `strip_raster.by_batch[B]`.
+    and `strip_raster.by_batch[B]`, and its blocks (B times the strips a
+    scene) to the census of a graph being captured.
     """
     b, k = _check_tables(tables, image_size, "strip_raster")
     tab = tables.tab
@@ -860,7 +869,8 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
                      _ptr(hfr), _ptr(hks), _ptr(hqs), hsteps, hp,
                      _bg_packed(bg_color), _ptr(buf), stream)
     _check_launch(lib, err, "strip_raster")
-    _count_launch(strip_raster, mode_name(tables.pil_exact, ds), b, k)
+    _count_launch(strip_raster, mode_name(tables.pil_exact, ds), b, k,
+                  blocks=b * -(-hc // rows))
     return out
 
 
