@@ -40,10 +40,9 @@ Phases:
      step (phases 5 and 6 too) — reset, warm-up, 3 timed chunks of 50
      steps, each step followed by torch.cuda.synchronize() — checking that
      every render went through the scene kernel and every draw through
-     the lane_random kernel, its fresh scenes through its scene mode,
-     images are not blank,
-     rewards are finite (NaN only where the goal filter is empty) and step
-     types follow FIRST/MID/LAST;
+     the lane_random kernel, its fresh scenes through its scene or tree
+     mode, images are not blank, rewards are finite (NaN only where the
+     goal filter is empty) and step types follow FIRST/MID/LAST;
   5. the demo path: the cobra clustering config with the interactive
      demo's overrides (DragAndDrop(scale=0.5), 256x256 HSV images at
      anti_aliasing=10, Success) over 256 lanes — reset, warm-up, 3 chunks of
@@ -180,7 +179,15 @@ Phases:
      eagerly and in a graph beside them (`by_config`; sorting's head the
      entry), its bound from the blocks the scenes need, registers and
      spill of `lane_random_scene_kernel`, and phase 4's scene launches
-     (two a fresh scene), then scene_tables: the main
+     (two a fresh scene), then lane_random_tree: the kernel's tree mode
+     over the roots of every config that takes it (TREE_CONFIGS) at 2048
+     strided card keys, held 0 words apart from the composites' plain
+     bodies over the leaves' scene mode and from every node's plain body,
+     timed eagerly and in a graph beside the route before it (`by_config`;
+     sorting's head the entry), its bound from the blocks the chosen
+     branches need, registers and spill of `lane_random_tree_kernel` and
+     of `lane_random_scene_kernel`, and phase 4's tree and scene launches
+     (image64's Chain takes the tree mode), then scene_tables: the main
      path's tables from the kernel against the plain twin on the card and
      on the CPU in both fills and every colour route (0 values apart), its
      time beside the twin's eager and in a graph, its bound, registers and
@@ -677,7 +684,7 @@ def drive(torch, benv, steps, chunks, warmup, image_shape, bad_rewards_of,
 def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
     """Phase 4: image64 at AA=5 over 2048 lanes. Returns (steps/s, state,
     scene_raster launches, lane_random draw launches, lane_random scene
-    launches)."""
+    launches, lane_random tree launches)."""
     from spriteworld_torch.ops import lane_random
 
     env = bench_torch.build_env(anti_aliasing=5, device="cuda", seed=0)
@@ -696,19 +703,20 @@ def drive_main_path(torch, bench_torch, env_lib, rasterize_cuda):
     launches = rasterize_cuda.scene_raster.launches
     tables = rasterize_cuda.scene_tables.launches
     scenes = lane_random.threefry_launch.by_mode.get("scene", 0)
-    draws = lane_random.threefry_launch.launches - scenes
+    trees = lane_random.threefry_launch.by_mode.get("tree", 0)
+    draws = lane_random.threefry_launch.launches - scenes - trees
     print(f"scene_raster launches {launches} for {renders} renders; "
           f"scene_tables launches {tables} "
           f"{json.dumps(rasterize_cuda.scene_tables.by_mode)}; "
-          f"lane_random launches {draws + scenes} "
+          f"lane_random launches {draws + scenes + trees} "
           f"{json.dumps(lane_random.threefry_launch.by_mode)}")
     check(launches == renders, "a render did not go through the kernel")
     check(tables == renders, "a render's tables did not come from the "
           "scene_tables kernel")
     check(draws > 0, "no draw went through the lane_random kernel")
-    check(scenes > 0, "no fresh scene went through the lane_random "
-          "kernel's scene mode")
-    return rate, state, launches, draws, scenes
+    check(scenes + trees > 0, "no fresh scene went through the lane_random "
+          "kernel's scene or tree mode")
+    return rate, state, launches, draws, scenes, trees
 
 
 def drive_demo_path(torch, bench_torch, env_lib, rasterize_cuda):
@@ -2877,6 +2885,135 @@ def time_lane_random_scene(torch, card, launches, steps, lanes=BATCH,
     return entry
 
 
+# The configurations and modes whose roots the kernels line's
+# lane_random_tree entry draws in the tree mode; the first is timed.
+TREE_CONFIGS = (("cobra.sorting", "train"), ("cobra.sorting", "test"),
+                ("cobra.clustering", "train"),
+                ("cobra.goal_finding_new_shape", "train"),
+                ("cobra.goal_finding_more_targets", "train"),
+                ("cobra.goal_finding_more_distractors", "train"),
+                ("cobra.goal_finding_new_position", "test"),
+                ("examples.goal_finding_clustering", "test"),
+                ("examples.goal_finding_embodied", None))
+
+
+@contextlib.contextmanager
+def plain_routes(gen, leaves=False):
+    """Every composite under `gen` takes its plain body while the block
+    runs (the route before the tree mode: the leaves' scene mode under the
+    composites' bodies); with `leaves` every `GenerateSprites` too."""
+    saved, stack = [], [gen]
+    while stack:
+        node = stack.pop()
+        stack += list(getattr(node, "gens", ())) + (
+            [node.gen] if hasattr(node, "gen") else [])
+        for attr in ("_tree",) + (("_scene",) if leaves else ()):
+            if hasattr(node, attr):
+                saved.append((node, attr, getattr(node, attr)))
+                setattr(node, attr, None)
+    try:
+        yield
+    finally:
+        for node, attr, value in saved:
+            setattr(node, attr, value)
+
+
+def time_lane_random_tree(torch, card, launches, scene_launches, steps,
+                          lanes=BATCH, dev="cuda"):
+    """The kernels-line entry of the lane_random kernel's tree mode
+    (`lane_random.draw_tree`): for each of TREE_CONFIGS, its root's scene
+    on `lanes` strided card keys against the composites' plain bodies over
+    the leaves' scene mode (the route before the tree mode) and against
+    every node's plain body on the same keys (held 0 words apart), timed
+    eagerly (`ms`, `device_ms`) and in a graph (`graph_ms`) beside the
+    route before it (`plain_ms`, `plain_graph_ms`), with the bound of the
+    blocks the lanes' chosen branches need (`TreeTable.needed_blocks`);
+    the first config's numbers head the entry. Registers and spill of the
+    tree and scene kernels from the build log; `launches` and
+    `scene_launches` are the main path's tree and scene launches (phase
+    4), over `steps` steps."""
+    import importlib
+
+    from spriteworld_torch.ops import _build
+    from spriteworld_torch.ops import lane_random as lr
+
+    keys = lr.split(lr.key(2**31 + 98, dev), (lanes, 2))[:, 1]
+    worst, by_config = 0, {}
+    for config, mode in TREE_CONFIGS:
+        mod = importlib.import_module(f"spriteworld_torch.configs.{config}")
+        root = (mod.get_config(mode) if mode else mod.get_config())[
+            "init_sprites"]
+        table = root._tree
+        check(table is not None, f"{config} ({mode}): its root does not take "
+              "the tree mode")
+        got = lr.draw_tree(keys, table)
+        apart = 0
+        for leaves in (False, True):
+            with plain_routes(root, leaves):
+                apart += scene_words_apart(torch, got,
+                                           root.sample_with_status(keys))
+        worst = max(worst, apart)
+
+        def kernel(table=table):
+            lr.draw_tree(keys, table)
+
+        def before(root=root):
+            with plain_routes(root):
+                root.sample_with_status(keys)
+
+        blocks = table.needed_blocks(lanes)
+        nbytes = lanes * (8 + 4 * table.kmax * table.width + 4 + 1)
+        bound_ms, bound_by = bound(nbytes, 0, 110.0 * blocks)
+        name = f"{config}.{mode}" if mode else config
+        by_config[name] = {
+            "slots": table.kmax, "words_apart": apart,
+            "ms": event_ms(torch, kernel, 20),
+            "device_ms": event_ms(torch, kernel, 20, spin=True),
+            "graph_ms": graph_ms(torch, kernel, 10),
+            "plain_ms": event_ms(torch, before, 3),
+            "plain_graph_ms": graph_ms(torch, before, 3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "blocks_needed": blocks,
+            "blocks_computed": lanes * table.blocks}
+        row = by_config[name]
+        print(f"lane_random_tree, {name}: {table.kmax} slots at {lanes} "
+              f"lanes, {apart} words apart from the plain bodies; kernel "
+              f"{row['ms']:.4f} ms ({row['device_ms']:.4f} on the device, "
+              f"{row['graph_ms']:.4f} in a graph), the route before it "
+              f"{row['plain_ms']:.4f} ms ({row['plain_graph_ms']:.4f} in a "
+              f"graph), bound {bound_ms:.6f} ms ({bound_by}; {blocks:.0f} "
+              f"blocks needed, {row['blocks_computed']:.0f} computed); on "
+              f"{card}")
+    check(worst == 0, "the lane_random tree mode differs from the plain "
+          "bodies")
+    head = by_config[next(iter(by_config))]
+    regs, spill = ptxas_lines(_build, "lane_random", "lane_random_tree_kernel")
+    scene_regs, scene_spill = ptxas_lines(_build, "lane_random",
+                                          "lane_random_scene_kernel")
+    entry = {
+        "name": "lane_random_tree", "route": "cuda",
+        "source": "spriteworld_torch/csrc/lane_random.cu",
+        "replaces": "spriteworld_tpu/core/generators.py:132-197 (XLA's "
+                    "fusion of ChainGenerators, SampleGenerator's lax.switch "
+                    "and Shuffle under vmap; no pallas_call)",
+        "launches": launches, "max_abs_err": worst,
+        **{k: head[k] for k in ("ms", "device_ms", "graph_ms", "plain_ms",
+                                "plain_graph_ms", "bound_ms", "bound_by",
+                                "blocks_needed", "blocks_computed")},
+        "bound_tc_ms": head["bound_ms"], "bound_tc_by": head["bound_by"],
+        "library_ms": None, "registers": regs, "spill_bytes": spill,
+        "scene_registers": scene_regs, "scene_spill_bytes": scene_spill,
+        "launches_per_step": launches / steps,
+        "scene_launches_per_step": scene_launches / steps,
+        "by_config": by_config}
+    print(f"lane_random_tree: {regs} registers, {spill} bytes spilled "
+          f"(lane_random_scene_kernel: {scene_regs}, {scene_spill}); "
+          f"{launches} tree and {scene_launches} scene launches on the main "
+          f"path, {launches / steps:.1f} and {scene_launches / steps:.1f} a "
+          f"step; on {card}")
+    return entry
+
+
 # The configurations whose task the kernels line's task_eval entry times,
 # the first heading the entry: the benchmarked rollout cells'.
 TASK_CONFIGS = ("examples.goal_finding_clustering", "cobra.sorting",
@@ -4065,8 +4202,8 @@ def main():
              else json.dumps(imma)))
 
     task_eval.reset_launch_counts()
-    steps_per_sec, state, scene_launches, draws, scenes = drive_main_path(
-        torch, bench_torch, env_lib, rasterize_cuda)
+    (steps_per_sec, state, scene_launches, draws, scenes,
+     trees) = drive_main_path(torch, bench_torch, env_lib, rasterize_cuda)
     task_launches = task_eval.task_eval.launches
     print(f"task_eval launches {task_launches} "
           f"{json.dumps(task_eval.task_eval.by_site)}")
@@ -4134,6 +4271,8 @@ def main():
     entries.append(lane_entry)
     entries.append(time_lane_random_scene(
         torch, card, scenes, WARMUP_STEPS + CHUNKS * STEPS))
+    entries.append(time_lane_random_tree(
+        torch, card, trees, scenes, WARMUP_STEPS + CHUNKS * STEPS))
     tables_entry = time_scene_tables(torch, rasterize_cuda, colors, state,
                                      card)
     tables_entry["launches"] = table_launches

@@ -17,6 +17,14 @@ launch of the `lane_random` kernel's scene mode (`lane_random.draw_scene`),
 bit for bit what its plain body draws; the route is decided once, from the
 tree, when the generator is built (`_scene_table`). Any other tree, and
 every scene on CPU keys, takes the plain body (`_sample_plain`).
+
+A composite (`Shuffle`, `SampleGenerator`, `ChainGenerators`) whose whole
+tree holds only those composites over such leaves draws its scene on CUDA
+keys in one launch of the kernel's tree mode (`lane_random.draw_tree`),
+drawing only the branch each lane chose, bit for bit what the plain bodies
+draw; the route is decided when the composite is built (`_tree_table`), and
+the nodes under a composite that takes it are not called. Other trees, and
+CPU keys, take each composite's plain body (`_sample_plain`).
 """
 
 from __future__ import annotations
@@ -107,6 +115,50 @@ def _scene_table(factor_dist, num_sprites, kmax):
     return lane_random.scene_table(count, leaves, state_lib.DEFAULT_FACTORS)
 
 
+def _tree_table(gen):
+    """The `lane_random.tree_table` of the composite `gen`'s whole tree, or
+    None where the kernel cannot draw it: a node that is not exactly a
+    `Shuffle`, `SampleGenerator`, `ChainGenerators` or a `GenerateSprites`
+    with a scene table (`_scene_table`), or a tree past the kernel's limits
+    (`lane_random.TREE_MAX_SLOTS`, `TREE_MAX_DEPTH`, `TREE_MAX_CHILDREN`)."""
+
+    def walk(g):
+        kind = type(g)
+        if kind is GenerateSprites:
+            return None if g._scene is None else ("leaf", g._scene,
+                                                  g.max_sprites)
+        if kind not in (Shuffle, ChainGenerators, SampleGenerator):
+            return None
+        subs = [walk(sub) for sub in ([g.gen] if kind is Shuffle
+                                      else g.gens)]
+        if any(sub is None for sub in subs):
+            return None
+        if kind is Shuffle:
+            return ("shuffle", subs[0])
+        if kind is ChainGenerators:
+            return ("chain", subs)
+        return ("sample", subs, g._cum)
+
+    tree = walk(gen)
+    if tree is None:
+        return None
+    try:
+        return lane_random.tree_table(tree, state_lib.DEFAULT_FACTORS)
+    except ValueError:  # past the kernel's limits
+        return None
+
+
+def _tree_or_plain(gen, key):
+    """The composite `gen`'s scene of lane keys `key`: one launch of the
+    kernel's tree mode where it has a table and the keys are on the card,
+    else its plain body; the route counted into a capture's census."""
+    if gen._tree is not None and key.is_cuda:
+        profiling.route(type(gen).__name__, "tree")
+        return lane_random.draw_tree(key, gen._tree)
+    profiling.route(type(gen).__name__, "plain")
+    return gen._sample_plain(key)
+
+
 class SpriteGenerator:
     """Base: batched scene sampler with static capacity."""
 
@@ -182,9 +234,15 @@ class ChainGenerators(SpriteGenerator):
     def __init__(self, *gens: SpriteGenerator):
         self.gens = gens
         self.max_sprites = sum(g.max_sprites for g in gens)
+        self._tree = _tree_table(self)
 
     @profiling.node
     def sample_with_status(self, key):
+        return _tree_or_plain(self, key)
+
+    def _sample_plain(self, key):
+        """The scene in PyTorch operations: every tree's route on CPU keys,
+        and the tree mode's twin."""
         parts, valids = [], []
         ok = torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
         keys = lane_random.split(key, len(self.gens))
@@ -208,9 +266,15 @@ class SampleGenerator(SpriteGenerator):
         self.p = None if p is None else np.asarray(p)
         self._cum = None if p is None else lane_random.cumulative(p)
         self.max_sprites = max(g.max_sprites for g in self.gens)
+        self._tree = _tree_table(self)
 
     @profiling.node
     def sample_with_status(self, key):
+        return _tree_or_plain(self, key)
+
+    def _sample_plain(self, key):
+        """The scene in PyTorch operations: every tree's route on CPU keys,
+        and the tree mode's twin."""
         dev, batch = key.device, key.shape[0]
         keys = lane_random.split(key, 2)  # the choice's key, the scene's
         idx = distributions.choose(keys[:, 0], len(self.gens), self._cum)
@@ -240,9 +304,15 @@ class Shuffle(SpriteGenerator):
     def __init__(self, gen: SpriteGenerator):
         self.gen = gen
         self.max_sprites = gen.max_sprites
+        self._tree = _tree_table(self)
 
     @profiling.node
     def sample_with_status(self, key):
+        return _tree_or_plain(self, key)
+
+    def _sample_plain(self, key):
+        """The scene in PyTorch operations: every tree's route on CPU keys,
+        and the tree mode's twin."""
         keys = lane_random.split(key, 2)  # the scene's key, the order's
         factors, num, ok = self.gen.sample_with_status(keys[:, 0])
         k = self.max_sprites

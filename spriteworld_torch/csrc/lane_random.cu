@@ -31,6 +31,12 @@
 //     picked by randint(0, n) or by JAX's choice (the first index whose
 //     float32 cumulative sum reaches (1 - u) * cum[-1]). A dead slot (slot
 //     >= count) keeps the default row.
+//   tree (a third kernel, lane_random_tree_kernel): the whole scene of a
+//     generator tree of Shuffle, SampleGenerator and ChainGenerators nodes
+//     over such GenerateSprites leaves, as the composites' plain bodies draw
+//     it, keys split as theirs split, each lane drawing only the branch its
+//     SampleGenerators chose (the others' draws are what their selection
+//     throws away).
 // The plain twin is `threefry_plain` in spriteworld_torch/ops/lane_random.py;
 // the two agree bit for bit (integer arithmetic; every float operation
 // here is one IEEE operation with an explicit rounding, __f*_rn and
@@ -67,6 +73,14 @@
 // threads to spare, and a thread's serial chain is what bounds the launch
 // (a block's 20 rounds are ~70 dependent integer operations), so a chain
 // of 3-7 blocks a thread beats one of 20-30 a (lane, slot).
+//
+// The tree mode replaces the ~240 kernels of a composite tree's plain bodies
+// (a scene launch a leaf of every branch, the chains' stable sorts and
+// gathers, the selection's wheres, the shuffle's sort) by one launch, one
+// warp a lane (lane_random_tree_kernel): the scene has at most 32 slots, so
+// the threads hold its positions and a chain's partition, a selection and a
+// shuffle's stable ranks are warp shuffles; the threads then share the
+// draws of the live slots, a (slot, leaf record) each.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,6 +107,23 @@ constexpr int kKeys = 0, kBits = 1, kUniform = 2, kRandint = 3, kNormal = 4,
 constexpr int kSceneMaxDepth = 8;
 constexpr int kSceneHeader = 5, kSceneRecord = 8 + kSceneMaxDepth;
 constexpr int kSceneUniform = 0, kSceneRandint = 1, kSceneChoice = 2;
+// A generator tree's table (int32 words; `lane_random.tree_table` writes
+// it): a header of kTreeHeader words, [nodes, the root's slots kmax (at most
+// 32, a warp's threads), the width w of a row, the most records of a leaf's
+// scene table], the default factor row as float bits x w, then a record of
+// kTreeRecord words a node in preorder (the root first), then a pool of the
+// children's node indices, the SampleGenerators' cumulative sums (float
+// bits) and the leaves' scene tables (kSceneHeader's layout), each found by
+// its word from the table's start.
+// A record is [kind, children n, the word of its children's indices (a
+// leaf: the word of its scene table), a SampleGenerator's word of its
+// cumulative sums (-1: its choice is randint(0, n))]. Composite nodes nest
+// at most kTreeMaxDepth deep.
+constexpr int kTreeHeader = 4, kTreeRecord = 4, kTreeMaxDepth = 8;
+constexpr int kTreeLeaf = 0, kTreeChain = 1, kTreeSample = 2,
+              kTreeShuffle = 3;
+constexpr int kTreeThreads = 128;  // four lanes a block, a warp each
+constexpr unsigned kWarp = 0xFFFFFFFFu;
 // The dtypes a uniform is cast through (torch's conversions on the card:
 // float to int truncates; float to uint8 goes through int64).
 constexpr int kCastNone = 0, kCastInt32 = 1, kCastInt64 = 2, kCastUint8 = 3;
@@ -260,6 +291,41 @@ __device__ __forceinline__ float cast_through(float u, int cast) {
   }
 }
 
+// JAX's choice of an index in [0, n) from the key k: the first index whose
+// float32 cumulative sum cum reaches (1 - u) * cum[n - 1] of the uniform u
+// of its bits (searchsorted, left).
+__device__ __forceinline__ int choice_of(uint2 k, const int* cum, int n) {
+  const float u = uniform_of(block_bits(k.x, k.y, 0u), 0.0f, 1.0f);
+  const float target =
+      __fmul_rn(__fsub_rn(1.0f, u), __int_as_float(__ldg(cum + n - 1)));
+  int i = 0;
+  while (i < n - 1 && __int_as_float(__ldg(cum + i)) < target) ++i;
+  return i;
+}
+
+// The value that the leaf record `rec` of the scene table `table` draws in
+// a slot whose key is `k`: the leaf's key down its path of Product
+// components, then its draw (see kSceneHeader).
+__device__ __forceinline__ float draw_record(const int* table, const int* rec,
+                                             uint2 k) {
+  const int op = __ldg(rec), depth = __ldg(rec + 2);
+  for (int d = 0; d < depth; ++d) {
+    k = block_key(k, static_cast<uint32_t>(__ldg(rec + 8 + d)));
+  }
+  if (op == kSceneUniform) {
+    return cast_through(uniform_of(block_bits(k.x, k.y, 0u),
+                                   __int_as_float(__ldg(rec + 3)),
+                                   __int_as_float(__ldg(rec + 4))),
+                        __ldg(rec + 5));
+  }
+  const int n = __ldg(rec + 3);
+  const int i = op == kSceneRandint
+                    ? static_cast<int>(randint_offset(
+                          k.x, k.y, 0u, static_cast<uint32_t>(n)))
+                    : choice_of(k, table + __ldg(rec + 5), n);
+  return __int_as_float(__ldg(table + __ldg(rec + 4) + i));
+}
+
 // One thread a (lane, slot, leaf) of a `GenerateSprites` scene from the
 // descriptor table (see kSceneHeader): the leaf's column of the slot's
 // row, drawn in a dead slot too (its default is written); the leaf-0
@@ -305,33 +371,192 @@ lane_random_scene_kernel(const uint32_t* __restrict__ keys, long long lanes,
   }
   if (leaf >= leaves) return;
   const int* rec = table + kSceneHeader + width + leaf * kSceneRecord;
-  const int op = __ldg(rec), column = __ldg(rec + 1), depth = __ldg(rec + 2);
-  uint2 k = block_key(block_key(key, 1u), static_cast<uint32_t>(slot));
-  for (int d = 0; d < depth; ++d) {
-    k = block_key(k, static_cast<uint32_t>(__ldg(rec + 8 + d)));
-  }
-  float v;
-  if (op == kSceneUniform) {
-    v = cast_through(uniform_of(block_bits(k.x, k.y, 0u),
-                                __int_as_float(__ldg(rec + 3)),
-                                __int_as_float(__ldg(rec + 4))),
-                     __ldg(rec + 5));
-  } else {
-    const int n = __ldg(rec + 3);
-    int i = 0;
-    if (op == kSceneRandint) {
-      i = static_cast<int>(
-          randint_offset(k.x, k.y, 0u, static_cast<uint32_t>(n)));
-    } else {  // kSceneChoice: searchsorted(cum, (1 - u) * cum[-1], left)
-      const int* cum = table + __ldg(rec + 5);
-      const float u = uniform_of(block_bits(k.x, k.y, 0u), 0.0f, 1.0f);
-      const float target = __fmul_rn(__fsub_rn(1.0f, u),
-                                     __int_as_float(__ldg(cum + n - 1)));
-      while (i < n - 1 && __int_as_float(__ldg(cum + i)) < target) ++i;
-    }
-    v = __int_as_float(__ldg(table + __ldg(rec + 4) + i));
-  }
+  const int column = __ldg(rec + 1);
+  const float v = draw_record(
+      table, rec, block_key(block_key(key, 1u), static_cast<uint32_t>(slot)));
   row[column] = live ? v : __int_as_float(__ldg(row_default + column));
+}
+
+// T(k, j), computed by the warp's thread 0 and read by all its threads.
+__device__ __forceinline__ uint2 warp_block_key(uint2 k, uint32_t j, int t) {
+  uint2 out = make_uint2(0u, 0u);
+  if (t == 0) out = block_key(k, j);
+  return make_uint2(__shfl_sync(kWarp, out.x, 0),
+                    __shfl_sync(kWarp, out.y, 0));
+}
+
+// A Shuffle over the rows at positions [start, end) of the scene, each
+// thread holding the row of its own position in `row`: the order key is
+// T(key, 1); position start + j draws the uniform of T(order, j), and its
+// row moves to start + its stable rank (the rows whose uniform is smaller,
+// or equal at a lower position), which is where a stable sort of the
+// uniforms, +inf past `end`, puts it. Returns this thread's new row.
+__device__ __forceinline__ int shuffle_rows(int row, uint2 key, int start,
+                                            int end, int t) {
+  const uint2 order = warp_block_key(key, 1u, t);
+  const int n = end - start, j = t - start;
+  float u = __int_as_float(0x7F800000);
+  if (j >= 0 && j < n) {
+    u = uniform_of(block_bits(order.x, order.y, static_cast<uint32_t>(j)),
+                   0.0f, 1.0f);
+  }
+  int rank = 0;
+  for (int i = 0; i < n; ++i) {
+    const float v = __shfl_sync(kWarp, u, start + i);
+    rank += (v < u || (v == u && i < j)) ? 1 : 0;
+  }
+  int out = row;
+  for (int i = 0; i < n; ++i) {
+    const int to = __shfl_sync(kWarp, rank, start + i);
+    const int from = __shfl_sync(kWarp, row, start + i);
+    if (t == start + to) out = from;
+  }
+  return out;
+}
+
+// One warp a lane draws the scene of a generator tree (Shuffle,
+// SampleGenerator, ChainGenerators over leaf-tree GenerateSprites) from its
+// table (see kTreeHeader), as the generators' plain bodies draw it, but only
+// the branch that the lane chose. The warp walks the tree depth first, a
+// frame a composite node: a Shuffle's child from T(key, 0); a
+// SampleGenerator's choice from T(key, 0) (randint, or choice over its
+// cumulative sums), its chosen child from T(key, 1); a ChainGenerators'
+// part i from T(key, i). A leaf draws its count (from T(key, 0), as the
+// scene mode does) and appends its live slots at the cursor: thread p holds
+// the scene's position p as (the leaf's order among the lane's leaves << 5
+// | slot), and thread q the q-th leaf's sprites' key T(key, 1) and table.
+// The rows of a chain's parts follow each other, so a chain's stable
+// partition of live rows is the order of its leaves' appends; a
+// SampleGenerator's padding and a scene's dead rows are the rows past the
+// cursor; a Shuffle reorders its positions when its child is closed
+// (shuffle_rows). The keys and counts of the walk are computed by thread 0
+// and read by all. Then thread p writes the columns of row p that no draw
+// writes (the whole default row past the cursor), and the warp's threads
+// share the (position, leaf record) draws, each a record's draw from its
+// slot's key T(sprites' key, slot), as the scene mode draws it. Every
+// thread runs every loop the same number of times, so every shuffle sees
+// the whole warp.
+__global__ void __launch_bounds__(kTreeThreads)
+lane_random_tree_kernel(const uint32_t* __restrict__ keys, long long lanes,
+                        long long key_stride, const int* __restrict__ table,
+                        float* __restrict__ factors, int* __restrict__ num,
+                        bool* __restrict__ ok) {
+  const long long lane =
+      (static_cast<long long>(blockIdx.x) * kTreeThreads + threadIdx.x) >> 5;
+  const int t = static_cast<int>(threadIdx.x & 31u);
+  if (lane >= lanes) return;  // the whole warp
+  const int kmax = __ldg(table + 1), width = __ldg(table + 2);
+  const int most = __ldg(table + 3);
+  const int* row_default = table + kTreeHeader;
+  const int* nodes = row_default + width;
+  int row = -1, leaf_word = 0, cursor = 0, leaves = 0;
+  uint2 sprites = make_uint2(0u, 0u);
+  int frame_node[kTreeMaxDepth], frame_next[kTreeMaxDepth];
+  int frame_end[kTreeMaxDepth], frame_start[kTreeMaxDepth];
+  uint2 frame_key[kTreeMaxDepth];
+  int top = -1, node = 0;
+  uint2 key = make_uint2(__ldg(keys + lane * key_stride),
+                         __ldg(keys + lane * key_stride + 1));
+  while (true) {
+    const int* rec = nodes + node * kTreeRecord;
+    const int kind = __ldg(rec);
+    if (kind == kTreeLeaf) {
+      const int word = __ldg(rec + 2);
+      const uint32_t span = static_cast<uint32_t>(__ldg(table + word + 2));
+      int count = __ldg(table + word + 1);
+      uint2 s = make_uint2(0u, 0u);
+      if (t == 0) {
+        if (span != 0u) {
+          const uint2 k = block_key(key, 0u);
+          count = static_cast<int>(static_cast<uint32_t>(count) +
+                                   randint_offset(k.x, k.y, 0u, span));
+        }
+        s = block_key(key, 1u);
+      }
+      count = __shfl_sync(kWarp, count, 0);
+      s = make_uint2(__shfl_sync(kWarp, s.x, 0), __shfl_sync(kWarp, s.y, 0));
+      if (t >= cursor && t < cursor + count) row = (leaves << 5) | (t - cursor);
+      if (t == leaves) {
+        sprites = s;
+        leaf_word = word;
+      }
+      cursor += count;
+      ++leaves;
+    } else {
+      ++top;
+      frame_node[top] = node;
+      frame_key[top] = key;
+      frame_start[top] = cursor;
+      frame_next[top] = 0;
+      frame_end[top] = __ldg(rec + 1);
+      if (kind == kTreeSample) {
+        int c = 0;
+        if (t == 0) {
+          const uint2 k = block_key(key, 0u);
+          const int n = __ldg(rec + 1), cum = __ldg(rec + 3);
+          c = cum < 0 ? static_cast<int>(randint_offset(
+                            k.x, k.y, 0u, static_cast<uint32_t>(n)))
+                      : choice_of(k, table + cum, n);
+        }
+        c = __shfl_sync(kWarp, c, 0);
+        frame_next[top] = c;
+        frame_end[top] = c + 1;
+      }
+    }
+    // Close the nodes whose children are drawn: a Shuffle orders its rows.
+    while (top >= 0 && frame_next[top] >= frame_end[top]) {
+      if (__ldg(nodes + frame_node[top] * kTreeRecord) == kTreeShuffle) {
+        row = shuffle_rows(row, frame_key[top], frame_start[top], cursor, t);
+      }
+      --top;
+    }
+    if (top < 0) break;
+    const int* parent = nodes + frame_node[top] * kTreeRecord;
+    const int parent_kind = __ldg(parent), i = frame_next[top]++;
+    node = __ldg(table + __ldg(parent + 2) + i);
+    key = warp_block_key(
+        frame_key[top],
+        parent_kind == kTreeChain ? static_cast<uint32_t>(i)
+                                  : (parent_kind == kTreeSample ? 1u : 0u),
+        t);
+  }
+  float* out = factors + lane * kmax * width;
+  const int word_of_row =
+      __shfl_sync(kWarp, leaf_word, row >= 0 ? row >> 5 : 0);
+  if (t < kmax) {
+    float* r = out + t * width;
+    if (t < cursor) {
+      for (int m = __ldg(table + word_of_row + 3); m != 0; m &= m - 1) {
+        const int c = __ffs(m) - 1;
+        r[c] = __int_as_float(__ldg(row_default + c));
+      }
+    } else {
+      for (int c = 0; c < width; ++c) {
+        r[c] = __int_as_float(__ldg(row_default + c));
+      }
+    }
+  }
+  const int items = cursor * most;
+  for (int base = 0; base < items; base += 32) {
+    const int item = base + t;
+    const int p = item < items ? item / most : 0;
+    const int f = item - p * most;
+    const int at = __shfl_sync(kWarp, row, p);
+    const int q = at >= 0 ? at >> 5 : 0;
+    const int word = __shfl_sync(kWarp, leaf_word, q);
+    const uint2 s = make_uint2(__shfl_sync(kWarp, sprites.x, q),
+                               __shfl_sync(kWarp, sprites.y, q));
+    if (item < items && f < __ldg(table + word)) {
+      const int* leaf = table + word;
+      const int* rec = leaf + kSceneHeader + width + f * kSceneRecord;
+      out[p * width + __ldg(rec + 1)] = draw_record(
+          leaf, rec, block_key(s, static_cast<uint32_t>(at & 31)));
+    }
+  }
+  if (t == 0) {
+    num[lane] = cursor;
+    ok[lane] = true;
+  }
 }
 
 }  // namespace
@@ -378,6 +603,24 @@ extern "C" int lane_random_scene_launch(const uint32_t* keys,
   lane_random_scene_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       keys, lanes, key_stride, kmax, leaves, table, factors, num, ok);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scene of a generator tree for each of `lanes` keys (lane l's at keys +
+// l * key_stride) from its table `table` on the card (see kTreeHeader):
+// factors f32[lanes, kmax, w] (kmax and w in the table), num i32[lanes], ok
+// bool[lanes]. Launches on `stream`; returns the CUDA error code (0 on
+// success).
+extern "C" int lane_random_tree_launch(const uint32_t* keys, long long lanes,
+                                       long long key_stride,
+                                       const int* table, float* factors,
+                                       int* num, bool* ok, void* stream) {
+  if (lanes <= 0) return 0;
+  const long long blocks = (lanes * 32 + kTreeThreads - 1) / kTreeThreads;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  lane_random_tree_kernel<<<static_cast<unsigned>(blocks), kTreeThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      keys, lanes, key_stride, table, factors, num, ok);
   return static_cast<int>(cudaGetLastError());
 }
 

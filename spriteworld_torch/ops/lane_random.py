@@ -50,7 +50,11 @@ captured in a CUDA graph.
 The kernel's scene mode (`draw_scene`) draws a whole `GenerateSprites`
 scene of a leaf tree in one launch, from a descriptor table that
 `scene_table` builds once on the host; its plain twin is the generator's
-own body (`core.generators.GenerateSprites._sample_plain`).
+own body (`core.generators.GenerateSprites._sample_plain`). Its tree mode
+(`draw_tree`) draws the scene of a whole generator tree of `Shuffle`,
+`SampleGenerator` and `ChainGenerators` nodes over such leaves in one
+launch, from the table that `tree_table` builds; its twin is the
+composites' plain bodies (`_sample_plain`).
 """
 
 from __future__ import annotations
@@ -331,6 +335,17 @@ def _launcher():
 
 
 @functools.lru_cache(maxsize=None)
+def _tree_launcher():
+    """lane_random_tree_launch, typed."""
+    fn = _launcher()[0].lane_random_tree_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _scene_launcher():
     """lane_random_scene_launch, typed."""
     fn = _launcher()[0].lane_random_scene_launch
@@ -585,6 +600,182 @@ def draw_scene(keys: torch.Tensor, table: SceneTable, kmax: int):
             kmax, table.leaves, words.data_ptr(), factors.data_ptr(),
             num.data_ptr(), ok.data_ptr())
     _count_launch("scene", batch * kmax * table.blocks)
+    return factors, num, ok
+
+
+# ---------------------------------------------------------------------- #
+# Whole generator trees: the kernel's tree mode.
+
+# Node kinds of a tree table and its layout (csrc/lane_random.cu holds the
+# same): a header of TREE_HEADER words, the default row, then a record of
+# TREE_RECORD words a node. The kernel's limits: one warp a lane, so at
+# most TREE_MAX_SLOTS slots; composites nested at most TREE_MAX_DEPTH deep;
+# at most TREE_MAX_CHILDREN branches or parts a node.
+TREE_LEAF, TREE_CHAIN, TREE_SAMPLE, TREE_SHUFFLE = range(4)
+TREE_HEADER, TREE_RECORD = 4, 4
+TREE_MAX_SLOTS, TREE_MAX_DEPTH, TREE_MAX_CHILDREN = 32, 8, 32
+
+
+class TreeTable(NamedTuple):
+    """A generator tree's table (`tree_table`): `words`, the int32 words
+    the kernel reads; `kmax`, the root's slots; `width`, the factors of a
+    row; `blocks`, the threefry blocks a lane's warp computes, and
+    `lane_needed`, those a lane's scene needs (a slot's key and its
+    components' keys once, where the warp's threads compute them once a
+    leaf record), both expected over the lane's choices and counts."""
+
+    words: np.ndarray
+    kmax: int
+    width: int
+    blocks: float
+    lane_needed: float
+
+    def needed_blocks(self, lanes: int) -> float:
+        """The threefry blocks `lanes` scenes need."""
+        return lanes * self.lane_needed
+
+
+def _leaf_work(table: SceneTable):
+    """(blocks computed, blocks needed, live slots) of a leaf's scene in
+    the tree mode, expected over its count: the count (T(key, 0) and
+    randint's four) and the sprites' key once; a (live slot, record) draw
+    recomputes its slot's key and its path's keys."""
+    words = table.words
+    lo, span = int(words[1]), int(words[2]) & MASK
+    live = lo + (span - 1) / 2 if span else lo
+    count = 5 if span else 0
+    head = SCENE_HEADER + table.width
+    per_slot = 0
+    for r in range(table.leaves):
+        rec = words[head + r * SCENE_RECORD:][:SCENE_RECORD]
+        per_slot += 1 + int(rec[2]) + (4 if rec[0] == SCENE_RANDINT else 1)
+    return (count + 1 + live * per_slot,
+            table.lane_blocks + live * table.slot_blocks, live)
+
+
+def tree_table(root, default_row) -> TreeTable:
+    """The table of a generator tree for `draw_tree`.
+
+    `root` and each node under it: ("leaf", scene_table, kmax) for a
+    `GenerateSprites` scene of kmax slots (`scene_table`), ("chain",
+    [nodes]), ("sample", [nodes], cumulative(p) or None for a uniform
+    choice) or ("shuffle", node). `default_row`: the factors of a dead
+    row, which every leaf's table holds too. Raises ValueError for a tree
+    past the kernel's limits (TREE_MAX_SLOTS, TREE_MAX_DEPTH,
+    TREE_MAX_CHILDREN), a leaf of another row width, or a choice whose
+    probabilities do not match its branches. The layout is
+    csrc/lane_random.cu's (kTreeHeader)."""
+    default_row = np.asarray(default_row, np.float32)
+    width = default_row.size
+    nodes = []  # preorder: [kind, children or scene table, cumulative]
+
+    def walk(node, depth):
+        """(slots, blocks computed, blocks needed, live slots) of `node`,
+        its records appended to `nodes`."""
+        kind = node[0]
+        index = len(nodes)
+        if kind == "leaf":
+            _, table, kmax = node
+            if table.width != width or not np.array_equal(
+                    table.words[SCENE_HEADER:SCENE_HEADER + width],
+                    default_row.view(np.int32)):
+                raise ValueError("a leaf's rows differ from the tree's")
+            nodes.append([TREE_LEAF, table, None])
+            return (kmax,) + _leaf_work(table)
+        subs = list(node[1]) if kind in ("chain", "sample") else [node[1]]
+        if depth >= TREE_MAX_DEPTH:
+            raise ValueError(f"composites nest past {TREE_MAX_DEPTH}")
+        if not 1 <= len(subs) <= TREE_MAX_CHILDREN:
+            raise ValueError(f"a node of {len(subs)} children; the kernel "
+                             f"takes 1 to {TREE_MAX_CHILDREN}")
+        cum = node[2] if kind == "sample" else None
+        if cum is not None and len(cum) != len(subs):
+            raise ValueError(f"{len(cum)} probabilities for {len(subs)} "
+                             "branches")
+        nodes.append([{"chain": TREE_CHAIN, "sample": TREE_SAMPLE,
+                       "shuffle": TREE_SHUFFLE}[kind], [], cum])
+        work = []
+        for sub in subs:
+            nodes[index][1].append(len(nodes))
+            work.append(walk(sub, depth + 1))
+        slots, done, needed, live = (np.array(w, float) for w in zip(*work))
+        if kind == "chain":  # a key a part
+            return (int(slots.sum()), float((1 + done).sum()),
+                    float((1 + needed).sum()), float(live.sum()))
+        if kind == "shuffle":  # its child's key, the order's, a uniform a row
+            return (int(slots[0]), 2 + done[0] + live[0],
+                    2 + needed[0] + live[0], float(live[0]))
+        if cum is None:  # randint(0, n): T(key, 0) and four; the child's key
+            p, choose = np.full(len(subs), 1.0 / len(subs)), 6
+        else:
+            c = np.asarray(cum, np.float64)
+            p = (np.diff(c, prepend=0.0) / c[-1] if c[-1] > 0
+                 else np.eye(len(subs))[0])
+            choose = 3
+        return (int(slots.max()), choose + float(p @ done),
+                choose + float(p @ needed), float(p @ live))
+
+    kmax, blocks, needed, _ = walk(root, 0)
+    if not 1 <= kmax <= TREE_MAX_SLOTS:
+        raise ValueError(f"a tree of {kmax} slots; the kernel takes 1 to "
+                         f"{TREE_MAX_SLOTS}")
+    # The pool after the records: children, cumulative sums, then one copy
+    # of each leaf table (leaves may share one).
+    base = TREE_HEADER + width + TREE_RECORD * len(nodes)
+    pool, records, leaf_tables = [], [], {}
+    for kind, payload, cum in nodes:
+        if kind == TREE_LEAF:
+            leaf_tables.setdefault(id(payload), payload)
+            records.append([kind, 0, id(payload), -1])
+            continue
+        records.append([kind, len(payload), base + len(pool), -1])
+        pool += payload
+        if cum is not None:
+            records[-1][3] = base + len(pool)
+            pool += [int(w) for w in np.asarray(cum, np.float32)
+                     .view(np.int32)]
+    words_of = {}
+    for key_id, table in leaf_tables.items():
+        words_of[key_id] = base + len(pool)
+        pool += [int(w) for w in table.words]
+    for rec in records:
+        if rec[0] == TREE_LEAF:
+            rec[2] = words_of[rec[2]]
+    most = max(t.leaves for t in leaf_tables.values())
+    words = np.array([len(nodes), kmax, width, most]
+                     + [int(w) for w in default_row.view(np.int32)]
+                     + [w for rec in records for w in rec] + pool, np.int32)
+    return TreeTable(words, kmax, width, float(blocks), float(needed))
+
+
+def draw_tree(keys: torch.Tensor, table: TreeTable):
+    """One launch of `csrc/lane_random.cu`'s tree mode over CUDA keys
+    int32[B, 2]: (factors f32[B, table.kmax, table.width], num i32[B], ok
+    bool[B]), each lane's scene of the generator tree that `table`
+    (`tree_table`) describes, bit for bit what the composites' plain
+    bodies draw. Runs on the current stream; raises when the kernel cannot
+    launch. Each launch adds one to `threefry_launch.launches` and
+    `.by_mode["tree"]`, and the launch with its expected threefry blocks
+    to the census of a graph being captured."""
+    if not keys.is_cuda:
+        raise ValueError("draw_tree needs CUDA keys; CPU keys take the "
+                         "generators' plain bodies")
+    if keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys must be int32[B, 2], got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    batch, dev = keys.shape[0], keys.device
+    factors = torch.empty((batch, table.kmax, table.width),
+                          dtype=torch.float32, device=dev)
+    num = torch.empty((batch,), dtype=torch.int32, device=dev)
+    ok = torch.empty((batch,), dtype=torch.bool, device=dev)
+    if batch == 0:
+        return factors, num, ok
+    flat = _lanes_view(keys)
+    words = device_lib.constant(table.words, dev)
+    _launch(keys, _tree_launcher(), flat.data_ptr(), batch, flat.stride(0),
+            words.data_ptr(), factors.data_ptr(), num.data_ptr(),
+            ok.data_ptr())
+    _count_launch("tree", round(batch * table.blocks))
     return factors, num, ok
 
 

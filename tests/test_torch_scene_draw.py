@@ -363,7 +363,10 @@ def test_a_capture_counts_generate_sprites_by_route(monkeypatch):
         assert record.census_table()["generator.GenerateSprites"] == {
             "plain": {"evaluations": 18}}
     gen.sample_with_status(keys)
-    assert record.routes == {("GenerateSprites", "plain"): 18}
+    assert record.routes == {("GenerateSprites", "plain"): 18,
+                             ("Shuffle", "plain"): 1,
+                             ("SampleGenerator", "plain"): 1,
+                             ("ChainGenerators", "plain"): 9}
     with profiling.capture("two") as record:
         profiling.route("GenerateSprites", "scene")
         profiling.route("GenerateSprites", "scene")
@@ -507,16 +510,22 @@ def test_the_scene_mode_takes_the_row_width_from_its_table(card):
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 @pytest.mark.parametrize("mode", ["train", "test"])
 def test_a_configs_init_sprites_equals_its_plain_bodies(card, config, mode):
+    import chip_smoke
+
     fused = CONFIGS[config].get_config(mode)["init_sprites"]
     plain = CONFIGS[config].get_config(mode)["init_sprites"]
     for gen in generate_sprites_of(plain):
         gen._scene = None
     keys = lane_keys(2**31 + 17, 2048, 2, card)
     lr.reset_launch_counts()
-    got = fused.sample_with_status(keys)
-    scenes = sum(g._scene is not None for g in generate_sprites_of(fused))
-    assert lr.threefry_launch.by_mode.get("scene", 0) == scenes
-    assert_same_scene(got, plain.sample_with_status(keys))
+    # The composites' plain bodies over the leaves (the tree mode, which
+    # draws a whole leaf tree, is held in tests/test_torch_tree_draw.py).
+    with chip_smoke.plain_routes(fused), chip_smoke.plain_routes(plain):
+        got = fused.sample_with_status(keys)
+        scenes = sum(g._scene is not None
+                     for g in generate_sprites_of(fused))
+        assert lr.threefry_launch.by_mode.get("scene", 0) == scenes
+        assert_same_scene(got, plain.sample_with_status(keys))
 
 
 @pytest.mark.cuda
