@@ -15,6 +15,8 @@ Counterpart of `spriteworld_tpu/core/actions.py`:
 
 Random actions and action noise draw from per-lane keys int32[B, 2]
 (`ops.lane_random`), one a lane, as the JAX action spaces draw from theirs.
+Each `step` counts its calls into the census of a graph being captured
+(`utils.profiling.evaluation`, as `action.<Class>`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from spriteworld_torch.ops import geometry, lane_random
 from spriteworld_torch.utils import device as device_lib
+from spriteworld_torch.utils import profiling
 
 
 def _move_sprite(factors, idx, motion, do_move, keep_in_frame: bool):
@@ -64,6 +67,7 @@ class SelectMove:
         noise = lane_random.normal(key, action.shape[-1], action.dtype)
         return action + self._noise_scale * noise
 
+    @profiling.evaluation(kind="action")
     def step(self, action, factors, num_sprites, keep_in_frame: bool,
              key: torch.Tensor):
         """action f32[B, 4], factors f32[B, K, 10], num_sprites i32[B],
@@ -117,6 +121,7 @@ class Embodied:
             [[0.0, step_size], [-step_size, 0.0],
              [0.0, -step_size], [step_size, 0.0]], dtype=np.float32)
 
+    @profiling.evaluation(kind="action")
     def step(self, action, factors, num_sprites, keep_in_frame: bool,
              key: torch.Tensor):
         """action i32[B, 2], factors f32[B, K, 10], num_sprites i32[B] ->

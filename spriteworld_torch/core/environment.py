@@ -287,9 +287,11 @@ class Environment:
             # second; a resetting lane draws its scene from the first and
             # carries the second on.
             split_keys = lane_random.split(state.key, 2)
-            factors, cost = self._action_space.step(
-                actions.to(self._action_dtype(actions.dtype)), state.factors,
-                state.num_sprites, self._keep_in_frame, split_keys[:, 1])
+            with profiling.annotate("env.action"):
+                factors, cost = self._action_space.step(
+                    actions.to(self._action_dtype(actions.dtype)),
+                    state.factors, state.num_sprites, self._keep_in_frame,
+                    split_keys[:, 1])
             # Velocity integration for every sprite; dead slots carry zero
             # velocity so padding is unaffected.
             new_pos = factors[..., 0:2] + factors[..., 8:10]

@@ -34,9 +34,10 @@ Counterpart of `spriteworld_tpu/utils/profiling.py`, on torch:
     threefry blocks by kernel and mode into the census of the capture in
     progress, and a renderer's kernels the sprite slots of its scenes.
   * `evaluation` — decorates a task's method (`reward`, `success`,
-    `valid`, `membership`): each call during a capture counts into its
-    census by class and method, so the census says how many times a step
-    evaluates each task.
+    `valid`, `membership`), and with `kind="action"` an action space's
+    `step`: each call during a capture counts into its census by class and
+    method, so the census says how many times a step evaluates each task
+    and steps its action space.
   * `route()` — a scene sampler that can take one of several routes
     (`GenerateSprites`: the kernel's scene mode or its plain body) counts
     each evaluation during a capture into its census by class and route.
@@ -422,8 +423,10 @@ class GraphRecord(_Open):
     into the graph (`count`): one replay's work, without a device read;
     `slots`: {(kernel, mode): {sprite slots a scene}} where the wrapper
     gave them; `evaluations`: {(task class, method): calls} (`evaluation`);
-    `routes`: {(sampler class, route): calls} (`route`); `task_routes`:
-    {(task class, route): calls} (`task_route`).
+    `actions`: {(action space class, method): calls} (`evaluation` with
+    `kind="action"`); `routes`: {(sampler class, route): calls}
+    (`route`); `task_routes`: {(task class, route): calls}
+    (`task_route`).
     """
 
     def __init__(self, name: str):
@@ -435,6 +438,7 @@ class GraphRecord(_Open):
         self.census: Dict[Tuple[str, str], List[int]] = {}
         self.slots: Dict[Tuple[str, str], set] = {}
         self.evaluations: Dict[Tuple[str, str], int] = {}
+        self.actions: Dict[Tuple[str, str], int] = {}
         self.routes: Dict[Tuple[str, str], int] = {}
         self.task_routes: Dict[Tuple[str, str], int] = {}
         self._marks: List[Tuple[int, int]] = []  # (nodes so far, span)
@@ -512,6 +516,7 @@ class GraphRecord(_Open):
         """{kernel: {mode: {"launches", "blocks"[, "slots"]}}} of one
         replay, "slots" the sorted sprite slots of its scenes where
         counted, {"task.<class>": {method: {"evaluations"}}},
+        {"action.<class>": {method: {"evaluations"}}},
         {"generator.<class>": {route: {"evaluations"}}} and
         {"task_route.<class>": {route: {"evaluations"}}}."""
         out: Dict[str, Dict[str, dict]] = {}
@@ -523,6 +528,8 @@ class GraphRecord(_Open):
             out.setdefault(kernel, {})[mode] = row
         for (cls, method), n in sorted(self.evaluations.items()):
             out.setdefault(f"task.{cls}", {})[method] = {"evaluations": n}
+        for (cls, method), n in sorted(self.actions.items()):
+            out.setdefault(f"action.{cls}", {})[method] = {"evaluations": n}
         for (cls, name), n in sorted(self.routes.items()):
             out.setdefault(f"generator.{cls}", {})[name] = {"evaluations": n}
         for (cls, name), n in sorted(self.task_routes.items()):
@@ -568,16 +575,22 @@ def count(kernel: str, mode: str, blocks: int = 0,
         _capture.slots.setdefault((kernel, mode), set()).add(int(slots))
 
 
-def evaluation(method):
-    """Decorates a task's method: a call while a graph is being captured
-    counts one evaluation of (the task's class, the method's name) into
-    the capture's census. Off a capture it reads one global."""
+def evaluation(method=None, *, kind: str = "task"):
+    """Decorates a task's method (`kind` "task") or an action space's
+    (`kind` "action"): a call while a graph is being captured counts one
+    evaluation of (the object's class, the method's name) into the
+    capture's census (`GraphRecord.evaluations` or `.actions`). Off a
+    capture it reads one global."""
+    table = {"task": "evaluations", "action": "actions"}[kind]
+    if method is None:
+        return functools.partial(evaluation, kind=kind)
 
     @functools.wraps(method)
     def evaluate(self, *args, **kwargs):
         if _capture is not None:
+            counts = getattr(_capture, table)
             key = (type(self).__name__, method.__name__)
-            _capture.evaluations[key] = _capture.evaluations.get(key, 0) + 1
+            counts[key] = counts.get(key, 0) + 1
         return method(self, *args, **kwargs)
 
     return evaluate
