@@ -118,8 +118,8 @@ VARIANTS = [
          "__launch_bounds__(kThreads, kLanczos ? 3 : 1)", 1)]),
     # The scene kernel's box mode held to 64 registers (two blocks an SM,
     # no spill) instead of 40 (three blocks).
-    ("scene_two_blocks", [("scene_raster.cu", "kLanczos ? 1 : 3)",
-                           "kLanczos ? 1 : 2)", 1)]),
+    ("scene_two_blocks", [("scene_raster.cu", "kLanczos ? 2 : 3)",
+                           "kLanczos ? 2 : 2)", 1)]),
     # The box's mixed blocks: the byte-permute route for K + 1 <= 8 in the
     # scene kernel, the shared table for every K in the strip kernel (the
     # other way round from the tree).
@@ -218,6 +218,23 @@ _PACKED_CUT_SPRITES = [
     ("packed_raster.cu",
      "    for (int i = s_chunk[c]; i < s_chunk[c + 1]; ++i) {",
      "    for (int i = s_chunk[c]; i < 0; ++i) {", 1)]
+# The Lanczos instantiation's phases: the fill of the live groups, the
+# h-pass of the live units, the v-pass of the live units.
+_LANCZOS_CUT_FILL = [
+    ("scene_raster.cu",
+     "        fill_rows(s_tab, K, V, NT, 8 * g0, min(8 * run, hc - 8 * g0), wc,",
+     "        if (false)\n"
+     "        fill_rows(s_tab, K, V, NT, 8 * g0, min(8 * run, hc - 8 * g0), wc,",
+     1)]
+_LANCZOS_CUT_HPASS = [
+    ("scene_raster.cu", "  for (int base = 0; base < mt * nb; base += 32) {",
+     "  for (int base = 0; base < 0; base += 32) {", 1)]
+_LANCZOS_CUT_VPASS = [
+    ("scene_raster.cu",
+     "        vpass_unit(hpT, plane, hp, vt, u / nt_v, 8 * (u % nt_v), h, w,",
+     "        if (false)\n"
+     "        vpass_unit(hpT, plane, hp, vt, u / nt_v, 8 * (u % nt_v), h, w,",
+     1)]
 SPLIT = [
     # The canvas is first set to ones: a second zeroing's worth of stores.
     ("zero_twice", [
@@ -245,6 +262,23 @@ SPLIT = [
     ("cut_output", _CUT_OUTPUT),
     # Setup alone: zeroing, fill and output cut.
     ("setup_only", _CUT_ZERO + _CUT_FILL + _CUT_OUTPUT),
+    ("lanczos_cut_fill", _LANCZOS_CUT_FILL),
+    ("lanczos_cut_hpass", _LANCZOS_CUT_HPASS),
+    ("lanczos_cut_vpass", _LANCZOS_CUT_VPASS),
+    # The background's h-values in hpT and the dead v-pass units' pixels.
+    ("lanczos_cut_background", [
+        ("scene_raster.cu",
+         "for (; dead; dead &= dead - 1u) row[32 * k + __ffs(dead) - 1] = v8;",
+         "", 1),
+        ("scene_raster.cu",
+         "for (int i = tid; i < (nv - nvl) * 16; i += kThreads) {",
+         "for (int i = tid; i < 0; i += kThreads) {", 1)]),
+    # Setup alone: the tables, the plan and the background; zeroing, fill
+    # and both passes cut.
+    ("lanczos_setup_only", [
+        ("scene_raster.cu",
+         "      zero(canvas, size_t(8 * nb) * cp, tid, kThreads);\n", "", 1)]
+     + _LANCZOS_CUT_FILL + _LANCZOS_CUT_HPASS + _LANCZOS_CUT_VPASS),
     ("packed_cut_fill", _PACKED_CUT_FILL),
     ("packed_cut_output", _PACKED_CUT_OUTPUT),
     ("packed_setup_only", _PACKED_CUT_SPRITES + _PACKED_CUT_OUTPUT),
@@ -330,6 +364,11 @@ def child(share, checked, kernels=KERNELS):
         out.update(cs.time_split(
             torch, rc, colors, scene_state if "scene" in kernels else None,
             demo_state))
+    if "scene" in kernels:  # exact+lanczos on two cells' scenes
+        out["scene paths"] = cs.time_scene_paths(
+            torch, rc, cs.scene_path_tables(torch, colors, names=(
+                "cobra.goal_finding_new_position",
+                "examples.goal_finding_clustering")), checked=checked)
     if "packed" in kernels:
         out["packed_raster"] = {}
         for pil_exact in (True, False):

@@ -34,7 +34,12 @@ Phases:
      float32 ulp off them), anti_aliasing=1 pixels at 64x64, 128x128 and
      256x256, each checked to differ nowhere, beside the counts that
      float32 sine and cosine give; the IMMA instructions in each built
-     kernel (cuobjdump -sass);
+     kernel (cuobjdump -sass); the scene kernel with the Lanczos filter on
+     the edges of its live-unit test (`live_unit_cases`: no live sprite,
+     sprites across each border, squares one pixel short of a unit's span
+     and one pixel into it, all 12 slots live; 64x64/AA=5 and 32x48/AA=3),
+     bit for bit, with its count of live v-pass units equal to the twin
+     masks' (`rasterize_cuda.scene_live_units`);
   4. the main path: bench.py's image64 workload at anti_aliasing=5 over
      2048 lanes through BatchedEnvironment(use_graph=False), the eager
      step (phases 5 and 6 too) — reset, warm-up, 3 timed chunks of 50
@@ -91,7 +96,10 @@ Phases:
      one float32 einsum with its rounding, and how many values it
      differs in), and the scene kernel's time at image64/AA=1 beside
      packed_raster's in each fill; every kernel also timed inside a CUDA
-     graph of its launches (`graph_ms`);
+     graph of its launches (`graph_ms`); row 1 (scene_raster) also gives,
+     under `paths`, its device ms and live v-pass units on the scenes of
+     the four scene-kernel cells' configurations at 2048 lanes and at B=1,
+     held to the plain version;
   9. the single env at B=1 (run before phase 8, whose kernels line stays
      last but one): each kernel and mode (scene exact+lanczos and
      centroid+box at 64x64/AA=5, strips in both at 256x256/AA=10,
@@ -204,9 +212,11 @@ Phases:
 Usage: python3 chip_smoke.py   (needs one CUDA card)
 python3 -c 'import chip_smoke; chip_smoke.split_only()'   (phase 8's split)
 python3 -c 'import chip_smoke; chip_smoke.packed_only()'  (packed_raster)
+python3 -c 'import chip_smoke; chip_smoke.scene_only()'   (scene_raster)
 """
 
 import contextlib
+import dataclasses
 import json
 import sys
 import time
@@ -3905,6 +3915,172 @@ def many_sprites(torch, rasterize_cuda):
     return worst
 
 
+# The scene kernel's live units: image sizes of the edge cases (square,
+# and a non-square image at another anti_aliasing).
+LIVE_SIZES = (((64, 64), 5), ((32, 48), 3))
+# The benchmark's configurations of the scene kernel's cells, the scenes
+# that phase 8 renders with and without the live-unit test's help.
+RASTER_CONFIGS = ("cobra.goal_finding_new_position", "cobra.sorting",
+                 "examples.goal_finding_embodied",
+                 "examples.goal_finding_clustering")
+
+
+def _square_scenes(xs, ys, scale):
+    """One axis-aligned square of `scale` a scene at (xs[i], ys[i])."""
+    from spriteworld_torch.core import state as state_lib
+
+    f = np.tile(state_lib.DEFAULT_FACTORS, (len(xs), 1, 1)).astype(
+        np.float32)
+    f[:, 0, state_lib.X] = xs
+    f[:, 0, state_lib.Y] = ys
+    f[:, 0, state_lib.SCALE] = scale
+    f[:, 0, 5:8] = (200, 90, 40)
+    return f, np.ones(len(xs), np.int32)
+
+
+def live_unit_cases(image_size, aa, seed=0):
+    """[(name, factors f32[b, K, 10], live counts i32[b])]: scenes at the
+    edges of the scene kernel's live-unit test with the Lanczos filter: no
+    live sprite; a sprite across each border of the canvas and each
+    corner; squares whose bounds end one pixel short of a unit's span of
+    Lanczos support, or on its first pixel, in columns and in rows; all 12
+    slots live. Plain numpy and the CPU's tables: the CPU tests hold the
+    twin's masks on them, the card holds the kernel."""
+    from spriteworld_torch.core import state as state_lib
+    from spriteworld_torch.ops import rasterize_cuda as rc
+
+    import torch
+
+    h, w = image_size
+    rng = np.random.default_rng(seed)
+    cases = []
+    f, _ = scene_batch(seed, 4, kmax=3)
+    cases.append(("no live sprite", f, np.zeros(4, np.int32)))
+    edge = np.array([0.0, 1.0, 0.5, 0.5, 0.0, 1.0, 0.0, 1.0])
+    other = np.array([0.5, 0.5, 0.0, 1.0, 0.0, 1.0, 1.0, 0.0])
+    f, n = _square_scenes(edge, other, 0.2)
+    cases.append(("across each border and corner", f, n))
+    # Squares swept a quarter canvas pixel at a time across the image;
+    # keep those whose bounds stop one pixel before a unit's span or
+    # start on its last pixel (either way, one pixel of Lanczos support
+    # from meeting it or not).
+    sweep = np.arange(0.02, 0.98, 1.0 / (4 * aa * max(h, w)))
+    spans = ((rc.lanczos_tiles(w * aa, w).span8, rc.T_COL0, rc.T_COL1, 0),
+             (rc.lanczos_tiles(h * aa, h).span8, rc.T_ROW0, rc.T_ROW1, 1))
+    for span, lo_f, hi_f, axis in spans:
+        middle = np.full(len(sweep), 0.5)
+        f, n = _square_scenes(*((middle, sweep) if axis else
+                                (sweep, middle)), 0.07)
+        t = rc.prepare(torch.from_numpy(f), torch.from_numpy(n), h * aa,
+                       w * aa, None).tab[:, 0].numpy()
+        a, b = t[:, lo_f], t[:, hi_f]
+        short = np.isin(b + 1, span[:, 0]) | np.isin(a, span[:, 1])
+        on = np.isin(b, span[:, 0]) | np.isin(a + 1, span[:, 1])
+        for label, mask in (("one pixel short of", short),
+                            ("one pixel into", on)):
+            idx = np.flatnonzero(mask)
+            check(len(idx) > 0, f"no square {label} a unit's span "
+                                f"({'rows' if axis else 'columns'})")
+            pick = idx[np.linspace(0, len(idx) - 1, min(8, len(idx)))
+                       .astype(int)]
+            cases.append((f"{label} a unit's span in "
+                          f"{'rows' if axis else 'columns'}", f[pick],
+                          n[pick]))
+    f, n = scene_batch(seed + 1, 8, kmax=12)
+    f[..., state_lib.SCALE] = rng.uniform(0.03, 0.1, f.shape[:2])
+    cases.append(("all 12 slots live", f, np.full(8, 12, np.int32)))
+    return cases
+
+
+def live_units_vs_plain(torch, rasterize_cuda):
+    """Phase 3: the scene kernel with the Lanczos filter against its plain
+    version on `live_unit_cases` at each of LIVE_SIZES, with a background
+    colour, and its count of live v-pass units against the twin's masks
+    (`scene_live_units`). Returns the largest difference."""
+    rc = rasterize_cuda
+    worst = 0
+    for size, aa in LIVE_SIZES:
+        for name, f, n in live_unit_cases(size, aa):
+            t = rc.prepare(torch.from_numpy(f).cuda(),
+                           torch.from_numpy(n).cuda(), size[0] * aa,
+                           size[1] * aa, None)
+            got = rc.scene_raster(t, size, (10, 20, 30))
+            err, count = compare(got, rc.render_rgb_batch_plain(
+                t, size, (10, 20, 30)))
+            _, vmask = rc.scene_live_units(t, size, aa)
+            live, units = rc.scene_raster.live_units()
+            print(f"live units, {size[0]}x{size[1]}/AA={aa}, {name}, "
+                  f"B={len(n)}: max |diff| {err}, {count} differing "
+                  f"values; {live} of {units} v-pass units live (twin "
+                  f"{int(vmask.sum())})")
+            check(count == 0, f"scene kernel differs from plain ({name}, "
+                              f"{size}, AA={aa})")
+            check((live, units) == (int(vmask.sum()), vmask.numel()),
+                  f"the kernel's live units differ from the twin's "
+                  f"({name})")
+            worst = max(worst, err)
+    return worst
+
+
+def scene_path_tables(torch, colors, lanes=BATCH, steps=2, seed=3,
+                      dev="cuda", names=RASTER_CONFIGS):
+    """{config: (tables, image size)} of the `names` configs' scenes over
+    `lanes` lanes, each after a reset and `steps` eager steps, prepared as
+    the config's image renderer prepares them
+    (perfbench/configs/<config>.json)."""
+    from perfbench import harness
+    from spriteworld_torch.core import environment as env_lib
+    from spriteworld_torch.ops import rasterize_cuda as rc
+
+    layout = harness.Layout()
+    out = {}
+    for name in names:
+        config = layout.config(name)
+        env = env_lib.Environment(**harness.env_kwargs(config),
+                                  device=dev, seed=seed)
+        state, _ = env.reset_batch(lanes)
+        for t in range(steps):
+            state, _ = env.step_batch(state, random_actions(env, lanes, t))
+        h, w = config["image_size"]
+        aa = config["anti_aliasing"]
+        cmap = colors.hsv_to_rgb if config["color_to_rgb"] == "hsv" else None
+        out[name] = (rc.prepare(state.factors, state.num_sprites, h * aa,
+                                w * aa, cmap), (h, w))
+    return out
+
+
+def time_scene_paths(torch, rasterize_cuda, tables, reps=20, checked=True):
+    """Phase 8's row 1 beside its main path: scene_raster on each of
+    RASTER_CONFIGS' scenes (`scene_path_tables`) at their lanes and at
+    B=1 (the first lane), held to the plain version at the lanes (where
+    `checked`), timed on
+    the device (`event_ms` with the spin), with the live v-pass units of
+    the launch where the tree counts them. {config: {"B=<b>": {...}}}."""
+    rc = rasterize_cuda
+    out = {}
+    for name, (t, size) in tables.items():
+        if checked:
+            _, count = compare(rc.scene_raster(t, size),
+                               rc.render_rgb_batch_plain(t, size))
+            check(count == 0, f"scene_raster differs from plain on "
+                              f"{name}'s scenes")
+        row = {}
+        for b in (t.tab.shape[0], 1):
+            sub = dataclasses.replace(t, tab=t.tab[:b].contiguous())
+            ms = event_ms(torch, lambda: rc.scene_raster(sub, size), reps,
+                          True)
+            counted = getattr(rc.scene_raster, "live_units",
+                              lambda: None)()
+            row[f"B={b}"] = {"device_ms": ms,
+                             "live_units": None if counted is None
+                             else list(counted)}
+        out[name] = row
+        print(f"scene_raster on {name}'s scenes: "
+              + ", ".join(f"{k} {v['device_ms']:.4f} ms (live units "
+                          f"{v['live_units']})" for k, v in row.items()))
+    return out
+
+
 def float32_trig_vertices(factors):
     """`geometry.centered_vertices` with sine and cosine taken in float32,
     the port's trig before it rounded a float64 sine and cosine once. The
@@ -4169,6 +4345,34 @@ def split_only():
     print(json.dumps({"split": split, "card": card}))
 
 
+def scene_only():
+    """The scene kernel alone, on freshly built kernels: the layouts, every
+    phase-3 check of the scene kernel (the live-unit cases too), and its
+    device time and live units on RASTER_CONFIGS' scenes:
+    python3 -c 'import chip_smoke; chip_smoke.scene_only()'."""
+    import torch
+
+    import bench_torch
+    from spriteworld_torch.ops import _build
+    from spriteworld_torch.ops import rasterize_cuda
+    from spriteworld_torch.utils import colors
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = bench_torch.card_name_and_power_limit()
+    print(card)
+    logs = _build.build_all()
+    for line in logs.get("scene_raster", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  scene_raster: {line.strip()}")
+    check_layouts(rasterize_cuda)
+    kernel_vs_plain(torch, rasterize_cuda, colors)
+    live_units_vs_plain(torch, rasterize_cuda)
+    many_sprites(torch, rasterize_cuda)
+    paths = time_scene_paths(torch, rasterize_cuda,
+                             scene_path_tables(torch, colors))
+    print(json.dumps({"scene_paths": paths, "card": card}))
+
+
 def main():
     import torch
 
@@ -4201,6 +4405,7 @@ def main():
     worst_modes = modes_vs_plain(torch, rasterize_cuda, colors)
     worst_cases = check_cases(torch, rasterize_cuda)
     worst_many = many_sprites(torch, rasterize_cuda)
+    worst_many = max(worst_many, live_units_vs_plain(torch, rasterize_cuda))
     vertex_trig(torch, rasterize_cuda)
     imma = imma_counts(_build)
     print("IMMA instructions by kernel function (cuobjdump -sass): "
@@ -4241,6 +4446,8 @@ def main():
     split = time_split(torch, rasterize_cuda, colors, state, demo_state)
     print(json.dumps({"split": split}))
     entry = time_kernel(torch, rasterize_cuda, colors, state)
+    entry["paths"] = time_scene_paths(torch, rasterize_cuda,
+                                      scene_path_tables(torch, colors))
     entry["launches"] = scene_launches
     entry["max_abs_err"] = max(entry["max_abs_err"], worst, worst_many)
     strip_entries = time_strips(torch, rasterize_cuda, colors, demo_state)

@@ -25,7 +25,11 @@ The work splits in five:
   same places.
 * `scene_raster` launches the scene kernel (`csrc/scene_raster.cu`) on a
   CUDA table: one thread block renders one whole scene, its canvas in
-  shared memory.
+  shared memory. With the Lanczos filter it computes only the units that
+  some sprite's bounds reach and writes Pillow's background elsewhere;
+  `scene_live_units` and `scene_background` are the plain twins of that
+  test and of those pixels, and `scene_raster.live_units()` reads the
+  kernel's own count of the last launch.
 * `strip_raster` and `strip_vpass` launch the row-strip kernels
   (`csrc/strip_raster.cu`): one block fills one strip of canvas rows and
   runs the horizontal Lanczos pass (or the box filter, whole); a second
@@ -334,7 +338,9 @@ class LanczosTiles:
     i32[mt, ksteps, 3, 32 lanes, 4] (lane = 4 * group + t holds rows group
     and group + 8, inputs 4t..4t+3 and 16+4t..16+4t+3 of the K step).
     qsum: i32[16 * mt], each output's sum of taps (a window of one colour c
-    sums to c * qsum).
+    sums to c * qsum). span8: i32[ceil(out_size / 8), 2], the input span
+    [lo, hi) that the taps of outputs 8b .. 8b + 7 read (the scene kernel's
+    test of which units a sprite reaches).
     """
 
     kstart: np.ndarray
@@ -343,6 +349,7 @@ class LanczosTiles:
     limbs: np.ndarray
     frags: np.ndarray
     qsum: np.ndarray
+    span8: np.ndarray
 
 
 def _pitch(in_size: int, window: int) -> int:
@@ -390,18 +397,21 @@ def lanczos_tiles(in_size: int, out_size: int) -> LanczosTiles:
     u8 = u8.transpose(0, 3, 1, 2, 4)  # [mt, ks, 3, 16, 32]
     frag_bytes = u8[..., rows[..., None], cols[..., None] + np.arange(4)]
     frags = np.ascontiguousarray(frag_bytes).view("<i4")[..., 0]
+    blocks = range(0, out_size, 8)
+    span8 = np.array([[xmins[b:b + 8].min(), ends[b:b + 8].max()]
+                      for b in blocks], np.int32)
     return LanczosTiles(kstart=kstart, ksteps=ksteps, pitch=pitch,
                         limbs=limbs, frags=np.ascontiguousarray(frags),
-                        qsum=q.sum(1).astype(np.int32))
+                        qsum=q.sum(1).astype(np.int32), span8=span8)
 
 
 @functools.lru_cache(maxsize=None)
 def lanczos_tiles_on(in_size: int, out_size: int, device: torch.device):
-    """(tiles, then its frags, kstart and qsum as i32 tensors on
+    """(tiles, then its frags, kstart, qsum and span8 as i32 tensors on
     `device`), cached by sizes and device."""
     t = lanczos_tiles(in_size, out_size)
     return (t,) + tuple(torch.from_numpy(a).to(device)
-                        for a in (t.frags, t.kstart, t.qsum))
+                        for a in (t.frags, t.kstart, t.qsum, t.span8))
 
 
 # Downsample modes of the kernels (csrc/raster_fill.cuh DS_*).
@@ -430,15 +440,17 @@ def mode_name(pil_exact: bool, ds: int) -> str:
             + ("identity", "lanczos", "box")[ds])
 
 
-def _count_launch(fn, mode: str, batch: int, slots=None, blocks: int = 0):
+def _count_launch(fn, mode: str, batch: int, slots=None, blocks: int = 0,
+                  reading=None):
     """One more launch of kernel wrapper `fn` over `batch` scenes of
     `slots` sprite slots each, in all, in `mode`, in `by_batch` and in the
     census of a graph being captured (`utils.profiling.count`), with the
-    `blocks` it launches where the wrapper gives them."""
+    `blocks` it launches where the wrapper gives them and the `reading` of
+    what it counted on the card."""
     fn.launches += 1
     fn.by_mode[mode] = fn.by_mode.get(mode, 0) + 1
     fn.by_batch[batch] = fn.by_batch.get(batch, 0) + 1
-    profiling.count(fn.__name__, mode, blocks, slots=slots)
+    profiling.count(fn.__name__, mode, blocks, slots=slots, reading=reading)
 
 
 def reset_launch_counts():
@@ -497,7 +509,18 @@ def scene_smem_bytes(k: int, num_vertices: int, hc: int, wc: int, h: int,
     wp, hp = hpass_geometry(hc, h, w)
     band = min(_round8(hc), _SCENE_BAND_ROWS)
     return (head + _round16(band * cp) + _chan_bytes(k)
-            + _round16(3 * wp * hp))
+            + _round16(3 * wp * hp) + plan_bytes(k, hc, h, w))
+
+
+def plan_bytes(k: int, hc: int, h: int, w: int) -> int:
+    """The scene kernel's plan of its live units with the Lanczos filter (a
+    mirror of `plan_layout` in csrc/scene_raster.cu): four words a sprite
+    (its bounds), the count and list of the live groups of 8 canvas rows
+    (a word a group), a bit a h-pass unit and a bit a v-pass unit (of the
+    h-pass buffer's columns) in whole words."""
+    ng, mt_h = _round8(hc) // 8, -(-w // MMA_M)
+    nv = -(-h // MMA_M) * 2 * mt_h
+    return _round16(4 * (4 * k + 1 + ng + mt_h * -(-ng // 32) + -(-nv // 32)))
 
 
 def strip_smem_bytes(k: int, strip_rows: int, wc: int,
@@ -683,9 +706,9 @@ def _scene_launcher():
     lib = _build.load("scene_raster")
     fn = lib.scene_raster_launch
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     lib.scene_raster_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.scene_raster_smem_bytes.restype = ctypes.c_longlong
@@ -792,13 +815,22 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=tab.device)
     if b == 0:
         return out
+    live = reading = bg = None
     if ds == DS_LANCZOS:
-        htl, hfr, hks, hqs = lanczos_tiles_on(wc, w, tab.device)
-        vtl, vfr, vks, _ = lanczos_tiles_on(hc, h, tab.device)
+        htl, hfr, hks, hqs, hspan = lanczos_tiles_on(wc, w, tab.device)
+        vtl, vfr, vks, _, vspan = lanczos_tiles_on(hc, h, tab.device)
         cp, hp = htl.pitch, vtl.pitch
         hsteps, vsteps = htl.ksteps, vtl.ksteps
+        bg = _background_on(hc, wc, h, w, _bg_packed(bg_color), tab.device)
+        live = _live_buffer(tab.device, b)
+        units = b * -(-h // MMA_M) * -(-w // 8)
+
+        def reading(live=live, units=units):
+            return int(live.sum()), units
+
+        scene_raster.last = reading
     else:
-        hfr = hks = hqs = vfr = vks = None
+        hfr = hks = hqs = hspan = vfr = vks = vspan = None
         cp, hp, hsteps, vsteps = _round16(wc), 0, 0, 0
 
     lib, launch = _scene_launcher()
@@ -806,11 +838,109 @@ def scene_raster(tables: SceneTables, image_size: Tuple[int, int],
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(_ptr(tab), b, k, tables.num_vertices, tab.shape[-1], hc,
                      wc, h, w, int(not tables.pil_exact), ds, _ptr(hfr),
-                     _ptr(hks), _ptr(hqs), hsteps, cp, _ptr(vfr), _ptr(vks),
-                     vsteps, hp, _bg_packed(bg_color), _ptr(out), stream)
+                     _ptr(hks), _ptr(hqs), _ptr(hspan), hsteps, cp, _ptr(vfr),
+                     _ptr(vks), _ptr(vspan), vsteps, hp, _bg_packed(bg_color),
+                     _ptr(bg), _ptr(out), _ptr(live), stream)
     _check_launch(lib, err, "scene_raster")
-    _count_launch(scene_raster, mode_name(tables.pil_exact, ds), b, k)
+    _count_launch(scene_raster, mode_name(tables.pil_exact, ds), b, k,
+                  reading=reading)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _background_on(hc: int, wc: int, h: int, w: int, bg_packed: int,
+                   device: torch.device) -> torch.Tensor:
+    """`scene_background` of these sizes and packed colour on `device`,
+    which the scene kernel copies into its dead v-pass units."""
+    color = (bg_packed >> 16, (bg_packed >> 8) & 255, bg_packed & 255)
+    taps = (lanczos_tiles(wc, w), lanczos_tiles(hc, h))
+    return scene_background(taps, color, (h, w)).contiguous().to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _live_buffer(device: torch.device, b: int) -> torch.Tensor:
+    """i32[b] on `device`: each scene's live v-pass units, as the last
+    Lanczos launch of scene_raster over `b` scenes wrote them (kept as long
+    as the module, so a captured graph's replays write it too)."""
+    return torch.zeros(b, dtype=torch.int32, device=device)
+
+
+def _last_live_units() -> Optional[Tuple[int, int]]:
+    """(live v-pass units, all v-pass units) of the scenes of the last
+    Lanczos launch of `scene_raster` (or of the last replay of a graph
+    that captured it), summed over its batch; None before any. A unit is
+    16 output rows by 8 output columns; the kernel computes the live ones
+    and writes the others' background pixels (`scene_live_units`). Reads
+    the card: call it when the work is done, never on the step path."""
+    last = getattr(scene_raster, "last", None)
+    return None if last is None else last()
+
+
+scene_raster.live_units = _last_live_units
+profiling.reading("scene_raster.live_units", _last_live_units)
+
+
+def scene_live_units(tables: SceneTables, image_size: Tuple[int, int],
+                     aa: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scene kernel's masks of live units with the Lanczos filter, in
+    plain torch: (bool[B, ceil(hc / 8), ceil(w / 16)] of the h-pass units,
+    m-tile m of canvas rows 8g .. 8g + 7 at [b, g, m]; bool[B, ceil(h /
+    16), ceil(w / 8)] of the v-pass units, output rows 16m .. 16m + 15 in
+    Pillow's order (before the flip) by output columns 8n .. 8n + 7 at
+    [b, m, n]). A unit is live where a live sprite's bounds meet its rows
+    and the input span of its outputs' taps (`LanczosTiles.span8`); the
+    others read the background alone, so the kernel writes them from the
+    taps' sums (`scene_background`)."""
+    h, w = image_size
+    hc, wc = h * aa, w * aa
+    hs = torch.from_numpy(lanczos_tiles(wc, w).span8).to(tables.tab.device)
+    vs = torch.from_numpy(lanczos_tiles(hc, h).span8).to(tables.tab.device)
+
+    def tiles(span):  # m-tile m: blocks 2m and 2m + 1 (the last, if any)
+        odd = span[torch.arange(1, len(span) + 1, 2).clamp(max=len(span) - 1)]
+        even = span[0::2]
+        return torch.stack([torch.minimum(even[:, 0], odd[:, 0]),
+                            torch.maximum(even[:, 1], odd[:, 1])], -1)
+
+    tab = tables.tab
+    live = tab[:, :, T_COUNT] > 0
+    row0, row1 = tab[:, :, T_ROW0], tab[:, :, T_ROW1]
+    col0, col1 = tab[:, :, T_COL0], tab[:, :, T_COL1]
+
+    def meets(rows, cols):  # rows [R, 2], cols [C, 2] -> bool[B, R, C]
+        r = ((row0[:, None] <= rows[None, :, None, 1] - 1)
+             & (row1[:, None] >= rows[None, :, None, 0]))  # [B, R, K]
+        c = ((col0[:, None] <= cols[None, :, None, 1] - 1)
+             & (col1[:, None] >= cols[None, :, None, 0]))  # [B, C, K]
+        both = r[:, :, None] & c[:, None] & live[:, None, None]
+        return both.any(-1)
+
+    g = torch.arange(_round8(hc) // 8, device=tab.device)
+    groups = torch.stack([8 * g, 8 * g + 8], -1)
+    return meets(groups, tiles(hs)), meets(tiles(vs), hs)
+
+
+def scene_background(taps, bg_color, image_size: Tuple[int, int]
+                     ) -> torch.Tensor:
+    """u8[H, W, 3], flipped as the renders are: the image of a scene with
+    no sprite in Pillow's fixed point, from the taps' sums alone. `taps`
+    is (h-pass tiles, v-pass tiles) of `lanczos_tiles`. A window of the
+    one value c gives clip8(2^21 + c * qsum >> 22) in each pass, the same
+    integer that its products give; the scene kernel writes these pixels
+    wherever its v-pass units are dead (`scene_live_units`)."""
+    h, w = image_size
+    ht, vt = taps
+
+    def uniform(v, qsum):
+        return ((v * qsum + (1 << 21)) >> 22).clamp(0, 255)
+
+    c = torch.tensor([int(v) for v in (bg_color or (0, 0, 0))],
+                     dtype=torch.int64)
+    hq = torch.from_numpy(ht.qsum[:w].astype(np.int64))
+    vq = torch.from_numpy(vt.qsum[:h].astype(np.int64))
+    hv = uniform(c[None, :], hq[:, None])  # [W, 3]
+    img = uniform(hv[None], vq[:, None, None])  # [H, W, 3]
+    return torch.flip(img, dims=(0,)).to(torch.uint8)
 
 
 def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
@@ -851,7 +981,7 @@ def strip_raster(tables: SceneTables, image_size: Tuple[int, int],
             f"shared memory; the card gives a block {budget}")
     if lanczos:
         buf, out = hpass_buffer(b, hc, h, w, tab.device)
-        _, hfr, hks, hqs = lanczos_tiles_on(wc, w, tab.device)
+        _, hfr, hks, hqs, _ = lanczos_tiles_on(wc, w, tab.device)
         hp = hpass_geometry(hc, h, w)[1]
         hsteps = lanczos_tiles(wc, w).ksteps
     else:
@@ -909,7 +1039,7 @@ def strip_vpass(hpass: torch.Tensor, h: int) -> torch.Tensor:
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=hpass.device)
     if b == 0:
         return out
-    _, vfr, vks, _ = lanczos_tiles_on(hc, h, hpass.device)
+    _, vfr, vks, _, _ = lanczos_tiles_on(hc, h, hpass.device)
     lib, _, launch = _strip_launchers()
     with torch.cuda.device(hpass.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -32,7 +32,12 @@ Counterpart of `spriteworld_tpu/utils/profiling.py`, on torch:
     them; a replay costs nothing more.
   * `count()` — the port's kernel wrappers count each launch and its
     threefry blocks by kernel and mode into the census of the capture in
-    progress, and a renderer's kernels the sprite slots of its scenes.
+    progress, and a renderer's kernels the sprite slots of its scenes; a
+    kernel that counts on the card (the scene kernel's live units) leaves
+    a reading there, which the census reads when it is taken.
+  * `reading(name, fn)` — a counter that a kernel keeps on the card,
+    which `summary()` reads (`fn()`) when it is taken, never on the step
+    path.
   * `evaluation` — decorates a task's method (`reward`, `success`,
     `valid`, `membership`), and with `kind="action"` an action space's
     `step`: each call during a capture counts into its census by class and
@@ -61,7 +66,7 @@ import functools
 import os
 import statistics
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -76,6 +81,8 @@ SPAN_CAP = 1 << 17
 GRAPH_CAP = 64
 
 _NULL = contextlib.nullcontext()
+# The counters of `reading`, by name.
+_READINGS: Dict[str, Callable[[], object]] = {}
 # Tracing switched on by `enable()`.
 _on = False
 # The GraphRecord of the capture in progress, else None.
@@ -288,7 +295,8 @@ def summary(records: Optional[List[Span]] = None) -> dict:
     "gap_ms" (the mean device ms from one such span's end event to the
     next one's start event)}}, device keys for device spans only; and
     under "" the whole: {"wall_ms" from the first root's start to the
-    last root's end, "spans", "dropped"}. Waits for the events."""
+    last root's end, "spans", "dropped", "readings": {name: the value of
+    each `reading`}}. Waits for the events and reads the card."""
     records = spans() if records is None else records
     kids = [0] * len(records)
     for s in records:
@@ -316,8 +324,15 @@ def summary(records: Optional[List[Span]] = None) -> dict:
         out[p] = row
     out[""] = {"wall_ms": ((roots[-1].end - roots[0].start) / 1e6
                            if roots else None),
-               "spans": len(records), "dropped": dropped()}
+               "spans": len(records), "dropped": dropped(),
+               "readings": {n: fn() for n, fn in _READINGS.items()}}
     return out
+
+
+def reading(name: str, fn: Callable[[], object]) -> None:
+    """Registers the counter `name` that a kernel keeps on the card:
+    `summary()` reports fn() under "" → "readings"."""
+    _READINGS[name] = fn
 
 
 # ---------------------------------------------------------------------- #
@@ -426,7 +441,8 @@ class GraphRecord(_Open):
     `actions`: {(action space class, method): calls} (`evaluation` with
     `kind="action"`); `routes`: {(sampler class, route): calls}
     (`route`); `task_routes`: {(task class, route): calls}
-    (`task_route`).
+    (`task_route`); `readings`: {(kernel, mode): fn} of the kernels that
+    count on the card, `fn()` the last replay's count (`count`).
     """
 
     def __init__(self, name: str):
@@ -441,6 +457,7 @@ class GraphRecord(_Open):
         self.actions: Dict[Tuple[str, str], int] = {}
         self.routes: Dict[Tuple[str, str], int] = {}
         self.task_routes: Dict[Tuple[str, str], int] = {}
+        self.readings: Dict[Tuple[str, str], Callable[[], object]] = {}
         self._marks: List[Tuple[int, int]] = []  # (nodes so far, span)
         self._graph = None
         self._failed = False
@@ -513,9 +530,11 @@ class GraphRecord(_Open):
         self._graph = None
 
     def census_table(self) -> Dict[str, Dict[str, dict]]:
-        """{kernel: {mode: {"launches", "blocks"[, "slots"]}}} of one
-        replay, "slots" the sorted sprite slots of its scenes where
-        counted, {"task.<class>": {method: {"evaluations"}}},
+        """{kernel: {mode: {"launches", "blocks"[, "slots"][,
+        "live_units"]}}} of one replay, "slots" the sorted sprite slots of
+        its scenes where counted, "live_units" [live, all] where the kernel
+        counts them on the card (read now: the last replay's),
+        {"task.<class>": {method: {"evaluations"}}},
         {"action.<class>": {method: {"evaluations"}}},
         {"generator.<class>": {route: {"evaluations"}}} and
         {"task_route.<class>": {route: {"evaluations"}}}."""
@@ -525,6 +544,8 @@ class GraphRecord(_Open):
             row = {"launches": launches, "blocks": blocks}
             if (kernel, mode) in self.slots:
                 row["slots"] = sorted(self.slots[(kernel, mode)])
+            if (kernel, mode) in self.readings:
+                row["live_units"] = list(self.readings[(kernel, mode)]())
             out.setdefault(kernel, {})[mode] = row
         for (cls, method), n in sorted(self.evaluations.items()):
             out.setdefault(f"task.{cls}", {})[method] = {"evaluations": n}
@@ -562,10 +583,12 @@ def graphs() -> List[GraphRecord]:
 
 
 def count(kernel: str, mode: str, blocks: int = 0,
-          slots: Optional[int] = None) -> None:
+          slots: Optional[int] = None,
+          reading: Optional[Callable[[], object]] = None) -> None:
     """One launch of `kernel` in `mode` computing `blocks` threefry blocks
     (over scenes of `slots` sprite slots, where given), into the census of
-    the capture in progress, if any."""
+    the capture in progress, if any, with the `reading` of what the launch
+    counts on the card (the last such launch's)."""
     if _capture is None:
         return
     entry = _capture.census.setdefault((kernel, mode), [0, 0])
@@ -573,6 +596,8 @@ def count(kernel: str, mode: str, blocks: int = 0,
     entry[1] += blocks
     if slots is not None:
         _capture.slots.setdefault((kernel, mode), set()).add(int(slots))
+    if reading is not None:
+        _capture.readings[(kernel, mode)] = reading
 
 
 def evaluation(method=None, *, kind: str = "task"):

@@ -176,11 +176,15 @@ def test_hpass_buffer_is_the_transposed_planar_layout():
 def test_scene_layout_holds_a_band_of_the_canvas():
     """With the Lanczos filter the scene kernel fills and h-passes the
     canvas in bands of at most 80 rows: the layout grows with the canvas
-    width and the h-pass buffer, not with the canvas height."""
+    width, the h-pass buffer and the plan of its live units (a few words a
+    group of 8 canvas rows), not with a band of the canvas height."""
     k, v = 6, 30
     tall = tcuda.scene_smem_bytes(k, v, 640, 320, 128, 64, tcuda.DS_LANCZOS)
     square = tcuda.scene_smem_bytes(k, v, 320, 320, 64, 64,
                                     tcuda.DS_LANCZOS)
     wp, hp_tall = tcuda.hpass_geometry(640, 128, 64)
     _, hp_square = tcuda.hpass_geometry(320, 64, 64)
-    assert tall - square == 3 * wp * (hp_tall - hp_square)
+    plans = (tcuda.plan_bytes(k, 640, 128, 64)
+             - tcuda.plan_bytes(k, 320, 64, 64))
+    assert tall - square == 3 * wp * (hp_tall - hp_square) + plans
+    assert 0 < plans < 2048

@@ -235,7 +235,13 @@ def test_scene_layout_in_box_mode():
     wp, hp = tcuda.hpass_geometry(320, 64, 64)
     assert (wp, cp, hp) == (64, 336, 336)
     head8 = head - 2 * 8 * 32 * 4  # 8 warps' crossing scratch, not 16
-    assert lanczos == head8 + 80 * cp + 48 + 3 * wp * hp
+    # The plan of the live units: 6 sprites' bounds (four words each), the
+    # count and list of 40 groups of 8 canvas rows, 160 h-pass units (a bit
+    # each: 4 m-tiles x 2 words), 32 v-pass units (a word); rounded up to
+    # 16 bytes.
+    plan = (4 * (4 * 6 + 1 + 40 + 4 * 2 + 1) + 15) & ~15
+    assert tcuda.plan_bytes(k, 320, 64, 64) == plan
+    assert lanczos == head8 + 80 * cp + 48 + 3 * wp * hp + plan
     assert 2 * (lanczos + 1024) <= 228 * 1024
     assert 3 * (box + 1024) <= 228 * 1024
     budget = 232_448

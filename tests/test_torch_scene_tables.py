@@ -118,8 +118,8 @@ def test_cpu_factors_take_the_plain_twin_and_count_no_launch(monkeypatch):
 def test_launch_counter_counts_by_mode_and_batch_and_resets(monkeypatch):
     counted = []
     monkeypatch.setattr(profiling, "count",
-                        lambda kernel, mode, blocks=0, slots=None:
-                        counted.append((kernel, mode, slots)))
+                        lambda kernel, mode, blocks=0, slots=None,
+                        reading=None: counted.append((kernel, mode, slots)))
     tcuda.reset_launch_counts()
     tcuda._count_launch(tcuda.scene_tables, "exact+hsv", 2048, 12)
     tcuda._count_launch(tcuda.scene_tables, "exact+hsv", 1, 2)
